@@ -10,6 +10,7 @@ nonzero code and counts the launch under its kernel's name.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import os
 import shutil
@@ -25,16 +26,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # One launch counter per kernel; a wrapper adds one where it launches.
-launches = {"wire_expand": 0, "dual0_expand": 0, "model_pass": 0,
-            "lane_scan": 0, "lane_compact": 0}
+launches = {"wire_expand": 0, "dual0_expand": 0, "model_pass_v4": 0,
+            "lane_scan_dev": 0, "lane_compact": 0, "model_pass_v2": 0,
+            "lane_scan": 0, "model_pass_dict": 0, "model_pass": 0}
 
 # C entry -> argument kinds ('p' pointer, 'i' 64-bit int); the stream follows.
 _SIGNATURES = {
     "artc_wire_expand": "p" * 11 + "i" * 12,
     "artc_dual0_expand": "p" * 5 + "i" * 3,
-    "artc_model_pass": "p" * 13 + "i" * 16,
-    "artc_lane_scan": "p" * 6 + "i" * 3,
+    "artc_model_pass_v4": "p" * 13 + "i" * 16,
+    "artc_lane_scan_dev": "p" * 6 + "i" * 3,
     "artc_lane_compact": "p" * 4 + "i" * 3,
+    "artc_model_pass_v2": "p" * 15 + "i" * 15,
+    "artc_lane_scan": "p" * 7 + "i" * 2,
+    "artc_model_pass_dict": "p" * 13 + "i" * 10,
+    "artc_model_pass": "p" * 11 + "i" * 9,
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_longlong}
 
@@ -140,21 +146,35 @@ def _git_rev(cwd: str) -> str:
 
 
 def ensure_host_lib() -> str:
-    """Makes sure avrecode_tpu's native host library is built and current.
-    host.build_native uses CMake + ninja; where either is missing, compile
-    native/recode.cc directly with g++ and CMakeLists.txt's flags into the
-    same path, so host.lib() finds it fresh and never calls cmake."""
+    """Makes sure avrecode_tpu's native host library is built and current,
+    safely against other processes doing the same.
+
+    host.build_native runs cmake + ninja in one shared build directory with
+    no lock, so concurrent callers (pytest-xdist workers, two scripts) can
+    link a library from an object file another compile is still writing,
+    and then load it. Here the build runs under an exclusive flock on a lock
+    file beside the library: the holder re-checks staleness, compiles
+    native/recode.cc with g++ and CMakeLists.txt's flags into a private
+    temporary path, and renames it over the library, so no process ever
+    sees a partial file. Once this has run, host.lib() finds the library
+    current and never calls cmake."""
     from avrecode_tpu import host
     if not host._needs_rebuild():
         return host._LIB_PATH
-    if shutil.which("cmake") and shutil.which("ninja"):
-        return host.build_native()
     os.makedirs(host._BUILD_DIR, exist_ok=True)
-    tmp = f"{host._LIB_PATH}.{os.getpid()}.tmp"
-    build_id = _git_rev(host._NATIVE_DIR)
-    subprocess.run(["g++", "-std=c++17", "-O3", "-DNDEBUG", "-march=native", "-fPIC",
-                    "-shared", "-pthread", f'-DARTC_BUILD_ID="{build_id}"',
-                    "-I", host._NATIVE_DIR, "-o", tmp,
-                    os.path.join(host._NATIVE_DIR, "recode.cc")], check=True)
-    os.replace(tmp, host._LIB_PATH)
+    with open(os.path.join(host._BUILD_DIR, "libartc.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not host._needs_rebuild():  # built while we waited
+            return host._LIB_PATH
+        tmp = f"{host._LIB_PATH}.{os.getpid()}.tmp"
+        build_id = _git_rev(host._NATIVE_DIR)
+        try:
+            subprocess.run(["g++", "-std=c++17", "-O3", "-DNDEBUG", "-march=native",
+                            "-fPIC", "-shared", "-pthread", f'-DARTC_BUILD_ID="{build_id}"',
+                            "-I", host._NATIVE_DIR, "-o", tmp,
+                            os.path.join(host._NATIVE_DIR, "recode.cc")], check=True)
+            os.replace(tmp, host._LIB_PATH)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return host._LIB_PATH

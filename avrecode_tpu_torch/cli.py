@@ -1,7 +1,9 @@
 """CLI of the PyTorch + CUDA device path:
 
-    python -m avrecode_tpu_torch.cli compress <in> <out> [--device cuda]
-    python -m avrecode_tpu_torch.cli roundtrip <in> [out] [--device cuda]
+    python -m avrecode_tpu_torch.cli compress <in> <out> [--device cuda] [--model-profile 0]
+    python -m avrecode_tpu_torch.cli roundtrip <in> [out] [--device cuda] [--model-profile 0]
+
+Profile 0 runs the model pass that ARTC_MODEL_IMPL names (v2, dict, sort, mm).
 
 Compression runs through the port (avrecode_tpu_torch.device.compress);
 decompression and the roundtrip check run through the host decoder
@@ -32,6 +34,8 @@ def main(argv=None) -> int:
                    help="torch device: cuda runs the kernels, cpu their plain versions")
     p.add_argument("--chunk-mode", type=int, default=0, choices=[0, 1],
                    help="0 = picture-aligned sections; 1 = one chunk per IDR GOP")
+    p.add_argument("--model-profile", type=int, default=2, choices=[0, 2],
+                   help="2 = frozen batches (slim wire); 0 = immediate increments")
     args = p.parse_args(argv)
     if args.command == "compress" and not args.output:
         p.error("compress requires an output path")
@@ -39,7 +43,8 @@ def main(argv=None) -> int:
     with open(args.input, "rb") as f:
         data = f.read()
     t0 = time.perf_counter()
-    comp, st = td.compress(data, chunk_mode=args.chunk_mode, device=args.device)
+    comp, st = td.compress(data, chunk_mode=args.chunk_mode, model_profile=args.model_profile,
+                           device=args.device)
     compress_s = time.perf_counter() - t0
     dev = torch.device(args.device)
     report = {

@@ -1,9 +1,11 @@
 // K-lane interleaved binary rANS encode and the per-lane compaction of its
 // output.
 //
-// Replaces avrecode_tpu/ops/lanes.py::_lane_scan_dev (the reverse scan) and
-// ::_lane_compact (the emitted-word compaction); byte-identical to the host
-// codec (native/rans.h RansInterleaved::encode).
+// Replaces avrecode_tpu/ops/lanes.py::_lane_scan_dev (the reverse scan over
+// bins [0, n)), ::_lane_scan (the same scan over [T, K] planes with an
+// explicit valid mask, which need not be a prefix: the mesh slices it by
+// lane) and ::_lane_compact (the emitted-word compaction); byte-identical to
+// the host codec (native/rans.h RansInterleaved::encode).
 //
 // What bounds it: the scan is a serial recurrence of T steps per lane (T =
 // 65,536 at bench size) with one integer division per step; its K lanes are
@@ -28,10 +30,25 @@ namespace {
 
 constexpr uint32_t kRansL = 1u << 16;
 
-__global__ void lane_scan_kernel(const int* __restrict__ bits, const int* __restrict__ probs,
-                                 int* __restrict__ x_final, int* __restrict__ words,
-                                 int* __restrict__ emits, int* __restrict__ counts,
-                                 long long n, long long T, long long K) {
+// One encode step of state x for a bin of probability p (of a one) and value
+// bit; returns 1 if the low 16 bits of x were emitted first.
+__device__ inline int rans_step(uint32_t& x, uint32_t p, bool one) {
+  const uint32_t f = one ? p : artc::kProbScale - p;
+  const uint32_t c = one ? artc::kProbScale - p : 0u;
+  int e = 0;
+  if (x >= (f << 17)) {
+    e = 1;
+    x >>= 16;
+  }
+  x = ((x / f) << artc::kProbBits) + x % f + c;
+  return e;
+}
+
+__global__ void lane_scan_dev_kernel(const int* __restrict__ bits,
+                                     const int* __restrict__ probs, int* __restrict__ x_final,
+                                     int* __restrict__ words, int* __restrict__ emits,
+                                     int* __restrict__ counts, long long n, long long T,
+                                     long long K) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= K) return;
   uint32_t x = kRansL;
@@ -42,16 +59,33 @@ __global__ void lane_scan_kernel(const int* __restrict__ bits, const int* __rest
     int e = 0;
     if (idx < n) {  // bins past n are padding: no emission, no state change
       const int pv = probs[idx];
-      const uint32_t p = uint32_t(pv > 1 ? pv : 1);
-      const bool one = bits[idx] == 1;
-      const uint32_t f = one ? p : artc::kProbScale - p;
-      const uint32_t c = one ? artc::kProbScale - p : 0u;
-      if (x >= (f << 17)) {
-        e = 1;
-        x >>= 16;
-      }
-      x = ((x / f) << artc::kProbBits) + x % f + c;
+      e = rans_step(x, uint32_t(pv > 1 ? pv : 1), bits[idx] == 1);
     }
+    words[idx] = int(word);
+    emits[idx] = e;
+    count += e;
+  }
+  x_final[l] = int(x);
+  counts[l] = count;
+}
+
+// The same walk over [T, K] planes; step [t, l] runs where valid[t, l] is
+// nonzero, and an invalid step neither emits nor changes the state. As in
+// JAX's _lane_scan, p is taken as it is (valid probabilities are in
+// [1, 32767]).
+__global__ void lane_scan_kernel(const int* __restrict__ bits, const int* __restrict__ probs,
+                                 const uint8_t* __restrict__ valid, int* __restrict__ x_final,
+                                 int* __restrict__ words, int* __restrict__ emits,
+                                 int* __restrict__ counts, long long T, long long K) {
+  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= K) return;
+  uint32_t x = kRansL;
+  int count = 0;
+  for (long long t = T - 1; t >= 0; --t) {
+    const long long idx = t * K + l;
+    const uint32_t word = x & 0xffffu;
+    int e = 0;
+    if (valid[idx]) e = rans_step(x, uint32_t(probs[idx]), bits[idx] == 1);
     words[idx] = int(word);
     emits[idx] = e;
     count += e;
@@ -114,12 +148,21 @@ ARTC_API const char* artc_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-ARTC_API int artc_lane_scan(const int* bits, const int* probs, int* x_final, int* words,
-                            int* emits, int* counts, long long n, long long T, long long K,
-                            void* stream) {
+ARTC_API int artc_lane_scan_dev(const int* bits, const int* probs, int* x_final, int* words,
+                                int* emits, int* counts, long long n, long long T, long long K,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  lane_scan_kernel<<<artc::grid_for(K, 128), 128, 0, st>>>(bits, probs, x_final, words,
-                                                          emits, counts, n, T, K);
+  lane_scan_dev_kernel<<<artc::grid_for(K, 128), 128, 0, st>>>(bits, probs, x_final, words,
+                                                              emits, counts, n, T, K);
+  return int(cudaGetLastError());
+}
+
+ARTC_API int artc_lane_scan(const int* bits, const int* probs, const uint8_t* valid,
+                            int* x_final, int* words, int* emits, int* counts, long long T,
+                            long long K, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  lane_scan_kernel<<<artc::grid_for(K, 128), 128, 0, st>>>(bits, probs, valid, x_final,
+                                                          words, emits, counts, T, K);
   return int(cudaGetLastError());
 }
 

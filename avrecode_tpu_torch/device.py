@@ -1,12 +1,20 @@
-"""Device compress path on PyTorch + CUDA: host analysis -> on-card wire
-expand + frozen-batch model pass + rANS lanes -> container.
+"""Device compress path on PyTorch + CUDA: host analysis -> on-card model
+pass + rANS lanes -> container.
 
-Counterpart of the profile-2 (slim, ANL5) path of avrecode_tpu/device.py.
-The native host engine walks the syntax and exports one slim chunk at a
-time; each chunk is packed into one fused u32 blob, uploaded, expanded and
-modelled on the device, and lane-encoded there; the host packs the
-container. Decompression stays host-only (avrecode_tpu.pipeline), so every
-container is checked by an independent reader.
+Counterpart of avrecode_tpu/device.py, for both model profiles:
+
+  - profile 2 (frozen batches, the default): the native engine walks the
+    syntax and exports one slim (ANL5) chunk at a time; each chunk is packed
+    into one fused u32 blob, uploaded, expanded and modelled on the device,
+    and lane-encoded there (`to_torch_staged`, `_exec_v4`);
+  - profile 0 (immediate increments): the native engine exports the whole
+    dense analysis at once; each chunk's planes and tables are uploaded, the
+    model pass chosen by ARTC_MODEL_IMPL (v2, dict, sort or mm) computes its
+    probabilities, and `encode_interleaved` lane-encodes them.
+
+The host packs the container. Decompression stays host-only
+(avrecode_tpu.pipeline), so every container is checked by an independent
+reader.
 
 The JAX-free parsers and session helpers of avrecode_tpu.device are reused
 by import; `_build_blob4` is copied because the original imports the JAX
@@ -22,9 +30,10 @@ import numpy as np
 import torch
 
 from avrecode_tpu import host
-from avrecode_tpu.device import (Analysis, SlimChunk, _bucket_pow2, _chunk_layout,
-                                 _pack_session, _parse_header, _parse_slim_chunk,
-                                 _session_lib, _sig0_sparse_padded, pick_lanes)
+from avrecode_tpu.device import (Analysis, ChunkAnalysis, SlimChunk, _bucket_pow2,
+                                 _chunk_layout, _pack_session, _parse_analysis,
+                                 _parse_header, _parse_slim_chunk, _session_lib,
+                                 _sig0_dense, _sig0_sparse_padded, pick_lanes)
 from avrecode_tpu.device import analyze as _analyze
 
 from . import _native
@@ -207,29 +216,58 @@ def _run_v4(an: Analysis, c: SlimChunk, device, cache: dict | None = None):
     return _exec_v4(to_torch_staged(an, c, device, cache))
 
 
-def _require_slim(an: Analysis) -> None:
-    if not an.slim:
-        raise NotImplementedError(
-            "the port runs the slim (profile-2) analysis only; the profile-0 path "
-            "is ROADMAP.md Queue 1 item 6")
+def device_probs(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device,
+                 impl: str | None = None) -> np.ndarray:
+    """One chunk's model pass on `device`; returns uint16 probs[n]. A slim
+    chunk runs the frozen-batch pass; a profile-0 chunk runs the pass that
+    `impl` (default ops.model_pass.default_impl()) names: "v2" on the native
+    export's tables, or "dict", "sort" or "mm"."""
+    if an.slim:
+        probs, _ = _run_v4(an, chunk, device)
+        return probs[:chunk.n].cpu().numpy().astype(np.uint16)
+    device = _device(device)
+    impl = impl or mp.default_impl()
+    sig0 = _sig0_dense(chunk, an.n_sig)
+    if impl == "v2":
+        if chunk.v2_bin_u is None:
+            raise NotImplementedError(
+                "model_pass_v2 needs the native export's tables; building them on the "
+                "host (build_v2_inputs / run_chunk_v2) stays in the JAX package")
+        return mp.run_chunk_v2_tables(
+            chunk.kind, chunk.prior, chunk.pre_ones, chunk.pre_tot, chunk.v2_m,
+            chunk.v2_bin_u, chunk.v2_dk_d, chunk.v2_dk_s, chunk.v2_dd, chunk.v2_ds,
+            chunk.dual0, an.batch, an.sup, an.fast_w, an.slow_w, an.sig_w, an.sig_alpha,
+            an.n_sig, sig0=sig0, device=device)
+    return mp.run_chunk(chunk.bit, chunk.kind, chunk.key, chunk.prior, chunk.dual0, an.batch,
+                        an.fast_w, an.slow_w, an.sig_w, an.sig_alpha, an.n_sig, impl=impl,
+                        sig0=sig0, device=device)
 
 
-def device_probs(an: Analysis, chunk: SlimChunk, device) -> np.ndarray:
-    """One chunk's model pass on `device`; returns uint16 probs[n]."""
-    _require_slim(an)
-    probs, _ = _run_v4(an, chunk, device)
-    return probs[:chunk.n].cpu().numpy().astype(np.uint16)
-
-
-def device_blob(an: Analysis, chunk: SlimChunk, device,
-                force_lanes: int | None = None) -> bytes:
+def device_blob(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device,
+                probs: np.ndarray | None = None, force_lanes: int | None = None) -> bytes:
     """One chunk's rANS blob on `device`, byte-identical to the C++
-    RansInterleaved format; the model pass's (probs, bits) feed the lane
-    scan without leaving the device."""
-    _require_slim(an)
-    probs, bits = _run_v4(an, chunk, device)
-    return lx.encode_interleaved_dev(bits, probs, chunk.n,
-                                     force_lanes or pick_lanes(chunk.n))
+    RansInterleaved format. A slim chunk's model pass feeds (probs, bits) to
+    the lane scan without leaving the device; a profile-0 chunk encodes its
+    host bits with `probs` (computed by device_probs if not given)."""
+    if an.slim:
+        probs_dev, bits_dev = _run_v4(an, chunk, device)
+        return lx.encode_interleaved_dev(bits_dev, probs_dev, chunk.n,
+                                         force_lanes or pick_lanes(chunk.n))
+    if probs is None:
+        probs = device_probs(an, chunk, device)
+    return lx.encode_interleaved(chunk.bit, probs, force_lanes or pick_lanes(len(chunk.bit)),
+                                 device=_device(device))
+
+
+def _fetch(lib, rc: int, out, out_len) -> bytes:
+    """The native export a session call just returned (freed here); raises
+    on a nonzero rc."""
+    if rc != 0:
+        raise host.NativeError(lib.artc_last_error().decode())
+    try:
+        return ctypes.string_at(out, out_len.value)
+    finally:
+        lib.artc_free(out)
 
 
 def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
@@ -240,23 +278,10 @@ def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
     "cpu" their plain versions); writes the container
     avrecode_tpu.device.compress writes for the same parameters.
 
-    The native session's workers walk and export chunks while the loop
-    fetches chunk i, stages it and launches its expand, model pass and lane
-    scan (no readback), then reads chunk i-1's lane counts and launches its
-    compaction; the bulk downloads come last.
-
-    `info`, if given, receives wire_bytes (host->device bytes, cached
-    shared tables once), n_chunks, host-clock seconds per phase (open_s:
-    session open and the start of the native analysis; fetch_s: waiting for
-    and parsing each chunk's export; stage_s: blob packing and
-    uploads; launch_s: kernel launches; compact_s: the counts readback,
-    which waits for the lane scan, and the compaction launch; dispatch_s:
-    the whole chunk loop; emit_s: downloads and blob assembly; pack_s: the
-    container) and the per-chunk lane blobs; with keep_probs also each
-    chunk's probs (uint16[n], one extra download per chunk)."""
-    if model_profile != 2:
-        raise NotImplementedError(
-            "the port runs model_profile=2 only; profile 0 is ROADMAP.md Queue 1 item 6")
+    `info`, if given, receives n_chunks, the per-chunk lane blobs, pack_s
+    (host seconds of the container pack) and the host-clock phases of the
+    profile's path (see _compress_slim / _compress_dense); with keep_probs
+    also each chunk's probs (uint16[n])."""
     device = _device(device)
     lib = _lib()
     t_open = time.monotonic()
@@ -264,74 +289,107 @@ def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
     if not h:
         raise host.NativeError(lib.artc_last_error().decode())
     try:
-        out = ctypes.POINTER(ctypes.c_uint8)()
-        out_len = ctypes.c_size_t()
-        n_chunks = lib.artc_session_analyze_begin(h, mp.default_sup(), 0)
-        if n_chunks < 0:
-            raise host.NativeError(lib.artc_last_error().decode())
-        rc = lib.artc_session_analyze_header(h, ctypes.byref(out), ctypes.byref(out_len))
-        if rc != 0:
-            raise host.NativeError(lib.artc_last_error().decode())
-        try:
-            an, _ = _parse_header(ctypes.string_at(out, out_len.value))
-        finally:
-            lib.artc_free(out)
-        cache: dict = {}
-        handles: list = []
-        compacted: list = []
-        kept: list = []
-        prev = None
-        wire_bytes = 0
-        spent = dict.fromkeys(("fetch_s", "stage_s", "launch_s", "compact_s"), 0.0)
-        t_start = clock = time.monotonic()
-
-        def lap(key):
-            nonlocal clock
-            now = time.monotonic()
-            spent[key] += now - clock
-            clock = now
-
-        for i in range(n_chunks):
-            rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out), ctypes.byref(out_len))
-            if rc != 0:
-                raise host.NativeError(lib.artc_last_error().decode())
-            try:
-                raw = ctypes.string_at(out, out_len.value)
-            finally:
-                lib.artc_free(out)
-            c = _parse_slim_chunk(np.frombuffer(raw, np.uint8), an, prev)
-            prev = c
-            lap("fetch_s")
-            st = to_torch_staged(an, c, device, cache)
-            wire_bytes += st.wire_nbytes
-            lap("stage_s")
-            probs, bits = _exec_v4(st)
-            if keep_probs:
-                kept.append(probs[:c.n].cpu().numpy().astype(np.uint16))
-            handles.append(lx.encode_interleaved_start(
-                bits, probs, c.n, force_lanes or pick_lanes(c.n)))
-            lap("launch_s")
-            if i > 0:
-                compacted.append(lx.encode_interleaved_compact(handles[i - 1]))
-                lap("compact_s")
-        if handles:
-            compacted.append(lx.encode_interleaved_compact(handles[-1]))
-            lap("compact_s")
-        t_emit = time.monotonic()
-        blobs = [lx.encode_interleaved_emit(ch) for ch in compacted]
+        run = _compress_slim if model_profile == 2 else _compress_dense
+        blobs = run(lib, h, device, force_lanes, info, keep_probs, t_open)
         t_pack = time.monotonic()
         result = _pack_session(lib, h, blobs)
         if info is not None:
-            info.update(spent)
-            info["open_s"] = t_start - t_open
-            info["wire_bytes"] = wire_bytes
-            info["n_chunks"] = n_chunks
-            info["dispatch_s"] = t_emit - t_start
-            info["emit_s"] = t_pack - t_emit
             info["pack_s"] = time.monotonic() - t_pack
             info["blobs"] = blobs
-            if keep_probs:
-                info["probs"] = kept
         return result
     finally:
         lib.artc_session_close(h)
+
+
+def _compress_dense(lib, h, device, force_lanes, info, keep_probs, t_open) -> list[bytes]:
+    """Profile 0: one native export of the whole dense analysis, then per
+    chunk the model pass (ARTC_MODEL_IMPL) and the lane encode. info
+    phases (host clock): analyze_s (native analysis, export and parse),
+    model_s (uploads, model passes, probs downloads), lanes_s (lane
+    encodes)."""
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    out_len = ctypes.c_size_t()
+    rc = lib.artc_session_analyze2(h, mp.default_sup(), 0, ctypes.byref(out),
+                                   ctypes.byref(out_len))
+    an = _parse_analysis(_fetch(lib, rc, out, out_len))
+    t_model = time.monotonic()
+    probs = [device_probs(an, c, device) for c in an.chunks]
+    t_lanes = time.monotonic()
+    blobs = [device_blob(an, c, device, probs=p, force_lanes=force_lanes)
+             for c, p in zip(an.chunks, probs)]
+    if info is not None:
+        info.update(n_chunks=len(an.chunks), analyze_s=t_model - t_open,
+                    model_s=t_lanes - t_model, lanes_s=time.monotonic() - t_lanes)
+        if keep_probs:
+            info["probs"] = probs
+    return blobs
+
+
+def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> list[bytes]:
+    """Profile 2: the native session's workers walk and export chunks while
+    the loop fetches chunk i, stages it and launches its expand, model pass
+    and lane scan (no readback), then reads chunk i-1's lane counts and
+    launches its compaction; the bulk downloads come last.
+
+    info phases (host clock): wire_bytes (host->device bytes, cached shared
+    tables once), open_s (session open and the start of the native
+    analysis), fetch_s (waiting for and parsing each chunk's export),
+    stage_s (blob packing and uploads), launch_s (kernel launches),
+    compact_s (the counts readback, which waits for the lane scan, and the
+    compaction launch), dispatch_s (the whole chunk loop), emit_s
+    (downloads and blob assembly)."""
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    out_len = ctypes.c_size_t()
+    n_chunks = lib.artc_session_analyze_begin(h, mp.default_sup(), 0)
+    if n_chunks < 0:
+        raise host.NativeError(lib.artc_last_error().decode())
+    rc = lib.artc_session_analyze_header(h, ctypes.byref(out), ctypes.byref(out_len))
+    an, _ = _parse_header(_fetch(lib, rc, out, out_len))
+    cache: dict = {}
+    handles: list = []
+    compacted: list = []
+    kept: list = []
+    prev = None
+    wire_bytes = 0
+    spent = dict.fromkeys(("fetch_s", "stage_s", "launch_s", "compact_s"), 0.0)
+    t_start = clock = time.monotonic()
+
+    def lap(key):
+        nonlocal clock
+        now = time.monotonic()
+        spent[key] += now - clock
+        clock = now
+
+    for i in range(n_chunks):
+        rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out), ctypes.byref(out_len))
+        raw = _fetch(lib, rc, out, out_len)
+        c = _parse_slim_chunk(np.frombuffer(raw, np.uint8), an, prev)
+        prev = c
+        lap("fetch_s")
+        st = to_torch_staged(an, c, device, cache)
+        wire_bytes += st.wire_nbytes
+        lap("stage_s")
+        probs, bits = _exec_v4(st)
+        if keep_probs:
+            kept.append(probs[:c.n].cpu().numpy().astype(np.uint16))
+        handles.append(lx.encode_interleaved_start(
+            bits, probs, c.n, force_lanes or pick_lanes(c.n)))
+        lap("launch_s")
+        if i > 0:
+            compacted.append(lx.encode_interleaved_compact(handles[i - 1]))
+            lap("compact_s")
+    if handles:
+        compacted.append(lx.encode_interleaved_compact(handles[-1]))
+        lap("compact_s")
+    t_emit = time.monotonic()
+    blobs = [lx.encode_interleaved_emit(ch) for ch in compacted]
+    if info is not None:
+        info.update(spent)
+        info["open_s"] = t_start - t_open
+        info["wire_bytes"] = wire_bytes
+        info["n_chunks"] = n_chunks
+        info["dispatch_s"] = t_emit - t_start
+        info["emit_s"] = time.monotonic() - t_emit
+        if keep_probs:
+            info["probs"] = kept
+    return blobs

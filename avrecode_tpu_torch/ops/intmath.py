@@ -1,10 +1,10 @@
-"""Shared integer math of the frozen-batch model pass (plain PyTorch).
+"""Shared integer math of the model passes (plain PyTorch).
 
 Counterpart of avrecode_tpu/ops/model_pass.py:31-108. These are the plain
 versions the CPU path and the tests run; csrc/model_pass.cu carries the same
 arithmetic in int32 for the card. Plain code computes in int64: torch on the
 CPU has no shifts, division or comparisons for uint16/uint32, and every value
-here stays below 2^31 (tests/test_torch_model_pass.py asserts it), so int64
+here stays below 2^31 (the CPU tests assert it), so int64
 results equal the kernel's int32 ones.
 """
 from __future__ import annotations
@@ -67,3 +67,20 @@ def _dual_prob(dfp, dfn, dsp, dsn, prior_f, tag):
     dirich = _div_floor(((RES_DIR_K * dfp + dsp) << PROB_BITS) + RES_DIR_ALPHA * prior_f,
                         RES_DIR_K * (dfp + dfn) + dsp + dsn + RES_DIR_ALPHA)
     return _clamp_prob(torch.where(tag != 0, dirich, lin)), _clamp_prob(ps)
+
+
+def _prob_by_kind(kind, prior_raw, dfp, dfn, dsp, dsn, spos, sneg, alpha_on: int,
+                  alpha_off: int):
+    """Every model pass's per-bin probability from the bin's effective
+    estimator state (csrc/model_pass.cu bin_prob): kind 0 the dual mix, kind 1
+    the slow voice, kind 2 the sig counts mixed with the prior at weight
+    alpha_on or, when the prior's bit 15 is set, alpha_off; kind 3 the prior
+    passed through. Clamped to [1, 32767]."""
+    prior_f = prior_raw & 0x7FFF
+    tag = prior_raw >> 15
+    alpha_v = torch.where(tag != 0, alpha_off, alpha_on)
+    p_dual, p_slow = _dual_prob(dfp, dfn, dsp, dsn, prior_f, tag)
+    p_sig = _clamp_prob(_div_floor((spos << PROB_BITS) + alpha_v * prior_f,
+                                   (spos + sneg + alpha_v).clamp_min(1)))
+    prob = torch.where(kind == 0, p_dual, torch.where(kind == 1, p_slow, p_sig))
+    return torch.where(kind == 3, _clamp_prob(prior_f), prob)

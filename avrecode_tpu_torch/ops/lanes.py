@@ -7,8 +7,11 @@ step emits at most one u16 word per lane. The encode is staged in three
 phases, as in the JAX package: the scan, a tiny per-lane counts readback
 that sizes the compaction, and the bulk download that assembles the blob.
 
-`lane_scan_dev` and `lane_compact` each have a plain PyTorch version, taken
-only for CPU tensors, and a CUDA kernel (csrc/lanes.cu) for CUDA tensors.
+`lane_scan_dev` (bins [0, n) of device-resident streams, the profile-2
+path), `lane_scan` ([T, K] planes with an explicit valid mask: the profile-0
+path's `encode_interleaved`) and `lane_compact` each have a plain PyTorch
+version, taken only for CPU tensors, and a CUDA kernel (csrc/lanes.cu) for
+CUDA tensors.
 """
 from __future__ import annotations
 
@@ -37,12 +40,13 @@ def lane_scan_dev(bits_m: torch.Tensor, probs_m: torch.Tensor, n: int, T: int, K
     int64[K] (u32 states), words int32[T, K] (u16 values), emits int32[T, K]
     (0/1) and counts int32[K] (emissions per lane)."""
     if _native.on_cpu("lane_scan_dev", bits_m):
-        return _lane_scan_plain(bits_m, probs_m, n, T, K)
-    return _lane_scan_cuda(bits_m, probs_m, n, T, K)
+        return _lane_scan_dev_plain(bits_m, probs_m, n, T, K)
+    return _lane_scan_dev_cuda(bits_m, probs_m, n, T, K)
 
 
-def _lane_scan_plain(bits_m, probs_m, n: int, T: int, K: int):
-    """Plain version: one Python step per t over the K lanes (int64 math)."""
+def _lane_scan_dev_plain(bits_m, probs_m, n: int, T: int, K: int):
+    """Plain version: the bins as [T, K] planes (probabilities floored at 1,
+    as JAX's _lane_scan_dev does), the steps past n invalid."""
     size = T * K
     dev = bits_m.device
     b = torch.zeros(size, dtype=torch.int64, device=dev)
@@ -51,8 +55,46 @@ def _lane_scan_plain(bits_m, probs_m, n: int, T: int, K: int):
     b[:k] = bits_m[:k]
     p[:k] = probs_m[:k]
     valid = (torch.arange(size, device=dev) < n).reshape(T, K)
-    b = b.reshape(T, K)
-    p = torch.where(valid, p.reshape(T, K).clamp_min(1), 1)
+    return _lane_scan_plain(b.reshape(T, K), p.reshape(T, K).clamp_min(1), valid)
+
+
+def _lane_scan_dev_cuda(bits_m, probs_m, n: int, T: int, K: int):
+    _native.check_cuda("lane_scan_dev", bits_m, probs_m)
+    if bits_m.dim() != 1 or probs_m.shape != bits_m.shape or bits_m.shape[0] < n:
+        raise ValueError(f"lane_scan_dev: need 1-D bits/probs of >= {n} bins, "
+                         f"got {tuple(bits_m.shape)} / {tuple(probs_m.shape)}")
+    if T * K < n or not 1 <= K <= 1024:
+        raise ValueError(f"lane_scan_dev: T={T} K={K} cannot hold n={n}")
+    dev = bits_m.device
+    x_final = torch.empty(K, dtype=torch.int32, device=dev)
+    words = torch.empty((T, K), dtype=torch.int32, device=dev)
+    emits = torch.empty((T, K), dtype=torch.int32, device=dev)
+    counts = torch.empty(K, dtype=torch.int32, device=dev)
+    _native.launch("lane_scan_dev", "artc_lane_scan_dev", dev, bits_m, probs_m, x_final,
+                   words, emits, counts, n, T, K)
+    return x_final.to(torch.int64) & 0xFFFFFFFF, words, emits, counts
+
+
+def lane_scan(bits_tk: torch.Tensor, probs_tk: torch.Tensor, valid_tk: torch.Tensor):
+    """Reverse rANS scan over [T, K] planes with an explicit mask (JAX's
+    _lane_scan): step [t, l] encodes bin t*K + l where valid_tk[t, l] is
+    true, and an invalid step neither emits nor changes the state. The mask
+    need not be a prefix. bits_tk/probs_tk: int32[T, K], valid probabilities
+    in [1, 32767]; valid_tk: bool[T, K]. Returns x_final int64[K] (u32
+    states), words int32[T, K] (u16 values), emits int32[T, K] (0/1) and
+    counts int32[K] (emissions per lane)."""
+    if _native.on_cpu("lane_scan", bits_tk):
+        return _lane_scan_plain(bits_tk, probs_tk, valid_tk)
+    return _lane_scan_cuda(bits_tk, probs_tk, valid_tk)
+
+
+def _lane_scan_plain(bits_tk, probs_tk, valid_tk):
+    """Plain version: one Python step per t over the K lanes (int64 math)."""
+    T, K = bits_tk.shape
+    dev = bits_tk.device
+    b = bits_tk.to(torch.int64)
+    valid = valid_tk.to(torch.bool)
+    p = torch.where(valid, probs_tk.to(torch.int64), 1)  # invalid steps never divide
     x = torch.full((K,), RANS_L, dtype=torch.int64, device=dev)
     words = torch.empty((T, K), dtype=torch.int32, device=dev)
     emits = torch.empty((T, K), dtype=torch.bool, device=dev)
@@ -70,20 +112,22 @@ def _lane_scan_plain(bits_m, probs_m, n: int, T: int, K: int):
     return x, words, emits.to(torch.int32), emits.sum(0, dtype=torch.int32)
 
 
-def _lane_scan_cuda(bits_m, probs_m, n: int, T: int, K: int):
-    _native.check_cuda("lane_scan_dev", bits_m, probs_m)
-    if bits_m.dim() != 1 or probs_m.shape != bits_m.shape or bits_m.shape[0] < n:
-        raise ValueError(f"lane_scan_dev: need 1-D bits/probs of >= {n} bins, "
-                         f"got {tuple(bits_m.shape)} / {tuple(probs_m.shape)}")
-    if T * K < n or not 1 <= K <= 1024:
-        raise ValueError(f"lane_scan_dev: T={T} K={K} cannot hold n={n}")
-    dev = bits_m.device
+def _lane_scan_cuda(bits_tk, probs_tk, valid_tk):
+    _native.check_cuda("lane_scan", bits_tk, probs_tk)
+    _native.check_cuda("lane_scan", valid_tk, dtype=torch.bool)
+    if bits_tk.dim() != 2 or probs_tk.shape != bits_tk.shape \
+            or valid_tk.shape != bits_tk.shape or valid_tk.device != bits_tk.device:
+        raise ValueError("lane_scan: bits/probs/valid must all be [T, K] on one device")
+    T, K = bits_tk.shape
+    if not 1 <= K <= 1024:
+        raise ValueError(f"lane_scan: K={K} outside [1, 1024]")
+    dev = bits_tk.device
     x_final = torch.empty(K, dtype=torch.int32, device=dev)
     words = torch.empty((T, K), dtype=torch.int32, device=dev)
     emits = torch.empty((T, K), dtype=torch.int32, device=dev)
     counts = torch.empty(K, dtype=torch.int32, device=dev)
-    _native.launch("lane_scan", "artc_lane_scan", dev, bits_m, probs_m, x_final,
-                   words, emits, counts, n, T, K)
+    _native.launch("lane_scan", "artc_lane_scan", dev, bits_tk, probs_tk, valid_tk, x_final,
+                   words, emits, counts, T, K)
     return x_final.to(torch.int64) & 0xFFFFFFFF, words, emits, counts
 
 
@@ -201,3 +245,21 @@ def encode_interleaved_dev(bits_dev: torch.Tensor, probs_dev: torch.Tensor,
     """Full chunk encode from device-resident bits/probs; byte-identical to
     the host codec (native/rans.h)."""
     return encode_interleaved_finish(encode_interleaved_start(bits_dev, probs_dev, n, K))
+
+
+def encode_interleaved(bits: np.ndarray, probs: np.ndarray, K: int, *, device) -> bytes:
+    """Full chunk encode of host arrays (bits[n], probs[n] in [1, 32767]) on
+    `device`: the stream is padded to T = pow2(ceil(n / K)) steps with
+    invalid steps, uploaded as [T, K] planes, scanned by `lane_scan`,
+    compacted and assembled; byte-identical to the host codec
+    (native/rans.h)."""
+    n = len(bits)
+    if n == 0:
+        return _empty_blob(K)
+    T = _bucket(-(-n // K))
+    pad = T * K - n
+    planes = [np.concatenate([a.astype(dt), np.full(pad, fill, dt)]).reshape(T, K)
+              for a, dt, fill in ((bits, np.int32, 0), (probs, np.int32, 1),
+                                  (np.ones(n, bool), bool, False))]
+    b, p, v = (torch.from_numpy(a).to(device) for a in planes)
+    return encode_interleaved_finish((*lane_scan(b, p, v), n, K))

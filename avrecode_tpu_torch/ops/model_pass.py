@@ -1,23 +1,35 @@
-"""Frozen-batch (model profile 2) device pass over the ANL5 slim wire.
+"""Device model passes: probabilities for every coded bin of a chunk.
 
-Counterpart of the profile-2 path of avrecode_tpu/ops/model_pass.py:
+Counterpart of avrecode_tpu/ops/model_pass.py:
 
-  - `dual0_expand`: the dual0 row dictionary -> dense dual table;
-  - `wire_expand4_blob`: one fused u32 blob -> dense per-bin planes and the
-    per-sub-batch update-delta table (single device, mesh=False);
-  - `model_pass_v4` / `v3_core`: the frozen-batch probability scan, bit-exact
-    against the host profile-2 ModelEncoder (native/model.h).
+  - profile 2 (frozen batches, the ANL5 slim wire):
+    - `dual0_expand`: the dual0 row dictionary -> dense dual table;
+    - `wire_expand4_blob`: one fused u32 blob -> dense per-bin planes and the
+      per-sub-batch update-delta table (single device, mesh=False);
+    - `model_pass_v4` / `v3_core`: the frozen-batch probability scan;
+  - profile 0 (immediate increments, the dense analysis export):
+    - `model_pass_v2` (+ `run_chunk_v2_tables`): the super-batched scan with
+      host-shipped within-batch prefix counts (ARTC_MODEL_IMPL=v2, the
+      default);
+    - `model_pass_dict` (+ `build_dicts`, `run_chunk`): the per-batch
+      dictionary pass (impl "dict");
+    - `model_pass` (+ `run_chunk`): the per-batch scatter-add pass (impls
+      "sort" and "mm", which give identical outputs and share one kernel).
 
-Each function has a plain PyTorch version, taken only for CPU tensors, and a
-CUDA kernel (csrc/wire_expand.cu, csrc/model_pass.cu) for CUDA tensors.
-Tensors are int32; u32 data (the blob, the packed deltas) rides int32 bit
-patterns. The plain versions compute in int64 with explicit masks.
+Each is bit-exact against the host ModelEncoder of its profile
+(native/model.h). Each function has a plain PyTorch version, taken only for
+CPU tensors, and a CUDA kernel (csrc/wire_expand.cu, csrc/model_pass.cu) for
+CUDA tensors. Tensors are int32; u32 data (the blob, the packed deltas) rides
+int32 bit patterns. The plain versions compute in int64 with explicit masks.
+The run_* wrappers take and return numpy arrays and upload to an explicit
+`device`.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,6 +44,18 @@ def default_sup() -> int:
     # Super-step size (sub-batches per model step). 128 is the JAX package's
     # default (tuned on a TPU); probabilities do not depend on it.
     return int(os.environ.get("ARTC_MODEL_SUP", "128"))
+
+
+def default_impl() -> str:
+    """The profile-0 model pass: "v2" (default), "dict", "sort" or "mm",
+    from ARTC_MODEL_IMPL as in the JAX package."""
+    return os.environ.get("ARTC_MODEL_IMPL", "v2")
+
+
+# Largest batch of the dict/sort prefix kernel (csrc/model_pass.cu
+# kMaxPrefixBatch: one int32 per bin in 48 KB of shared memory).
+_PREFIX_MAX_BATCH = 12288
+_HALVE_DEFAULT = 16  # _halve_while's default count (dict and sort/mm passes)
 
 
 # Fused-blob segment order (word lengths derived from the element counts in
@@ -270,25 +294,38 @@ def _alphas(sig_alpha: int) -> tuple[int, int]:
 def _v3_core_plain(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, batch, sup,
                    fast_w, slow_w, sig_w, sig_alpha, ud, us, n_sig, sig0_idx, sig0_val):
     U = ud + us
-    m = kind_all.shape[0]
-    span = sup * batch
-    ns = m // span
+    ns = kind_all.shape[0] // (sup * batch)
     dev = kind_all.device
     i64 = torch.int64
-    alpha_on, alpha_off = _alphas(sig_alpha)
-    it_f = im._halve_iters(fast_w, batch)
-    it_s = im._halve_iters(slow_w, batch)
-    it_g = im._halve_iters(sig_w, batch)
-
     d = deltas.view(torch.int32).reshape(ns, sup, U).to(i64) & 0xFFFFFFFF
-    d_one, d_tot = d & 0xFFFF, d >> 16
     dual = torch.cat([dual0.to(i64), torch.ones((1 + ud, 4), dtype=i64, device=dev)])
     sig = torch.zeros((n_sig + us, 2), dtype=i64, device=dev)
     sig[n_sig:] = 1
     if sig0_idx is not None:
         keep = (sig0_idx >= 0) & (sig0_idx < n_sig)
         sig[sig0_idx[keep].to(i64)] = sig0_val[keep].to(i64)
-    probs = torch.empty(m, dtype=i64, device=dev)
+    return _staged_scan_plain(kind_all, slot_all, prior_all, None, None, dk_d, dk_s,
+                              d & 0xFFFF, d >> 16, dual, sig, batch, sup, fast_w, slow_w,
+                              sig_w, sig_alpha)
+
+
+def _staged_scan_plain(kind_all, slot_all, prior_all, pre1, pret, dk_d, dk_s, d_one, d_tot,
+                       dual, sig, batch, sup, fast_w, slow_w, sig_w, sig_alpha):
+    """The super-step scan of v3_core and model_pass_v2 (plain version).
+    d_one/d_tot: int64[ns, sup, U] per-sub-batch (ones, total) deltas; dual /
+    sig: the int64 start tables, updated in place; pre1/pret: per-bin
+    within-batch prefix counts added to every state column (v2), or None."""
+    ns, ud = dk_d.shape
+    us = dk_s.shape[1]
+    U = ud + us
+    span = sup * batch
+    dev = kind_all.device
+    i64 = torch.int64
+    alpha_on, alpha_off = _alphas(sig_alpha)
+    it_f = im._halve_iters(fast_w, batch)
+    it_s = im._halve_iters(slow_w, batch)
+    it_g = im._halve_iters(sig_w, batch)
+    probs = torch.empty(ns * span, dtype=i64, device=dev)
     sub_base = (torch.arange(sup, device=dev) * U).repeat_interleave(batch)
     for t in range(ns):
         kd = dk_d[t].to(i64)
@@ -313,16 +350,12 @@ def _v3_core_plain(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, bat
         # construction, so the clamp only mirrors that.
         sub_idx = (sub_base + slot_all[lo:hi].to(i64)).clamp(0, sup * U - 1)
         st = cst.reshape(sup * U, 6)[sub_idx]
-        kind = kind_all[lo:hi].to(i64)
-        prior_raw = prior_all[lo:hi].to(i64)
-        prior_f = prior_raw & 0x7FFF
-        tag = prior_raw >> 15
-        alpha_v = torch.where(tag != 0, alpha_off, alpha_on)
-        p_dual, p_slow = im._dual_prob(st[:, 0], st[:, 1], st[:, 2], st[:, 3], prior_f, tag)
-        p_sig = im._clamp_prob(im._div_floor((st[:, 4] << im.PROB_BITS) + alpha_v * prior_f,
-                                             (st[:, 4] + st[:, 5] + alpha_v).clamp_min(1)))
-        prob = torch.where(kind == 0, p_dual, torch.where(kind == 1, p_slow, p_sig))
-        probs[lo:hi] = torch.where(kind == 3, im._clamp_prob(prior_f), prob)
+        if pre1 is not None:
+            ones = pre1[lo:hi].to(i64)
+            zeros = pret[lo:hi].to(i64) - ones
+            st = st + torch.stack([ones, zeros] * 3, 1)
+        probs[lo:hi] = im._prob_by_kind(kind_all[lo:hi].to(i64), prior_all[lo:hi].to(i64),
+                                        *st.unbind(1), alpha_on, alpha_off)
         dual[kd] = dst
         sig[ks] = sst
     return probs.to(torch.int32)
@@ -359,9 +392,418 @@ def _v3_core_cuda(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, batc
     sig_tbl = torch.empty((n_sig + us) * 2, dtype=torch.int32, device=dev)
     cst = torch.empty(sup * 4 * U, dtype=torch.int32, device=dev)
     probs = torch.empty(m, dtype=torch.int32, device=dev)
-    _native.launch("model_pass", "artc_model_pass", dev, kind_all, slot_all, prior_all,
+    _native.launch("model_pass_v4", "artc_model_pass_v4", dev, kind_all, slot_all, prior_all,
                    dk_d, dk_s, d32, dual0, s_idx, s_val, dual_tbl, sig_tbl, cst, probs,
                    k_sig0, n_dual, n_sig, ns, sup, batch, ud, us, fast_w, slow_w, sig_w,
                    im._halve_iters(fast_w, batch), im._halve_iters(slow_w, batch),
                    im._halve_iters(sig_w, batch), alpha_on, alpha_off)
     return probs
+
+
+# -------------------------------------------------------------- model_pass_v2
+
+def model_pass_v2(kinds, priors, pre1, pret, bin_u, dk_d, dk_s, dd, ds, dual0, sig0, *,
+                  batch: int, sup: int, fast_w: int, slow_w: int, sig_w: int,
+                  sig_alpha: int):
+    """Super-batched profile-0 pass: v3_core's scan with the host's
+    within-batch prefix counts on top.
+
+    kinds/priors/pre1/pret/bin_u: int32[ns, sup, batch]; bin_u in [0, U)
+      over the concatenated (dual ++ sig) dictionary, U = ud + us (kind-3 and
+      pad bins point at the last dual pad entry, whose row holds ones).
+    dk_d: int32[ns, ud] / dk_s: int32[ns, us] sorted-unique table rows per
+      super-step (padded with distinct scratch rows).
+    dd: int32[ns, sup, ud, 2] / ds: int32[ns, sup, us, 2] per-sub-batch
+      (ones, total) deltas.
+    dual0: int32[n_dual + 1 + ud, 4] and sig0: int32[n_sig + us, 2], the
+      extended start tables (not modified).
+
+    Each bin's state is its sub-batch's staged row at bin_u plus (pre1,
+    pret - pre1) on every (positive, negative) column pair. Returns probs
+    int32[ns * sup * batch]."""
+    if _native.on_cpu("model_pass_v2", kinds):
+        return _model_pass_v2_plain(kinds, priors, pre1, pret, bin_u, dk_d, dk_s, dd, ds,
+                                    dual0, sig0, batch, sup, fast_w, slow_w, sig_w,
+                                    sig_alpha)
+    return _model_pass_v2_cuda(kinds, priors, pre1, pret, bin_u, dk_d, dk_s, dd, ds, dual0,
+                               sig0, batch, sup, fast_w, slow_w, sig_w, sig_alpha)
+
+
+def _model_pass_v2_plain(kinds, priors, pre1, pret, bin_u, dk_d, dk_s, dd, ds, dual0, sig0,
+                         batch, sup, fast_w, slow_w, sig_w, sig_alpha):
+    i64 = torch.int64
+    d = torch.cat([dd, ds], 2).to(i64)  # [ns, sup, U, 2]
+    return _staged_scan_plain(kinds.reshape(-1), bin_u.reshape(-1), priors.reshape(-1),
+                              pre1.reshape(-1), pret.reshape(-1), dk_d, dk_s, d[..., 0],
+                              d[..., 1], dual0.to(i64, copy=True), sig0.to(i64, copy=True),
+                              batch, sup, fast_w, slow_w, sig_w, sig_alpha)
+
+
+def _model_pass_v2_cuda(kinds, priors, pre1, pret, bin_u, dk_d, dk_s, dd, ds, dual0, sig0,
+                        batch, sup, fast_w, slow_w, sig_w, sig_alpha):
+    _native.check_cuda("model_pass_v2", kinds, priors, pre1, pret, bin_u, dk_d, dk_s, dd, ds,
+                       dual0, sig0)
+    ns, ud = dk_d.shape
+    us = dk_s.shape[1]
+    U = ud + us
+    planes = (ns, sup, batch)
+    if any(tuple(x.shape) != planes for x in (kinds, priors, pre1, pret, bin_u)):
+        raise ValueError(f"model_pass_v2: bin planes must be int32{list(planes)}")
+    if dk_s.shape[0] != ns or dd.shape != (ns, sup, ud, 2) or ds.shape != (ns, sup, us, 2):
+        raise ValueError("model_pass_v2: dd/ds must be [ns, sup, ud|us, 2]")
+    if dual0.dim() != 2 or dual0.shape[1] != 4 or sig0.dim() != 2 or sig0.shape[1] != 2:
+        raise ValueError("model_pass_v2: tables must be [n, 4] / [n, 2]")
+    dev = kinds.device
+    alpha_on, alpha_off = _alphas(sig_alpha)
+    dual = torch.empty_like(dual0)
+    sig = torch.empty_like(sig0)
+    cst = torch.empty(sup * 4 * U, dtype=torch.int32, device=dev)
+    probs = torch.empty(ns * sup * batch, dtype=torch.int32, device=dev)
+    _native.launch("model_pass_v2", "artc_model_pass_v2", dev, kinds, priors, pre1, pret,
+                   bin_u, dk_d, dk_s, dd, ds, dual0, sig0, dual, sig, cst, probs,
+                   dual0.shape[0], sig0.shape[0], ns, sup, batch, ud, us, fast_w, slow_w,
+                   sig_w, im._halve_iters(fast_w, batch), im._halve_iters(slow_w, batch),
+                   im._halve_iters(sig_w, batch), alpha_on, alpha_off)
+    return probs
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+
+def _padded(a: np.ndarray, pad: int, value: int) -> np.ndarray:
+    return np.concatenate([a.astype(np.int32), np.full(pad, value, np.int32)])
+
+
+def run_chunk_v2_tables(kind, prior, pre_ones, pre_tot, v2_m, bin_u, dk_d, dk_s, dd, ds,
+                        dual0, batch, sup, fast_w, slow_w, sig_w, sig_alpha, n_sig,
+                        sig0=None, *, device):
+    """model_pass_v2 over one chunk with the native export's tables (numpy
+    in, uint16 probs[n] out): pads the bin stream to v2_m with kind-3 no-ops,
+    extends the tables (dual0 + 1 + ud rows of ones, sig0 or zeros + us rows
+    of ones), uploads to `device` and runs the pass."""
+    n = len(kind)
+    if n == 0:
+        return np.zeros(0, np.uint16)
+    m = int(v2_m)
+    pad = m - n
+    ns = m // (sup * batch)
+    ud = dk_d.shape[1]
+    us = dk_s.shape[1]
+    sh = (ns, sup, batch)
+    dual_ext = np.concatenate([dual0.astype(np.int32), np.ones((1 + ud, 4), np.int32)])
+    sig_base = np.zeros((n_sig, 2), np.int32) if sig0 is None else sig0.astype(np.int32)
+    sig_ext = np.concatenate([sig_base, np.ones((us, 2), np.int32)])
+    planes = [_padded(a, pad, v).reshape(sh) for a, v in (
+        (kind, 3), (prior, 1), (pre_ones, 0), (pre_tot, 0))]
+    probs = model_pass_v2(
+        *(_upload(a, device) for a in planes), _upload(bin_u.reshape(sh), device),
+        *(_upload(a, device) for a in (dk_d, dk_s, dd, ds, dual_ext, sig_ext)),
+        batch=int(batch), sup=int(sup), fast_w=int(fast_w), slow_w=int(slow_w),
+        sig_w=int(sig_w), sig_alpha=int(sig_alpha))
+    return probs[:n].cpu().numpy().astype(np.uint16)
+
+
+# ---------------------------------------------- model_pass_dict / model_pass
+
+def _prefix_counts_plain(key: torch.Tensor, bit: torch.Tensor):
+    """Within-batch per-key exclusive prefix counts of int64[nb, B] keys and
+    bits: pre_ones[b, i] = #{j < i : key[b, j] == key[b, i], bit[b, j] == 1}
+    and pre_tot likewise without the bit, by a stable sort and segmented
+    cumulative sums (JAX's "sort" formulation)."""
+    nb, B = key.shape
+    ks, order = torch.sort(key, dim=1, stable=True)
+    bs = torch.gather(bit, 1, order)
+    pos = torch.arange(B, device=key.device).expand(nb, B)
+    start = torch.ones_like(ks, dtype=torch.bool)
+    start[:, 1:] = ks[:, 1:] != ks[:, :-1]
+    ex = torch.cumsum(bs, 1) - bs
+    seg_ex = torch.cummax(torch.where(start, ex, -1), 1).values
+    seg_first = torch.cummax(torch.where(start, pos, -1), 1).values
+    pre1 = torch.empty_like(ex).scatter_(1, order, ex - seg_ex)
+    pret = torch.empty_like(ex).scatter_(1, order, pos - seg_first)
+    return pre1, pret
+
+
+def _halve_table_plain(tbl: torch.Tensor, c: int, window: int) -> None:
+    """_halve_while (16 iterations) over columns (c, c+1) of every row of
+    `tbl`, in place. Only rows over the window change, so only those are
+    computed: the same result as halving the whole table."""
+    rows = ((tbl[:, c] + tbl[:, c + 1]) > window).nonzero().squeeze(1)
+    p, n = im._halve_while(tbl[rows, c], tbl[rows, c + 1], window, _HALVE_DEFAULT)
+    tbl[rows, c] = p
+    tbl[rows, c + 1] = n
+
+
+def model_pass_dict(bits, kinds, priors, bin_u, dict_keys, dual0, sig0, *, batch: int,
+                    fast_w: int, slow_w: int, sig_w: int, sig_alpha: int):
+    """Per-batch dictionary pass (profile 0).
+
+    bits/kinds/priors/bin_u: int32[nb, batch]; bin_u in [0, U) indexes the
+      batch's row of dict_keys: int32[nb, U] unified keys (a dual key, or
+      n_dual + a sig key), unique per row except that padding entries repeat
+      the dual scratch key n_dual - 1.
+    dual0: int32[n_dual, 4] and sig0: int32[n_sig, 2] start tables, each
+      ending in its scratch row (not modified).
+
+    Batch by batch: each bin's state is its entry's row as of the batch start
+    plus its within-batch per-entry prefix counts; then every entry's row
+    takes the batch's counts (kind 3 updates nothing, kind 2 only sig rows)
+    and is halved (16 iterations). Scratch rows are never written: they feed
+    only kind-3 bins (whose probability is the prior) and padding, and a
+    write to them is a race between the entries that alias them. Returns
+    probs int32[nb * batch]."""
+    if _native.on_cpu("model_pass_dict", bits):
+        return _model_pass_dict_plain(bits, kinds, priors, bin_u, dict_keys, dual0, sig0,
+                                      batch, fast_w, slow_w, sig_w, sig_alpha)
+    return _model_pass_dict_cuda(bits, kinds, priors, bin_u, dict_keys, dual0, sig0, batch,
+                                 fast_w, slow_w, sig_w, sig_alpha)
+
+
+def _model_pass_dict_plain(bits, kinds, priors, bin_u, dict_keys, dual0, sig0, batch, fast_w,
+                           slow_w, sig_w, sig_alpha):
+    i64 = torch.int64
+    nb, U = dict_keys.shape
+    n_dual, n_sig = dual0.shape[0], sig0.shape[0]
+    dev = bits.device
+    alpha_on, alpha_off = _alphas(sig_alpha)
+    bit, kind, prior, bu_raw = (x.to(i64).reshape(nb, batch)
+                                for x in (bits, kinds, priors, bin_u))
+    pre1, pret = _prefix_counts_plain(bu_raw, bit)
+    bu = bu_raw.clamp(0, U - 1)
+    m_dual = ((kind != 2) & (kind != 3)).to(i64)
+    m_sig = (kind == 2).to(i64)
+    flat = (torch.arange(nb, device=dev)[:, None] * U + bu).reshape(-1)
+    tot = torch.zeros((nb * U, 4), dtype=i64, device=dev)
+    tot.index_add_(0, flat, torch.stack([bit * m_dual, m_dual, bit * m_sig, m_sig],
+                                        -1).reshape(-1, 4))
+    tot = tot.reshape(nb, U, 4)
+    dk = dict_keys.to(i64)
+    is_sig = dk >= n_dual
+    drow = torch.where(is_sig, n_dual - 1, dk).clamp(0, n_dual - 1)
+    srow = torch.where(is_sig, dk - n_dual, n_sig - 1).clamp(0, n_sig - 1)
+    dual = dual0.to(i64, copy=True)
+    sig = sig0.to(i64, copy=True)
+    probs = torch.empty((nb, batch), dtype=i64, device=dev)
+    for b in range(nb):
+        dstate = dual[drow[b]]
+        sstate = sig[srow[b]]
+        d = dstate[bu[b]]
+        s = sstate[bu[b]]
+        ones = pre1[b]
+        zeros = pret[b] - ones
+        probs[b] = im._prob_by_kind(kind[b], prior[b], d[:, 0] + ones, d[:, 1] + zeros,
+                                    d[:, 2] + ones, d[:, 3] + zeros, s[:, 0] + ones,
+                                    s[:, 1] + zeros, alpha_on, alpha_off)
+        t = tot[b]
+        fp, fn = im._halve_while(dstate[:, 0] + t[:, 0], dstate[:, 1] + t[:, 1] - t[:, 0],
+                                 fast_w, _HALVE_DEFAULT)
+        sp, sn = im._halve_while(dstate[:, 2] + t[:, 0], dstate[:, 3] + t[:, 1] - t[:, 0],
+                                 slow_w, _HALVE_DEFAULT)
+        gp, gn = im._halve_while(sstate[:, 0] + t[:, 2], sstate[:, 1] + t[:, 3] - t[:, 2],
+                                 sig_w, _HALVE_DEFAULT)
+        live_d = drow[b] != n_dual - 1
+        live_s = srow[b] != n_sig - 1
+        dual[drow[b][live_d]] = torch.stack([fp, fn, sp, sn], 1)[live_d]
+        sig[srow[b][live_s]] = torch.stack([gp, gn], 1)[live_s]
+    return probs.reshape(-1).to(torch.int32)
+
+
+def _check_batch(name: str, batch: int) -> None:
+    if not 1 <= batch <= _PREFIX_MAX_BATCH:
+        raise ValueError(f"{name}: batch={batch} outside the prefix kernel's "
+                         f"[1, {_PREFIX_MAX_BATCH}]")
+
+
+def _model_pass_dict_cuda(bits, kinds, priors, bin_u, dict_keys, dual0, sig0, batch, fast_w,
+                          slow_w, sig_w, sig_alpha):
+    _native.check_cuda("model_pass_dict", bits, kinds, priors, bin_u, dict_keys, dual0, sig0)
+    _check_batch("model_pass_dict", batch)
+    nb, U = dict_keys.shape
+    if any(x.numel() != nb * batch for x in (bits, kinds, priors, bin_u)):
+        raise ValueError(f"model_pass_dict: bin planes must hold {nb} x {batch} bins")
+    if dual0.dim() != 2 or dual0.shape[1] != 4 or sig0.dim() != 2 or sig0.shape[1] != 2:
+        raise ValueError("model_pass_dict: tables must be [n, 4] / [n, 2]")
+    dev = bits.device
+    alpha_on, alpha_off = _alphas(sig_alpha)
+    i32 = torch.int32
+    pre1 = torch.empty(nb * batch, dtype=i32, device=dev)
+    pret = torch.empty(nb * batch, dtype=i32, device=dev)
+    tot = torch.zeros(nb * U * 4, dtype=i32, device=dev)
+    probs = torch.empty(nb * batch, dtype=i32, device=dev)
+    _native.launch("model_pass_dict", "artc_model_pass_dict", dev, bits, kinds, priors, bin_u,
+                   dict_keys, dual0, sig0, torch.empty_like(dual0), torch.empty_like(sig0),
+                   pre1, pret, tot, probs, nb, batch, U, dual0.shape[0], sig0.shape[0],
+                   fast_w, slow_w, sig_w, alpha_on, alpha_off)
+    return probs
+
+
+_IMPLS = ("sort", "mm")
+
+
+def model_pass(bits, kinds, keys, priors, dual0, sig0, *, batch: int, fast_w: int,
+               slow_w: int, sig_w: int, sig_alpha: int, impl: str = "sort"):
+    """Per-batch profile-0 pass; "sort" and "mm" name the two TPU
+    formulations of its within-batch prefix counts (a stable sort, a masked
+    key-equality product), which give identical outputs: both run the same
+    kernel here.
+
+    bits/kinds/keys/priors: int32[nb * batch] (padding: kind 0, the scratch
+      key n_dual - 1, bit 0, prior 0).
+    dual0: int32[n_dual, 4] start table ending in its scratch row; sig0:
+      int32[n_sig, 2] (neither is modified).
+
+    Batch by batch: kind-3 bins are retargeted at the dual scratch row and
+    sig bins read the sig table (key) and the dual scratch row; each bin's
+    state is its rows as of the batch start plus its within-batch per-key
+    prefix counts; then every bin adds its count to its row and both whole
+    tables are halved (16 iterations). Returns probs int32[nb * batch]."""
+    if impl not in _IMPLS:
+        raise ValueError(f"model_pass impl must be 'sort' or 'mm', got {impl!r}")
+    if _native.on_cpu("model_pass", bits):
+        return _model_pass_plain(bits, kinds, keys, priors, dual0, sig0, batch, fast_w,
+                                 slow_w, sig_w, sig_alpha)
+    return _model_pass_cuda(bits, kinds, keys, priors, dual0, sig0, batch, fast_w, slow_w,
+                            sig_w, sig_alpha)
+
+
+def _model_pass_plain(bits, kinds, keys, priors, dual0, sig0, batch, fast_w, slow_w, sig_w,
+                      sig_alpha):
+    i64 = torch.int64
+    nb = bits.numel() // batch
+    n_dual, n_sig = dual0.shape[0], sig0.shape[0]
+    dev = bits.device
+    alpha_on, alpha_off = _alphas(sig_alpha)
+    bit, kind, key, prior = (x.to(i64).reshape(nb, batch) for x in (bits, kinds, keys, priors))
+    is_sig = kind == 2
+    is_ext = kind == 3
+    key = torch.where(is_ext, n_dual - 1, key)
+    pre1, pret = _prefix_counts_plain(torch.where(is_sig, key + n_dual, key), bit)
+    dkey = torch.where(is_sig, n_dual - 1, key)
+    skey = torch.where(is_sig, key, 0)
+    # Gathers clamp as JAX's do; adds drop out-of-range rows, and sig / kind-3
+    # bins add nothing to the dual table (non-sig bins nothing to sig).
+    dg = dkey.clamp(0, n_dual - 1)
+    sg = skey.clamp(0, n_sig - 1)
+    add_d = ~(is_sig | is_ext) & (dkey >= 0) & (dkey < n_dual)
+    add_s = is_sig & (skey >= 0) & (skey < n_sig)
+    dual = dual0.to(i64, copy=True)
+    sig = sig0.to(i64, copy=True)
+    probs = torch.empty((nb, batch), dtype=i64, device=dev)
+    for b in range(nb):
+        d = dual[dg[b]]
+        s = sig[sg[b]]
+        ones = pre1[b]
+        zeros = pret[b] - ones
+        probs[b] = im._prob_by_kind(kind[b], prior[b], d[:, 0] + ones, d[:, 1] + zeros,
+                                    d[:, 2] + ones, d[:, 3] + zeros, s[:, 0] + ones,
+                                    s[:, 1] + zeros, alpha_on, alpha_off)
+        one = bit[b]
+        zero = 1 - one
+        m = add_d[b]
+        dual.index_add_(0, dkey[b][m], torch.stack([one, zero, one, zero], 1)[m])
+        m = add_s[b]
+        sig.index_add_(0, skey[b][m], torch.stack([one, zero], 1)[m])
+        _halve_table_plain(dual, 0, fast_w)
+        _halve_table_plain(dual, 2, slow_w)
+        _halve_table_plain(sig, 0, sig_w)
+    return probs.reshape(-1).to(torch.int32)
+
+
+def _model_pass_cuda(bits, kinds, keys, priors, dual0, sig0, batch, fast_w, slow_w, sig_w,
+                     sig_alpha):
+    _native.check_cuda("model_pass", bits, kinds, keys, priors, dual0, sig0)
+    _check_batch("model_pass", batch)
+    n = bits.numel()
+    nb = n // batch
+    if n != nb * batch or any(x.numel() != n for x in (kinds, keys, priors)):
+        raise ValueError(f"model_pass: bin planes must hold whole batches of {batch} bins")
+    if dual0.dim() != 2 or dual0.shape[1] != 4 or sig0.dim() != 2 or sig0.shape[1] != 2:
+        raise ValueError("model_pass: tables must be [n, 4] / [n, 2]")
+    dev = bits.device
+    alpha_on, alpha_off = _alphas(sig_alpha)
+    i32 = torch.int32
+    pre1 = torch.empty(n, dtype=i32, device=dev)
+    pret = torch.empty(n, dtype=i32, device=dev)
+    probs = torch.empty(n, dtype=i32, device=dev)
+    _native.launch("model_pass", "artc_model_pass", dev, bits, kinds, keys, priors, dual0, sig0,
+                   torch.empty_like(dual0), torch.empty_like(sig0), pre1, pret, probs, nb,
+                   batch, dual0.shape[0], sig0.shape[0], fast_w, slow_w, sig_w, alpha_on,
+                   alpha_off)
+    return probs
+
+
+def _bucket(n_batches: int) -> int:
+    # Batch counts pad to a power of two, as in the JAX package (its programs
+    # are reused across chunk sizes; here only the padded output is the same).
+    b = 1
+    while b < n_batches:
+        b *= 2
+    return b
+
+
+def build_dicts(kind_p, key_p, n_dual_ext, batch):
+    """Per-batch unique-key dictionaries for the dict pass (host numpy, a
+    copy of the JAX package's: its module imports jax).
+
+    Returns (bin_u int32[n_batches, batch], dict_keys int32[n_batches, U])
+    where U is a power-of-two bucket of the max per-batch unique count.
+    Unified key space: dual keys as-is (kind-3 bins retargeted at the scratch
+    row n_dual_ext - 1, as in model_pass), sig keys offset by n_dual_ext.
+    Padding entries repeat the scratch key."""
+    scratch = n_dual_ext - 1
+    ukey = np.where(kind_p == 3, scratch, key_p.astype(np.int64))
+    ukey = np.where(kind_p == 2, key_p.astype(np.int64) + n_dual_ext, ukey)
+    nb = len(ukey) // batch
+    ukey_b = ukey.reshape(nb, batch)
+    uniqs = []
+    invs = np.empty((nb, batch), np.int32)
+    for i in range(nb):
+        u, inv = np.unique(ukey_b[i], return_inverse=True)
+        uniqs.append(u)
+        invs[i] = inv.astype(np.int32)
+    u_width = _bucket(max(len(u) for u in uniqs))
+    dict_keys = np.full((nb, u_width), scratch, np.int32)
+    for i, u in enumerate(uniqs):
+        dict_keys[i, :len(u)] = u.astype(np.int32)
+    return invs, dict_keys
+
+
+def run_chunk(bit, kind, key, prior, dual0, batch, fast_w, slow_w, sig_w, sig_alpha, n_sig,
+              impl=None, sig0=None, *, device):
+    """The dict / sort / mm pass over one chunk (numpy in, uint16 probs[n]
+    out): pads the stream to a power-of-two count of batches (padding bins:
+    kind 0, the scratch key, bit 0, prior 0), appends the dual scratch row
+    (ones) and, for dict, the sig scratch row (zeros), uploads to `device`
+    and runs the pass. `impl` defaults to default_impl(); any other value than
+    "dict", "sort" or "mm" raises."""
+    impl = impl or default_impl()
+    if impl != "dict" and impl not in _IMPLS:
+        raise ValueError(f"run_chunk impl must be 'dict', 'sort' or 'mm', got {impl!r}")
+    n = len(bit)
+    if n == 0:
+        return np.zeros(0, np.uint16)
+    n_dual = dual0.shape[0]
+    m = _bucket(-(-n // batch)) * batch
+    pad = m - n
+    scratch = n_dual  # the appended scratch row
+    bit_p = _padded(bit, pad, 0)
+    kind_p = _padded(kind, pad, 0)
+    key_p = _padded(key, pad, scratch)
+    prior_p = _padded(prior, pad, 0)
+    dual_ext = np.concatenate([dual0.astype(np.int32), np.ones((1, 4), np.int32)])
+    sig_base = np.zeros((n_sig, 2), np.int32) if sig0 is None else sig0.astype(np.int32)
+    kw = dict(batch=int(batch), fast_w=int(fast_w), slow_w=int(slow_w), sig_w=int(sig_w),
+              sig_alpha=int(sig_alpha))
+    if impl == "dict":
+        nb = m // batch
+        bin_u, dict_keys = build_dicts(kind_p, key_p, n_dual + 1, batch)
+        sig_ext = np.concatenate([sig_base, np.zeros((1, 2), np.int32)])
+        probs = model_pass_dict(
+            *(_upload(a.reshape(nb, batch), device) for a in (bit_p, kind_p, prior_p)),
+            *(_upload(a, device) for a in (bin_u, dict_keys, dual_ext, sig_ext)), **kw)
+    else:
+        probs = model_pass(*(_upload(a, device) for a in (bit_p, kind_p, key_p, prior_p,
+                                                           dual_ext, sig_base)),
+                           impl=impl, **kw)
+    return probs[:n].cpu().numpy().astype(np.uint16)

@@ -20,6 +20,10 @@ from avrecode_tpu_torch.ops import model_pass as tmp
 
 pytestmark = pytest.mark.cuda
 
+# Built here, under the port's lock, before any test of any module can reach
+# the host library's unlocked build (see _native.ensure_host_lib).
+_native.ensure_host_lib()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIP = os.path.join(REPO, "benchdata", "multigop720.mp4")
 
@@ -53,7 +57,7 @@ def test_lane_kernels_match_plain_and_c(cuda, lanes):
     p = torch.from_numpy(probs.astype(np.int32)).to(cuda)
     T = tl._bucket(-(-n // lanes))
     got = tl.lane_scan_dev(b, p, n, T, lanes)
-    for g, w in zip(got, tl._lane_scan_plain(b, p, n, T, lanes)):
+    for g, w in zip(got, tl._lane_scan_dev_plain(b, p, n, T, lanes)):
         _equal(g, w)
     maxW = tl._bucket(int(got[3].max()))
     _equal(tl.lane_compact(got[1], got[2], maxW), tl._lane_compact_plain(got[1], got[2], maxW))
@@ -83,12 +87,101 @@ def test_expand_and_model_kernels_match_plain(cuda, clip_analysis):
     assert np.array_equal(probs[:c.n].cpu().numpy(), c.host_probs.astype(np.int32))
 
 
+PROFILE2_KERNELS = ("wire_expand", "dual0_expand", "model_pass_v4", "lane_scan_dev",
+                    "lane_compact")
+PROFILE0_KERNELS = {"v2": "model_pass_v2", "dict": "model_pass_dict", "sort": "model_pass",
+                    "mm": "model_pass"}
+
+
 def test_compress_on_cuda_roundtrips_through_every_kernel(cuda, clip_analysis):
     data, an = clip_analysis
     _native.reset_launches()
     info = {}
     comp, _ = td.compress(data, device=cuda, info=info, keep_probs=True)
-    assert all(v > 0 for v in _native.launches.values()), _native.launches
+    assert all(_native.launches[k] > 0 for k in PROFILE2_KERNELS), _native.launches
+    for c, probs in zip(an.chunks, info["probs"]):
+        assert np.array_equal(probs, c.host_probs)
+    dec, _ = pipeline.decompress(comp)
+    assert dec == data
+
+
+@pytest.mark.parametrize("K", [16, 128])
+def test_masked_lane_scan_matches_plain(cuda, K):
+    """lane_scan with a mask that is not a prefix (lane-sliced and ragged)
+    and the probability extremes: kernel == plain."""
+    rng = np.random.default_rng(K)
+    T = 1024
+    bits = rng.integers(0, 2, (T, K)).astype(np.int32)
+    probs = np.where(rng.random((T, K)) < 0.3, np.where(bits == 1, 1, 32767),
+                     rng.integers(1, 32768, (T, K))).astype(np.int32)
+    valid = rng.random((T, K)) < 0.8
+    valid[:, ::3] = False
+    args = [torch.from_numpy(a).to(cuda) for a in (bits, probs, valid)]
+    for g, w in zip(tl.lane_scan(*args), tl._lane_scan_plain(*args)):
+        _equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def profile0_analysis(cuda):
+    with open(CLIP, "rb") as f:
+        data = f.read()
+    return data, td.analyze(data, batch_size=4096, model_profile=0, sup=128)
+
+
+def test_model_pass_v2_kernel_matches_plain(cuda, profile0_analysis):
+    """model_pass_v2 on chunk 0's full planes: kernel == plain == host."""
+    _, an = profile0_analysis
+    c = an.chunks[0]
+    args = (c.kind, c.prior, c.pre_ones, c.pre_tot, c.v2_m, c.v2_bin_u, c.v2_dk_d, c.v2_dk_s,
+            c.v2_dd, c.v2_ds, c.dual0, an.batch, an.sup, an.fast_w, an.slow_w, an.sig_w,
+            an.sig_alpha, an.n_sig)
+    _native.reset_launches()
+    got = tmp.run_chunk_v2_tables(*args, device=cuda)
+    assert _native.launches["model_pass_v2"] == 1
+    assert np.array_equal(got, c.host_probs)
+    planes = [torch.from_numpy(np.concatenate([a.astype(np.int32), np.full(
+        c.v2_m - len(c.bit), v, np.int32)])).to(cuda) for a, v in (
+            (c.kind, 3), (c.prior, 1), (c.pre_ones, 0), (c.pre_tot, 0))]
+    ns = c.v2_dk_d.shape[0]
+    sh = (ns, an.sup, an.batch)
+    ud, us = c.v2_dk_d.shape[1], c.v2_dk_s.shape[1]
+    tables = [np.concatenate([c.dual0.astype(np.int32), np.ones((1 + ud, 4), np.int32)]),
+              np.concatenate([np.zeros((an.n_sig, 2), np.int32), np.ones((us, 2), np.int32)])]
+    rest = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda) for a in (
+        c.v2_bin_u.reshape(sh), c.v2_dk_d, c.v2_dk_s, c.v2_dd, c.v2_ds, *tables)]
+    kw = dict(batch=an.batch, sup=an.sup, fast_w=an.fast_w, slow_w=an.slow_w, sig_w=an.sig_w,
+              sig_alpha=an.sig_alpha)
+    pl = [x.reshape(sh) for x in planes]
+    _equal(tmp.model_pass_v2(*pl, *rest, **kw), tmp._model_pass_v2_plain(
+        *pl, *rest, *(kw[k] for k in ("batch", "sup", "fast_w", "slow_w", "sig_w",
+                                      "sig_alpha"))))
+
+
+@pytest.mark.parametrize("impl", ["dict", "sort", "mm"])
+def test_per_batch_kernels_match_plain(cuda, profile0_analysis, impl):
+    """model_pass_dict / model_pass on the first 64 batches of chunk 0 (a
+    prefix of a chunk's stream is a stream; its probs are the chunk's
+    first ones): kernel == plain == host."""
+    _, an = profile0_analysis
+    c = an.chunks[0]
+    n = 64 * an.batch
+    args = (c.bit[:n], c.kind[:n], c.key[:n], c.prior[:n], c.dual0, an.batch, an.fast_w,
+            an.slow_w, an.sig_w, an.sig_alpha, an.n_sig)
+    _native.reset_launches()
+    got = tmp.run_chunk(*args, impl=impl, device=cuda)
+    assert _native.launches[PROFILE0_KERNELS[impl]] == 1
+    assert np.array_equal(got, tmp.run_chunk(*args, impl=impl, device="cpu"))
+    assert np.array_equal(got, c.host_probs[:n])
+
+
+@pytest.mark.parametrize("impl", ["v2", "dict", "sort", "mm"])
+def test_compress_profile0_on_cuda(cuda, profile0_analysis, impl, monkeypatch):
+    data, an = profile0_analysis
+    monkeypatch.setenv("ARTC_MODEL_IMPL", impl)
+    _native.reset_launches()
+    info = {}
+    comp, _ = td.compress(data, model_profile=0, device=cuda, info=info, keep_probs=True)
+    assert _native.launches[PROFILE0_KERNELS[impl]] > 0 and _native.launches["lane_scan"] > 0
     for c, probs in zip(an.chunks, info["probs"]):
         assert np.array_equal(probs, c.host_probs)
     dec, _ = pipeline.decompress(comp)

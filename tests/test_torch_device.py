@@ -12,8 +12,12 @@ import torch
 
 from avrecode_tpu import device as jd
 from avrecode_tpu import pipeline
-from avrecode_tpu_torch import cli
+from avrecode_tpu_torch import _native, cli
 from avrecode_tpu_torch import device as td
+
+# Built here, under the port's lock, before any test of any module can reach
+# the host library's unlocked build (see _native.ensure_host_lib).
+_native.ensure_host_lib()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -93,17 +97,22 @@ def test_cli_roundtrip(corpus_dir, tmp_path, capsys):
 
 
 def test_port_never_imports_jax(corpus_dir):
-    """Importing every module of the port and compressing a clip with it
-    leaves jax out of sys.modules. Checked in a subprocess: this test
+    """Importing every module of the port and compressing a clip with it,
+    under profile 2 and under profile 0 with every model pass, leaves jax
+    out of sys.modules. Checked in a subprocess: this test
     process has imported jax already (conftest)."""
     code = (
         "import sys\n"
         "import avrecode_tpu_torch, avrecode_tpu_torch._native, avrecode_tpu_torch.cli\n"
         "import avrecode_tpu_torch.ops.intmath, avrecode_tpu_torch.ops.lanes\n"
         "import avrecode_tpu_torch.ops.model_pass\n"
+        "import os\n"
         "from avrecode_tpu_torch import device\n"
         f"data = open({os.path.join(corpus_dir, 'i_main.264')!r}, 'rb').read()\n"
         "device.compress(data, batch_size=1024, device='cpu')\n"
+        "for impl in ('v2', 'dict', 'sort', 'mm'):\n"
+        "    os.environ['ARTC_MODEL_IMPL'] = impl\n"
+        "    device.compress(data, batch_size=1024, model_profile=0, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
         "print('no-jax-ok')\n")
@@ -123,11 +132,9 @@ def test_cuda_request_never_runs_on_cpu(corpus_dir):
     data = _read(corpus_dir, "i_main.264")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         td.compress(data, device="cuda")
-    an = jd.analyze(data, batch_size=1024, model_profile=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        td.device_probs(an, an.chunks[0], "cuda")
-
-
-def test_non_slim_analysis_is_not_ported(corpus_dir):
-    with pytest.raises(NotImplementedError):
-        td.compress(_read(corpus_dir, "i_main.264"), model_profile=0, device="cpu")
+        td.compress(data, model_profile=0, device="cuda")
+    for profile in (2, 0):
+        an = jd.analyze(data, batch_size=1024, model_profile=profile)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            td.device_probs(an, an.chunks[0], "cuda")

@@ -9,7 +9,12 @@ import torch
 from test_coder import _c_decode, _c_encode, _random_biased_stream
 
 from avrecode_tpu.ops import lanes as jl
+from avrecode_tpu_torch import _native
 from avrecode_tpu_torch.ops import lanes as tl
+
+# Built here, under the port's lock, before any test of any module can reach
+# the host library's unlocked build (see _native.ensure_host_lib).
+_native.ensure_host_lib()
 
 
 def _t(a):

@@ -12,9 +12,14 @@ import torch
 
 from avrecode_tpu import device as jd
 from avrecode_tpu.ops import model_pass as jmp
+from avrecode_tpu_torch import _native
 from avrecode_tpu_torch import device as td
 from avrecode_tpu_torch.ops import intmath as im
 from avrecode_tpu_torch.ops import model_pass as tmp
+
+# Built here, under the port's lock, before any test of any module can reach
+# the host library's unlocked build (see _native.ensure_host_lib).
+_native.ensure_host_lib()
 
 # clip -> (sub-batch size, environment for the analysis). q51/q6 stress the
 # pack widths, cavlc_b8 the CAVLC transport, pcm_mixed the kind-3 bins;

@@ -1,0 +1,58 @@
+"""The port's build of the shared native host library
+(avrecode_tpu_torch._native.ensure_host_lib) under concurrency: processes
+that build it at once from an empty build directory all end up loading one
+complete library."""
+import os
+import shutil
+import subprocess
+import sys
+
+from avrecode_tpu_torch import _native
+
+# Built here, under the port's lock, before any test of any module can reach
+# the host library's unlocked build (see _native.ensure_host_lib).
+_native.ensure_host_lib()
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = """
+import os, sys
+import numpy as np
+from avrecode_tpu import host
+from avrecode_tpu_torch import _native
+from avrecode_tpu_torch import device as td
+_native.ensure_host_lib()
+an = td.analyze(open(sys.argv[1], "rb").read(), batch_size=1024, model_profile=2, sup=128)
+ok = all(np.array_equal(td.device_probs(an, c, "cpu"), c.host_probs) for c in an.chunks)
+print(host._LIB_PATH, os.stat(host._LIB_PATH).st_ino, ok)
+"""
+
+
+def test_concurrent_host_lib_builds(corpus_dir, tmp_path):
+    """Two processes call ensure_host_lib at the same moment on a copy of
+    the packages whose build directory is empty. Both must load a library
+    that runs an analysis whose probs equal the port's model pass, and the
+    library must be built once (one file, no second replace after a load).
+    An unlocked build in the shared directory (cmake + ninja from two
+    processes) can link a library from a half-written object file."""
+    root = tmp_path / "repo"
+    skip = shutil.ignore_patterns("build", "__pycache__", "*.so", "*.pyc")
+    for pkg in ("avrecode_tpu", "avrecode_tpu_torch"):
+        shutil.copytree(os.path.join(REPO, pkg), root / pkg, ignore=skip)
+    assert not (root / "avrecode_tpu" / "native" / "build").exists()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(root)
+    clip = os.path.join(corpus_dir, "i_main.264")
+    procs = [subprocess.Popen([sys.executable, "-c", _CHILD, clip], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    results = [p.communicate(timeout=900) for p in procs]
+    for p, (out, err) in zip(procs, results):
+        assert p.returncode == 0, err[-2000:]
+    lines = [out.split() for out, _ in results]
+    want_lib = str(root / "avrecode_tpu" / "native" / "build" / "libartc.so")
+    for path, _, ok in lines:
+        assert path == want_lib and ok == "True", lines
+    assert lines[0][1] == lines[1][1], lines  # one build: the same file
+    leftovers = [f for f in os.listdir(os.path.dirname(want_lib)) if f.endswith(".tmp")]
+    assert not leftovers
