@@ -6,6 +6,15 @@ library with a plain C interface loaded through ctypes, on first use and
 again whenever a source is newer than the library. Every C entry launches on
 the stream it is given and returns cudaGetLastError(); `launch` raises on a
 nonzero code and counts the launch under its kernel's name.
+
+Both builds run under an exclusive flock on a lock file beside their
+library (and, within a process, under a thread lock per library), through a private
+temporary file renamed over the library: threads of a corpus run and
+processes on one machine never see a partial library.
+
+The host engine's sources live beside the JAX package
+(avrecode_tpu/native); the port finds them by path and compiles them, and
+imports nothing of that package.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ import glob
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -22,34 +32,47 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD, "libartc_cuda.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# The shared C++ host engine: the same sources and the same library file as
+# the JAX package's (its tests find the library current once this built it).
+NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "avrecode_tpu", "native")
+HOST_BUILD = os.path.join(NATIVE_DIR, "build")
+HOST_LIB_PATH = os.path.join(HOST_BUILD, "libartc.so")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# One launch counter per kernel; a wrapper adds one where it launches.
+# One launch counter per kernel; a wrapper adds one where it launches. The
+# mesh steps (parallel/pipeline.py) add one per step call on CUDA devices.
 launches = {"wire_expand": 0, "dual0_expand": 0, "model_pass_v4": 0,
             "lane_scan_dev": 0, "lane_compact": 0, "model_pass_v2": 0,
-            "lane_scan": 0, "model_pass_dict": 0, "model_pass": 0}
+            "lane_scan": 0, "model_pass_dict": 0, "model_pass": 0,
+            "sharded_v4_compress_step": 0, "sharded_recompress_step": 0}
 
 # C entry -> argument kinds ('p' pointer, 'i' 64-bit int); the stream follows.
 _SIGNATURES = {
-    "artc_wire_expand": "p" * 11 + "i" * 12,
+    "artc_wire_expand": "p" * 11 + "i" * 13,
     "artc_dual0_expand": "p" * 5 + "i" * 3,
-    "artc_model_pass_v4": "p" * 13 + "i" * 16,
+    "artc_model_pass_v4": "p" * 13 + "i" * 19,
     "artc_lane_scan_dev": "p" * 6 + "i" * 3,
     "artc_lane_compact": "p" * 4 + "i" * 3,
     "artc_model_pass_v2": "p" * 15 + "i" * 15,
-    "artc_lane_scan": "p" * 7 + "i" * 2,
+    "artc_lane_scan": "p" * 7 + "i" * 5,
     "artc_model_pass_dict": "p" * 13 + "i" * 10,
     "artc_model_pass": "p" * 11 + "i" * 9,
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_longlong}
 
 _lib = None
+# Threads of one process: one lock per library (so the two builds can run at
+# once) and one for loading; the flock covers processes.
+_BUILD_LOCKS = {LIB_PATH: threading.Lock(), HOST_LIB_PATH: threading.Lock()}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _COUNT_LOCK:
+        for k in launches:
+            launches[k] = 0
 
 
 def _nvcc() -> str:
@@ -63,39 +86,92 @@ def _nvcc() -> str:
     return found
 
 
+def _stale(lib_path: str, deps) -> bool:
+    if not os.path.exists(lib_path):
+        return True
+    mtime = os.path.getmtime(lib_path)
+    return any(os.path.getmtime(p) > mtime for p in deps)
+
+
+def _locked_build(lib_path: str, lock_name: str, deps, compile_to) -> str:
+    """Builds `lib_path` if it is missing or older than one of `deps`:
+    under the thread lock and an exclusive flock on `lock_name` beside it,
+    re-checking once the lock is held, compiling into a private temporary
+    path (`compile_to(tmp)`) that is renamed over the library."""
+    if not _stale(lib_path, deps):
+        return lib_path
+    build_dir = os.path.dirname(lib_path)
+    with _BUILD_LOCKS[lib_path]:
+        os.makedirs(build_dir, exist_ok=True)
+        with open(os.path.join(build_dir, lock_name), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not _stale(lib_path, deps):  # built while we waited
+                return lib_path
+            tmp = f"{lib_path}.{os.getpid()}.tmp"
+            try:
+                compile_to(tmp)
+                os.replace(tmp, lib_path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+    return lib_path
+
+
 def build() -> str:
     """Compiles csrc/*.cu into LIB_PATH if it is missing or older than a
-    source; returns its path. ptxas's per-kernel register report lands in
+    source; returns its path. One nvcc per source, all started together,
+    then one link; ptxas's per-kernel register report lands in
     build/nvcc.log."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     deps = sources + glob.glob(os.path.join(CSRC, "*.cuh"))
-    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= max(
-            os.path.getmtime(p) for p in deps):
-        return LIB_PATH
-    os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                         capture_output=True, text=True)
-    with open(os.path.join(BUILD, "nvcc.log"), "w") as f:
-        f.write(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+
+    def nvcc(tmp: str) -> None:
+        nv = _nvcc()
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in sources]
+        try:
+            procs = [subprocess.Popen([nv, *NVCC_FLAGS, "-c", "-o", o, s], text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                     for s, o in zip(sources, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            link = None
+            if all(p.returncode == 0 for p in procs):
+                link = subprocess.run([nv, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                                      capture_output=True, text=True)
+                logs.append(link.stdout + link.stderr)
+            with open(os.path.join(BUILD, "nvcc.log"), "w") as f:
+                f.write("\n".join(logs))
+            if link is None:
+                bad = [log[-4000:] for p, log in zip(procs, logs) if p.returncode != 0]
+                raise RuntimeError("nvcc failed:\n" + "\n".join(bad))
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed:\n{logs[-1][-4000:]}")
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
+
+    return _locked_build(LIB_PATH, "libartc_cuda.lock", deps, nvcc)
 
 
 def load() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, kinds in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
-        lib.artc_cuda_error_string.restype = ctypes.c_char_p
-        lib.artc_cuda_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
+    with _LOAD_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, kinds in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
+            lib.artc_cuda_error_string.restype = ctypes.c_char_p
+            lib.artc_cuda_error_string.argtypes = [ctypes.c_int]
+            _lib = lib
     return _lib
+
+
+def count(name: str) -> None:
+    """Adds one to `name`'s launch counter (thread-safe)."""
+    with _COUNT_LOCK:  # corpus runs launch from several threads
+        launches[name] += 1
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
@@ -110,7 +186,7 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc} "
                            f"({lib.artc_cuda_error_string(rc).decode()})")
-    launches[kernel] += 1
+    count(kernel)
 
 
 def check_cuda(name: str, *tensors: torch.Tensor, dtype=torch.int32) -> None:
@@ -145,36 +221,36 @@ def _git_rev(cwd: str) -> str:
     return rev if res.returncode == 0 and rev else "nogit"
 
 
-def ensure_host_lib() -> str:
-    """Makes sure avrecode_tpu's native host library is built and current,
-    safely against other processes doing the same.
+def _host_sources() -> list[str]:
+    """The host engine's build inputs (the files whose change makes the JAX
+    package's build_native rebuild): .h, .cc and .txt under NATIVE_DIR,
+    outside its build directory."""
+    found = []
+    for root, _dirs, files in os.walk(NATIVE_DIR):
+        if root.startswith(HOST_BUILD):
+            continue
+        found += [os.path.join(root, f) for f in files if f.endswith((".h", ".cc", ".txt"))]
+    return found
 
-    host.build_native runs cmake + ninja in one shared build directory with
-    no lock, so concurrent callers (pytest-xdist workers, two scripts) can
-    link a library from an object file another compile is still writing,
-    and then load it. Here the build runs under an exclusive flock on a lock
-    file beside the library: the holder re-checks staleness, compiles
-    native/recode.cc with g++ and CMakeLists.txt's flags into a private
-    temporary path, and renames it over the library, so no process ever
-    sees a partial file. Once this has run, host.lib() finds the library
-    current and never calls cmake."""
-    from avrecode_tpu import host
-    if not host._needs_rebuild():
-        return host._LIB_PATH
-    os.makedirs(host._BUILD_DIR, exist_ok=True)
-    with open(os.path.join(host._BUILD_DIR, "libartc.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not host._needs_rebuild():  # built while we waited
-            return host._LIB_PATH
-        tmp = f"{host._LIB_PATH}.{os.getpid()}.tmp"
-        build_id = _git_rev(host._NATIVE_DIR)
-        try:
-            subprocess.run(["g++", "-std=c++17", "-O3", "-DNDEBUG", "-march=native",
-                            "-fPIC", "-shared", "-pthread", f'-DARTC_BUILD_ID="{build_id}"',
-                            "-I", host._NATIVE_DIR, "-o", tmp,
-                            os.path.join(host._NATIVE_DIR, "recode.cc")], check=True)
-            os.replace(tmp, host._LIB_PATH)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return host._LIB_PATH
+
+def ensure_host_lib() -> str:
+    """Makes sure the shared native host library HOST_LIB_PATH is built and
+    current, safely against other threads and processes doing the same;
+    returns its path.
+
+    The JAX package's own build (avrecode_tpu/host.py build_native) runs
+    cmake + ninja in the same build directory with no lock, so concurrent
+    callers (pytest-xdist workers, two scripts) can link a library from an
+    object file another compile is still writing, and then load it. Here
+    the holder of the lock compiles native/recode.cc with g++ and
+    CMakeLists.txt's flags into a private temporary path and renames it over
+    the library, so no process ever sees a partial file; once this has run,
+    the JAX package finds the library current and never calls cmake."""
+    def gxx(tmp: str) -> None:
+        build_id = _git_rev(NATIVE_DIR)
+        subprocess.run(["g++", "-std=c++17", "-O3", "-DNDEBUG", "-march=native", "-fPIC",
+                        "-shared", "-pthread", f'-DARTC_BUILD_ID="{build_id}"',
+                        "-I", NATIVE_DIR, "-o", tmp, os.path.join(NATIVE_DIR, "recode.cc")],
+                       check=True)
+
+    return _locked_build(HOST_LIB_PATH, "libartc.lock", _host_sources(), gxx)

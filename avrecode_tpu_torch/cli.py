@@ -2,33 +2,69 @@
 
     python -m avrecode_tpu_torch.cli compress <in> <out> [--device cuda] [--model-profile 0]
     python -m avrecode_tpu_torch.cli roundtrip <in> [out] [--device cuda] [--model-profile 0]
+    python -m avrecode_tpu_torch.cli corpus <dir|glob> <out_dir> [--device cuda]
+        [--chunk-mode 1] [--batch-size 512] [--host-workers 2] [--resume]
 
 Profile 0 runs the model pass that ARTC_MODEL_IMPL names (v2, dict, sort, mm).
 
 Compression runs through the port (avrecode_tpu_torch.device.compress);
 decompression and the roundtrip check run through the host decoder
-(avrecode_tpu.pipeline.decompress). Prints one JSON report, as
-avrecode_tpu.cli does.
+(avrecode_tpu_torch.host.decompress). `corpus` recompresses every file of a
+directory or glob through the port on --device, each output checked by the
+host decoder, dealt across the processes that JAX_COORDINATOR /
+JAX_NUM_PROCESSES / JAX_PROCESS_ID describe (parallel/distributed.py; one
+process needs none of them). Prints one JSON report, as avrecode_tpu.cli
+does.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 import sys
 import time
 
 import torch
 
-from avrecode_tpu import pipeline
-
 from . import device as td
+from . import host
+
+
+def _corpus(p: argparse.ArgumentParser, args) -> int:
+    from .parallel import distributed as dist
+    if not args.output:
+        p.error("corpus requires an output directory")
+    if os.path.isdir(args.input):
+        paths = [os.path.join(args.input, n) for n in sorted(os.listdir(args.input))
+                 if os.path.isfile(os.path.join(args.input, n))]
+    else:
+        paths = sorted(glob.glob(args.input))
+    if not paths:
+        p.error(f"no input files match {args.input!r}")
+    pidx, pcount = dist.init_distributed()
+    rep = dist.corpus_compress(paths, args.output, use_device=True, device=args.device,
+                               chunk_mode=args.chunk_mode, batch_size=args.batch_size,
+                               host_workers=args.host_workers, resume=args.resume)
+    print(json.dumps({
+        "process": f"{pidx}/{pcount}",
+        "device": args.device,
+        "files": rep.files,
+        "failures": rep.failures,
+        "input_bytes": rep.input_bytes,
+        "output_bytes": rep.output_bytes,
+        "ratio": rep.ratio,
+        "wall_s": round(rep.wall_s, 2),
+        "mb_s": round(rep.input_bytes / 1e6 / rep.wall_s, 3) if rep.wall_s else 0.0,
+    }))
+    return 0 if rep.failures == 0 else 1
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="avrecode-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("command", choices=["compress", "roundtrip"])
-    p.add_argument("input")
+    p.add_argument("command", choices=["compress", "roundtrip", "corpus"])
+    p.add_argument("input", help="file; for corpus: a directory or glob of files")
     p.add_argument("output", nargs="?")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the kernels, cpu their plain versions")
@@ -36,15 +72,24 @@ def main(argv=None) -> int:
                    help="0 = picture-aligned sections; 1 = one chunk per IDR GOP")
     p.add_argument("--model-profile", type=int, default=2, choices=[0, 2],
                    help="2 = frozen batches (slim wire); 0 = immediate increments")
+    p.add_argument("--batch-size", type=int, default=4096,
+                   help="bins per model batch (small clips may need 512-1024)")
+    p.add_argument("--host-workers", type=int, default=2,
+                   help="corpus: concurrent files per process")
+    p.add_argument("--resume", action="store_true",
+                   help="corpus: skip inputs whose output container already exists "
+                        "(outputs are written atomically)")
     args = p.parse_args(argv)
+    if args.command == "corpus":
+        return _corpus(p, args)
     if args.command == "compress" and not args.output:
         p.error("compress requires an output path")
 
     with open(args.input, "rb") as f:
         data = f.read()
     t0 = time.perf_counter()
-    comp, st = td.compress(data, chunk_mode=args.chunk_mode, model_profile=args.model_profile,
-                           device=args.device)
+    comp, st = td.compress(data, chunk_mode=args.chunk_mode, batch_size=args.batch_size,
+                           model_profile=args.model_profile, device=args.device)
     compress_s = time.perf_counter() - t0
     dev = torch.device(args.device)
     report = {
@@ -58,7 +103,7 @@ def main(argv=None) -> int:
     }
     ok = True
     if args.command == "roundtrip":
-        dec, _ = pipeline.decompress(comp)
+        dec, _ = host.decompress(comp)
         ok = dec == data
         report["roundtrip_ok"] = ok
     print(json.dumps(report))

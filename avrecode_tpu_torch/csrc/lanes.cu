@@ -3,9 +3,13 @@
 //
 // Replaces avrecode_tpu/ops/lanes.py::_lane_scan_dev (the reverse scan over
 // bins [0, n)), ::_lane_scan (the same scan over [T, K] planes with an
-// explicit valid mask, which need not be a prefix: the mesh slices it by
-// lane) and ::_lane_compact (the emitted-word compaction); byte-identical to
-// the host codec (native/rans.h RansInterleaved::encode).
+// explicit valid mask, which need not be a prefix) and ::_lane_compact (the
+// emitted-word compaction); byte-identical to the host codec (native/rans.h
+// RansInterleaved::encode). The masked scan also serves the mesh steps
+// (parallel/pipeline.py): their vmap over a device's chunks is a chunk grid
+// dimension, and a cell's lane slice [l*k, (l+1)*k) of the chunks' [T, K]
+// planes is read in place through a row stride (K) and a chunk stride, from a
+// pointer at the slice's first column.
 //
 // What bounds it: the scan is a serial recurrence of T steps per lane (T =
 // 65,536 at bench size) with one integer division per step; its K lanes are
@@ -69,29 +73,34 @@ __global__ void lane_scan_dev_kernel(const int* __restrict__ bits,
   counts[l] = count;
 }
 
-// The same walk over [T, K] planes; step [t, l] runs where valid[t, l] is
-// nonzero, and an invalid step neither emits nor changes the state. As in
-// JAX's _lane_scan, p is taken as it is (valid probabilities are in
-// [1, 32767]).
+// The same walk over the [T, K] planes of chunk blockIdx.y; step [t, l] runs
+// where valid[t, l] is nonzero, and an invalid step neither emits nor
+// changes the state. The inputs sit at g * chunk_stride + t * row_stride + l
+// (a lane slice of wider planes, read in place); the outputs are dense
+// [G][T][K] and [G][K]. As in JAX's _lane_scan, p is taken as it is (valid
+// probabilities are in [1, 32767]).
 __global__ void lane_scan_kernel(const int* __restrict__ bits, const int* __restrict__ probs,
                                  const uint8_t* __restrict__ valid, int* __restrict__ x_final,
                                  int* __restrict__ words, int* __restrict__ emits,
-                                 int* __restrict__ counts, long long T, long long K) {
+                                 int* __restrict__ counts, long long T, long long K,
+                                 long long chunk_stride, long long row_stride) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= K) return;
+  const long long g = blockIdx.y;
+  const long long in0 = g * chunk_stride + l, out0 = g * T * K + l;
   uint32_t x = kRansL;
   int count = 0;
   for (long long t = T - 1; t >= 0; --t) {
-    const long long idx = t * K + l;
+    const long long in = in0 + t * row_stride, out = out0 + t * K;
     const uint32_t word = x & 0xffffu;
     int e = 0;
-    if (valid[idx]) e = rans_step(x, uint32_t(probs[idx]), bits[idx] == 1);
-    words[idx] = int(word);
-    emits[idx] = e;
+    if (valid[in]) e = rans_step(x, uint32_t(probs[in]), bits[in] == 1);
+    words[out] = int(word);
+    emits[out] = e;
     count += e;
   }
-  x_final[l] = int(x);
-  counts[l] = count;
+  x_final[g * K + l] = int(x);
+  counts[g * K + l] = count;
 }
 
 // ops/lanes.py _COMPACT_TILE sizes the per-tile scratch from this.
@@ -158,11 +167,13 @@ ARTC_API int artc_lane_scan_dev(const int* bits, const int* probs, int* x_final,
 }
 
 ARTC_API int artc_lane_scan(const int* bits, const int* probs, const uint8_t* valid,
-                            int* x_final, int* words, int* emits, int* counts, long long T,
-                            long long K, void* stream) {
+                            int* x_final, int* words, int* emits, int* counts, long long G,
+                            long long T, long long K, long long chunk_stride,
+                            long long row_stride, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  lane_scan_kernel<<<artc::grid_for(K, 128), 128, 0, st>>>(bits, probs, valid, x_final,
-                                                          words, emits, counts, T, K);
+  if (G <= 0) return int(cudaGetLastError());
+  lane_scan_kernel<<<dim3(artc::grid_for(K, 128), unsigned(G)), 128, 0, st>>>(
+      bits, probs, valid, x_final, words, emits, counts, T, K, chunk_stride, row_stride);
   return int(cudaGetLastError());
 }
 

@@ -15,7 +15,11 @@
 // are independent, and so are the bins. One stream carries every launch, so
 // launch order is the step order.
 //
-// v3_core and model_pass_v2 run two launches per super-step. The stage
+// v3_core and model_pass_v2 run two launches per super-step. v3_core takes a
+// leading chunk axis (the mesh's vmap over a device's chunks, written out):
+// chunk g is blockIdx.y of both launches and owns its planes, key tables,
+// deltas, start tables and staging scratch, so G chunks of one shape cost
+// 2 x ns launches, not 2 x ns x G; a single chunk is G = 1. The stage
 // kernel runs one thread per dictionary slot r < U: it loads its table row,
 // walks the sup sub-batches in order (record the start state, add the
 // deltas, halve per window with the bounded count of _halve_iters) and
@@ -60,6 +64,9 @@ constexpr int kHalveDefault = 16; // _halve_while's default iteration count
 
 struct Model {
   long long n_dual, n_sig, ns, sup, batch, ud, us, U;
+  // Chunk strides (ints) of the chunk axis (blockIdx.y); unused with one chunk.
+  long long plane_stride, dkd_stride, dks_stride, delta_stride, dual_stride, sig_stride,
+      cst_stride;
   int fast_w, slow_w, sig_w, it_f, it_s, it_g, alpha_on, alpha_off;
 };
 
@@ -130,19 +137,30 @@ __global__ void dual0_escape_kernel(const int* __restrict__ esc_idx,
   for (int c = 0; c < 4; ++c) out[k * 4 + c] = esc_val[e * 4 + c];
 }
 
-// v3_core: dual = [dual0; ones(1 + ud)], sig = [zeros(n_sig); ones(us)].
+// v3_core, chunk blockIdx.y: dual = [dual0; ones(1 + ud)], sig = [zeros(n_sig);
+// ones(us)].
 __global__ void tables_init_kernel(const int* __restrict__ dual0, int* __restrict__ dual,
                                    int* __restrict__ sig, Model M) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long g = blockIdx.y;
+  dual0 += g * M.n_dual * 4;
+  dual += g * M.dual_stride;
+  sig += g * M.sig_stride;
   if (i < (M.n_dual + 1 + M.ud) * 4) dual[i] = i < M.n_dual * 4 ? dual0[i] : 1;
   if (i < (M.n_sig + M.us) * 2) sig[i] = i < M.n_sig * 2 ? 0 : 1;
 }
 
-// Sparse warm sig rows (v16 warm-started chunks); pad rows (>= n_sig) drop.
+// Sparse warm sig rows (v16 warm-started chunks), k per chunk blockIdx.y; pad
+// rows (>= n_sig) drop.
 __global__ void sig0_scatter_kernel(const int* __restrict__ idx, const int* __restrict__ val,
-                                    int* __restrict__ sig, long long k, long long n_sig) {
+                                    int* __restrict__ sig, long long k, long long n_sig,
+                                    long long sig_stride) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= k) return;
+  const long long g = blockIdx.y;
+  idx += g * k;
+  val += g * k * 2;
+  sig += g * sig_stride;
   const long long r = (long long)(uint32_t)idx[e];
   if (r >= n_sig) return;
   sig[r * 2] = val[e * 2];
@@ -151,21 +169,22 @@ __global__ void sig0_scatter_kernel(const int* __restrict__ idx, const int* __re
 
 // Update deltas of v3_core: one u32 (ones | total << 16) per (sub-batch, slot).
 struct PackedDeltas {
-  const int* d;  // [ns * sup][U]
-  __device__ void get(const Model& M, long long t, long long s, long long r, int& one,
-                      int& tot) const {
-    const uint32_t v = uint32_t(d[(t * M.sup + s) * M.U + r]);
+  const int* d;  // [G][ns * sup][U]
+  __device__ void get(const Model& M, long long g, long long t, long long s, long long r,
+                      int& one, int& tot) const {
+    const uint32_t v = uint32_t(d[g * M.delta_stride + (t * M.sup + s) * M.U + r]);
     one = int(v & 0xffffu);
     tot = int(v >> 16);
   }
 };
 
-// Update deltas of model_pass_v2: dd int32[ns, sup, ud, 2], ds [ns, sup, us, 2].
+// Update deltas of model_pass_v2 (one chunk, g = 0): dd int32[ns, sup, ud, 2],
+// ds [ns, sup, us, 2].
 struct SplitDeltas {
   const int* dd;
   const int* ds;
-  __device__ void get(const Model& M, long long t, long long s, long long r, int& one,
-                      int& tot) const {
+  __device__ void get(const Model& M, long long, long long t, long long s, long long r,
+                      int& one, int& tot) const {
     const int* p = r < M.ud ? dd + ((t * M.sup + s) * M.ud + r) * 2
                             : ds + ((t * M.sup + s) * M.us + (r - M.ud)) * 2;
     one = p[0];
@@ -173,14 +192,20 @@ struct SplitDeltas {
   }
 };
 
-// Super-step t, one thread per dictionary slot r: stage every sub-batch's
-// start state into cst[s][c][r] and write the final row back.
+// Super-step t of chunk blockIdx.y, one thread per dictionary slot r: stage
+// every sub-batch's start state into cst[s][c][r] and write the final row back.
 template <class Deltas>
 __global__ void stage_kernel(const int* __restrict__ dk_d, const int* __restrict__ dk_s,
                              Deltas D, int* __restrict__ dual, int* __restrict__ sig,
                              int* __restrict__ cst, Model M, long long t) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= M.U) return;
+  const long long g = blockIdx.y;
+  dk_d += g * M.dkd_stride;
+  dk_s += g * M.dks_stride;
+  dual += g * M.dual_stride;
+  sig += g * M.sig_stride;
+  cst += g * M.cst_stride;
   int* out = cst + r;  // column c of sub-batch s at out[(4s + c) U]
   const long long U = M.U;
   int one, tot;
@@ -193,7 +218,7 @@ __global__ void stage_kernel(const int* __restrict__ dk_d, const int* __restrict
       o[U] = fn;
       o[2 * U] = sp;
       o[3 * U] = sn;
-      D.get(M, t, s, r, one, tot);
+      D.get(M, g, t, s, r, one, tot);
       fp += one;
       fn += tot - one;
       sp += one;
@@ -212,7 +237,7 @@ __global__ void stage_kernel(const int* __restrict__ dk_d, const int* __restrict
       int* o = out + s * 4 * U;
       o[0] = gp;
       o[U] = gn;
-      D.get(M, t, s, r, one, tot);
+      D.get(M, g, t, s, r, one, tot);
       gp += one;
       gn += tot - one;
       halve(gp, gn, M.sig_w, M.it_g);
@@ -222,9 +247,9 @@ __global__ void stage_kernel(const int* __restrict__ dk_d, const int* __restrict
   }
 }
 
-// Super-step t, one thread per bin: probability by kind from the bin's
-// sub-batch's staged state at its slot, plus (model_pass_v2 only, pre1 !=
-// nullptr) the bin's within-batch prefix counts on every column.
+// Super-step t of chunk blockIdx.y, one thread per bin: probability by kind
+// from the bin's sub-batch's staged state at its slot, plus (model_pass_v2
+// only, pre1 != nullptr) the bin's within-batch prefix counts on every column.
 __global__ void scan_prob_kernel(const int* __restrict__ kind, const int* __restrict__ slot,
                                  const int* __restrict__ prior, const int* __restrict__ pre1,
                                  const int* __restrict__ pret, const int* __restrict__ cst,
@@ -232,7 +257,8 @@ __global__ void scan_prob_kernel(const int* __restrict__ kind, const int* __rest
   const long long span = M.sup * M.batch;
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= span) return;
-  const long long i = t * span + j;
+  const long long i = blockIdx.y * M.plane_stride + t * span + j;
+  cst += blockIdx.y * M.cst_stride;
   const int k = kind[i];
   int c[6] = {1, 1, 1, 1, 1, 1};
   if (k != 3) {
@@ -265,12 +291,14 @@ __global__ void scan_prob_kernel(const int* __restrict__ kind, const int* __rest
 template <class Deltas>
 void launch_scan(const int* kind, const int* slot, const int* prior, const int* pre1,
                  const int* pret, const int* dk_d, const int* dk_s, Deltas D, int* dual,
-                 int* sig, int* cst, int* probs, const Model& M, cudaStream_t st) {
+                 int* sig, int* cst, int* probs, const Model& M, long long G,
+                 cudaStream_t st) {
+  const dim3 stage_grid(artc::grid_for(M.U, 128), unsigned(G));
+  const dim3 prob_grid(artc::grid_for(M.sup * M.batch, 256), unsigned(G));
   for (long long t = 0; t < M.ns; ++t) {
-    stage_kernel<<<artc::grid_for(M.U, 128), 128, 0, st>>>(dk_d, dk_s, D, dual, sig, cst, M,
-                                                          t);
-    scan_prob_kernel<<<artc::grid_for(M.sup * M.batch, 256), 256, 0, st>>>(
-        kind, slot, prior, pre1, pret, cst, probs, M, t);
+    stage_kernel<<<stage_grid, 128, 0, st>>>(dk_d, dk_s, D, dual, sig, cst, M, t);
+    scan_prob_kernel<<<prob_grid, 256, 0, st>>>(kind, slot, prior, pre1, pret, cst, probs, M,
+                                                t);
   }
 }
 
@@ -525,10 +553,15 @@ ARTC_API int artc_dual0_expand(const int* rows, const int* idx, const int* esc_i
   return int(cudaGetLastError());
 }
 
+// G chunks of one shape: kind/slot/prior/probs [G][m], dk_d/dk_s [G] rows at
+// chunk strides dkd_stride/dks_stride (ints: views into the chunks' blobs),
+// deltas [G][ns*sup][U], dual0 [G][n_dual][4], sig0_idx/val [G][k_sig0](x2);
+// scratch dual/sig/cst [G][...] (tables and staging per chunk).
 ARTC_API int artc_model_pass_v4(const int* kind, const int* slot, const int* prior,
                                 const int* dk_d, const int* dk_s, const int* deltas,
                                 const int* dual0, const int* sig0_idx, const int* sig0_val,
-                                int* dual, int* sig, int* cst, int* probs, long long k_sig0,
+                                int* dual, int* sig, int* cst, int* probs, long long G,
+                                long long dkd_stride, long long dks_stride, long long k_sig0,
                                 long long n_dual, long long n_sig, long long ns, long long sup,
                                 long long batch, long long ud, long long us, long long fast_w,
                                 long long slow_w, long long sig_w, long long it_f,
@@ -544,14 +577,22 @@ ARTC_API int artc_model_pass_v4(const int* kind, const int* slot, const int* pri
   M.it_f = int(it_f);
   M.it_s = int(it_s);
   M.it_g = int(it_g);
-  const long long init = (n_dual + 1 + ud) * 4 > (n_sig + us) * 2 ? (n_dual + 1 + ud) * 4
-                                                                  : (n_sig + us) * 2;
-  tables_init_kernel<<<artc::grid_for(init, 256), 256, 0, st>>>(dual0, dual, sig, M);
+  M.plane_stride = ns * sup * batch;
+  M.dkd_stride = dkd_stride;
+  M.dks_stride = dks_stride;
+  M.delta_stride = ns * sup * M.U;
+  M.dual_stride = (n_dual + 1 + ud) * 4;
+  M.sig_stride = (n_sig + us) * 2;
+  M.cst_stride = sup * 4 * M.U;
+  if (G <= 0) return int(cudaGetLastError());
+  const long long init = M.dual_stride > M.sig_stride ? M.dual_stride : M.sig_stride;
+  tables_init_kernel<<<dim3(artc::grid_for(init, 256), unsigned(G)), 256, 0, st>>>(dual0, dual,
+                                                                                   sig, M);
   if (k_sig0 > 0)
-    sig0_scatter_kernel<<<artc::grid_for(k_sig0, 256), 256, 0, st>>>(sig0_idx, sig0_val, sig,
-                                                                     k_sig0, n_sig);
+    sig0_scatter_kernel<<<dim3(artc::grid_for(k_sig0, 256), unsigned(G)), 256, 0, st>>>(
+        sig0_idx, sig0_val, sig, k_sig0, n_sig, M.sig_stride);
   launch_scan(kind, slot, prior, nullptr, nullptr, dk_d, dk_s, PackedDeltas{deltas}, dual,
-              sig, cst, probs, M, st);
+              sig, cst, probs, M, G, st);
   return int(cudaGetLastError());
 }
 
@@ -584,7 +625,7 @@ ARTC_API int artc_model_pass_v2(const int* kind, const int* prior, const int* pr
   cudaMemcpyAsync(sig, sig_in, size_t(n_sig_rows) * 2 * sizeof(int), cudaMemcpyDeviceToDevice,
                   st);
   launch_scan(kind, bin_u, prior, pre1, pret, dk_d, dk_s, SplitDeltas{dd, ds}, dual, sig,
-              cst, probs, M, st);
+              cst, probs, M, 1, st);
   return int(cudaGetLastError());
 }
 

@@ -1,9 +1,14 @@
 // ANL5 slim-wire expand on the card.
 //
 // Replaces avrecode_tpu/ops/model_pass.py::wire_expand4_blob (with
-// _unpack_dev and _div_floor2), single-device form (mesh=False): one fused
-// u32 blob -> per-bin bit/kind/slot/prior planes + the per-sub-batch
-// (ones, tot) update-delta table (recode.cc write_slim_chunk is the writer).
+// _unpack_dev and _div_floor2), in both forms: one fused u32 blob -> per-bin
+// bit/kind/slot/prior planes + the per-sub-batch (ones, tot) update-delta
+// table (recode.cc write_slim_chunk is the writer). In mesh mode the shapes
+// are mesh-uniform (ud is the mesh-wide dual width) and sc[5] carries the
+// chunk's real dual width ud_real: every COO slot cs >= ud_real moves up by
+// ud - ud_real, so the chunk's sig slots land at [ud, ud + us) (JAX :350-355).
+// The shift applies wherever a slot is unpacked: the per-bin slot lookup and
+// the delta table's column.
 //
 // What bounds it: memory traffic and the latency of data-dependent reads.
 // Per bin it reads half a byte of header nibble, about a byte of packed rank,
@@ -34,8 +39,9 @@ constexpr int kBinsPerBlock = kThreads * kItems;
 
 struct Wire {
   const uint32_t* w;  // the blob
-  const int* sc;      // [wa, wb, wcs, n, n_coo] on the device
+  const int* sc;      // [wa, wb, wcs, n, n_coo (, ud_real in mesh mode)] on the device
   long long nw, m, nsub, U, ud, batch, Lh, Lc, npi, ne, nc, ncc;
+  int mesh;           // 1: shift slots >= sc[5] up into the mesh-uniform space
   long long off[15];  // segment offsets (ops/model_pass._blob_layout_words)
 };
 
@@ -49,9 +55,11 @@ __device__ inline const uint16_t* u16_at(const Wire& P, int k) {
 
 // No-straddle w-bit entry `pos` of the stream at word `base` (BitPacker::
 // put_ns: entry j lives wholly inside word j / (32/w)); the word index
-// clamps at `last`.
+// clamps at `last`. A 0-bit entry (the zero widths of the mesh's pad chunks)
+// is 0.
 __device__ inline uint32_t unpack_ns(const uint32_t* w, long long base, long long last,
                                      long long pos, int width) {
+  if (width <= 0) return 0u;
   const int epw = 32 / width;
   const long long q = pos / epw;
   const int shift = int(pos - q * epw) * width;
@@ -59,6 +67,17 @@ __device__ inline uint32_t unpack_ns(const uint32_t* w, long long base, long lon
   if (wi > last) wi = last;
   const uint32_t mask = width >= 32 ? 0xffffffffu : ((1u << width) - 1u);
   return (w[wi] >> shift) & mask;
+}
+
+// COO slot entry j (the wcs-bit stream, word index clamped to its segment),
+// shifted into the mesh-uniform dictionary space in mesh mode.
+__device__ inline long long coo_slot(const Wire& P, long long j) {
+  long long c = unpack_ns(P.w, P.off[3], P.off[3] + P.Lc - 1, j, P.sc[2]);
+  if (P.mesh) {
+    const long long ud_real = P.sc[5];
+    if (c >= ud_real) c += P.ud - ud_real;
+  }
+  return c;
 }
 
 // Header nibble of bin i: bit<<3 | kind<<1 | cls; bins >= n are padding
@@ -103,7 +122,7 @@ __global__ void bins_kernel(Wire P, const unsigned long long* __restrict__ block
                             int* __restrict__ kind_out, int* __restrict__ slot_out,
                             int* __restrict__ prior_out) {
   const long long base = (long long)blockIdx.x * kBinsPerBlock + threadIdx.x * kItems;
-  const int wa = P.sc[0], wb = P.sc[1], wcs = P.sc[2];
+  const int wa = P.sc[0], wb = P.sc[1];
   const long long n = P.sc[3];
   int bit[kItems], kind[kItems], cls[kItems];
   unsigned long long sel[kItems], s = 0;
@@ -116,7 +135,6 @@ __global__ void bins_kernel(Wire P, const unsigned long long* __restrict__ block
   unsigned long long pos = block_ab[blockIdx.x] + artc::block_exclusive_scan(s, &total);
   const uint8_t* pidx = u8_at(P, 4);
   const uint16_t* pdict = u16_at(P, 5);
-  const long long cs_last = P.off[3] + P.Lc - 1;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const long long i = base + k;
@@ -130,7 +148,7 @@ __global__ void bins_kernel(Wire P, const unsigned long long* __restrict__ block
     if (kind[k] != 3) {
       long long sidx = (long long)starts[i / P.batch] + rank;
       if (sidx > P.nc - 1) sidx = P.nc - 1;
-      slot = int(unpack_ns(P.w, P.off[3], cs_last, sidx, wcs));
+      slot = int(coo_slot(P, sidx));
     }
     bit_out[i] = bit[k];
     kind_out[i] = kind[k];
@@ -161,7 +179,7 @@ __global__ void coo_sub_kernel(Wire P, const int* starts, int* coo_sub) {
 __device__ inline void put_delta(const Wire& P, const int* coo_sub, int* deltas,
                                  long long j, uint32_t v) {
   const long long s = coo_sub[j];
-  const long long c = unpack_ns(P.w, P.off[3], P.off[3] + P.Lc - 1, j, P.sc[2]);
+  const long long c = coo_slot(P, j);
   const long long flat = s * P.U + c;
   if (s >= 0 && flat < P.nsub * P.U) deltas[flat] = int(v);
 }
@@ -193,7 +211,7 @@ ARTC_API int artc_wire_expand(const int* blob, const int* sc, int* bit, int* kin
                               const long long* offs, long long blob_words, long long m,
                               long long nsub, long long U, long long ud, long long batch,
                               long long Lh, long long Lc, long long npi, long long ne,
-                              long long nc, long long ncc, void* stream) {
+                              long long nc, long long ncc, long long mesh, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Wire P;
   P.w = reinterpret_cast<const uint32_t*>(blob);
@@ -210,6 +228,7 @@ ARTC_API int artc_wire_expand(const int* blob, const int* sc, int* bit, int* kin
   P.ne = ne;
   P.nc = nc;
   P.ncc = ncc;
+  P.mesh = int(mesh);
   for (int k = 0; k < 15; ++k) P.off[k] = offs[k];
   const long long nblk = (m + kBinsPerBlock - 1) / kBinsPerBlock;
   if (nblk > 0) {

@@ -1,7 +1,7 @@
 """Device compress path on PyTorch + CUDA: host analysis -> on-card model
 pass + rANS lanes -> container.
 
-Counterpart of avrecode_tpu/device.py, for both model profiles:
+Counterpart of avrecode_tpu/device.py, for both model profiles and the mesh:
 
   - profile 2 (frozen batches, the default): the native engine walks the
     syntax and exports one slim (ANL5) chunk at a time; each chunk is packed
@@ -10,15 +10,16 @@ Counterpart of avrecode_tpu/device.py, for both model profiles:
   - profile 0 (immediate increments): the native engine exports the whole
     dense analysis at once; each chunk's planes and tables are uploaded, the
     model pass chosen by ARTC_MODEL_IMPL (v2, dict, sort or mm) computes its
-    probabilities, and `encode_interleaved` lane-encodes them.
+    probabilities, and `encode_interleaved` lane-encodes them;
+  - the mesh (`compress_mesh`, profile 2): every chunk is packed with one
+    mesh-uniform layout and the whole set runs as one
+    parallel.pipeline.sharded_v4_compress_step over a (gop, lane) grid of
+    devices.
 
-The host packs the container. Decompression stays host-only
-(avrecode_tpu.pipeline), so every container is checked by an independent
-reader.
-
-The JAX-free parsers and session helpers of avrecode_tpu.device are reused
-by import; `_build_blob4` is copied because the original imports the JAX
-model pass. Every public entry takes an explicit `device`.
+The host packs the container. Decompression stays host-only (host.py), so
+every container is checked by an independent reader. The parsers live in
+analysis.py (re-exported here); every public entry takes an explicit
+`device` or mesh.
 """
 from __future__ import annotations
 
@@ -29,21 +30,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from avrecode_tpu import host
-from avrecode_tpu.device import (Analysis, ChunkAnalysis, SlimChunk, _bucket_pow2,
-                                 _chunk_layout, _pack_session, _parse_analysis,
-                                 _parse_header, _parse_slim_chunk, _session_lib,
-                                 _sig0_dense, _sig0_sparse_padded, pick_lanes)
-from avrecode_tpu.device import analyze as _analyze
-
-from . import _native
+from . import host
+from .analysis import (Analysis, ChunkAnalysis, SlimChunk, _bucket_pow2, _chunk_layout,
+                       _parse_analysis, _parse_header, _parse_slim_chunk, _sig0_dense,
+                       _sig0_sparse_padded, analyze, pick_lanes)
 from .ops import lanes as lx
 from .ops import model_pass as mp
 
-
-def _lib():
-    _native.ensure_host_lib()
-    return _session_lib()
+__all__ = ["Analysis", "ChunkAnalysis", "SlimChunk", "analyze", "compress", "compress_mesh",
+           "device_blob", "device_probs", "pick_lanes", "to_torch_staged"]
 
 
 def _device(device) -> torch.device:
@@ -55,24 +50,22 @@ def _device(device) -> torch.device:
     return device
 
 
-def analyze(data: bytes, *, sup: int, **kw) -> Analysis:
-    """avrecode_tpu.device.analyze with an explicit `sup` (with sup <= 0 the
-    original imports its JAX model pass for the default)."""
-    if sup <= 0:
-        raise ValueError("analyze: pass an explicit sup > 0 (see ops.model_pass.default_sup)")
-    _native.ensure_host_lib()
-    return _analyze(data, sup=sup, **kw)
-
-
-def _build_blob4(an: Analysis, c: SlimChunk, layout: tuple) -> tuple[np.ndarray, np.ndarray]:
+def _build_blob4(an: Analysis, c: SlimChunk, layout: tuple, dk_d: np.ndarray | None = None,
+                 dk_s: np.ndarray | None = None,
+                 ud_mesh: int | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Packs one slim chunk's ANL5 planes into the fused u32 blob + scalar
     vector [wa, wb, wcs, n, n_coo] (segments per ops.model_pass
-    ._blob_layout_words). A copy of avrecode_tpu.device._build_blob4 for
-    the single-device layout."""
+    ._blob_layout_words); a copy of avrecode_tpu.device._build_blob4.
+    `layout` may be wider than the chunk's own buckets (the mesh's uniform
+    layout); dk_d/dk_s override the chunk's key tables (the mesh pads them
+    to uniform shapes with scratch rows), and ud_mesh switches to the
+    6-entry mesh scalar vector, which adds the chunk's real dual width."""
     n = c.n
     npi, ne, nc, ncc = layout[4:]
-    ns_l, ud_l = c.dk_d.shape
-    us_l = c.dk_s.shape[1]
+    if dk_d is None:
+        dk_d, dk_s = c.dk_d, c.dk_s
+    ns_l, ud_l = dk_d.shape
+    us_l = dk_s.shape[1]
     offs = mp._blob_layout_words(layout, ns_l * an.sup, ns_l, ud_l, us_l)
     blob = np.zeros(offs[-1], np.uint32)
 
@@ -102,9 +95,10 @@ def _build_blob4(an: Analysis, c: SlimChunk, layout: tuple) -> tuple[np.ndarray,
     if n_cesc:
         ci[:n_cesc] = c.cesc_idx
         view(11, np.uint16).reshape(ncc, 2)[:n_cesc] = c.cesc_val
-    put32(12, np.ascontiguousarray(c.dk_d, dtype=np.uint32).reshape(-1))
-    put32(13, np.ascontiguousarray(c.dk_s, dtype=np.uint32).reshape(-1))
-    return blob, np.array([c.wa, c.wb, c.wcs, n, c.n_coo], np.int32)
+    put32(12, np.ascontiguousarray(dk_d, dtype=np.uint32).reshape(-1))
+    put32(13, np.ascontiguousarray(dk_s, dtype=np.uint32).reshape(-1))
+    sc = [c.wa, c.wb, c.wcs, n, c.n_coo] + ([c.ud] if ud_mesh is not None else [])
+    return blob, np.array(sc, np.int32)
 
 
 def _dual0_dict(c: SlimChunk) -> tuple[np.ndarray, ...]:
@@ -259,15 +253,12 @@ def device_blob(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device,
                                  device=_device(device))
 
 
-def _fetch(lib, rc: int, out, out_len) -> bytes:
+def _fetch(rc: int, out, out_len) -> bytes:
     """The native export a session call just returned (freed here); raises
     on a nonzero rc."""
     if rc != 0:
-        raise host.NativeError(lib.artc_last_error().decode())
-    try:
-        return ctypes.string_at(out, out_len.value)
-    finally:
-        lib.artc_free(out)
+        raise host.last_error()
+    return host.take(out, out_len)
 
 
 def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
@@ -283,16 +274,16 @@ def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
     profile's path (see _compress_slim / _compress_dense); with keep_probs
     also each chunk's probs (uint16[n])."""
     device = _device(device)
-    lib = _lib()
+    lib = host.lib()
     t_open = time.monotonic()
     h = lib.artc_session_open(data, len(data), lanes, chunk_mode, batch_size, model_profile)
     if not h:
-        raise host.NativeError(lib.artc_last_error().decode())
+        raise host.last_error()
     try:
         run = _compress_slim if model_profile == 2 else _compress_dense
         blobs = run(lib, h, device, force_lanes, info, keep_probs, t_open)
         t_pack = time.monotonic()
-        result = _pack_session(lib, h, blobs)
+        result = host.pack_session(h, blobs)
         if info is not None:
             info["pack_s"] = time.monotonic() - t_pack
             info["blobs"] = blobs
@@ -311,7 +302,7 @@ def _compress_dense(lib, h, device, force_lanes, info, keep_probs, t_open) -> li
     out_len = ctypes.c_size_t()
     rc = lib.artc_session_analyze2(h, mp.default_sup(), 0, ctypes.byref(out),
                                    ctypes.byref(out_len))
-    an = _parse_analysis(_fetch(lib, rc, out, out_len))
+    an = _parse_analysis(_fetch(rc, out, out_len))
     t_model = time.monotonic()
     probs = [device_probs(an, c, device) for c in an.chunks]
     t_lanes = time.monotonic()
@@ -342,9 +333,9 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
     out_len = ctypes.c_size_t()
     n_chunks = lib.artc_session_analyze_begin(h, mp.default_sup(), 0)
     if n_chunks < 0:
-        raise host.NativeError(lib.artc_last_error().decode())
+        raise host.last_error()
     rc = lib.artc_session_analyze_header(h, ctypes.byref(out), ctypes.byref(out_len))
-    an, _ = _parse_header(_fetch(lib, rc, out, out_len))
+    an, _ = _parse_header(_fetch(rc, out, out_len))
     cache: dict = {}
     handles: list = []
     compacted: list = []
@@ -362,7 +353,7 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
 
     for i in range(n_chunks):
         rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out), ctypes.byref(out_len))
-        raw = _fetch(lib, rc, out, out_len)
+        raw = _fetch(rc, out, out_len)
         c = _parse_slim_chunk(np.frombuffer(raw, np.uint8), an, prev)
         prev = c
         lap("fetch_s")
@@ -393,3 +384,122 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
         if keep_probs:
             info["probs"] = kept
     return blobs
+
+
+@dataclass
+class MeshInputs:
+    """One mesh step's inputs: every chunk packed with the mesh-uniform
+    layout, padded to a multiple of the gop axis (host tensors; G = padded
+    chunk count), plus the uniform shapes the step is built for."""
+    blob: torch.Tensor      # int32[G, W] fused ANL5 planes (u32 bit patterns)
+    sc: torch.Tensor        # int32[G, 6] = [wa, wb, wcs, n, n_coo, ud_real]
+    dual0: torch.Tensor     # int32[G, n_dual, 4]
+    sig0_idx: torch.Tensor  # int32[G, SK] sparse warm sig rows (pad = n_sig, drops)
+    sig0_val: torch.Tensor  # int32[G, SK, 2]
+    n_arr: torch.Tensor     # int32[G] live bins per chunk
+    statics: dict           # kwargs of parallel.pipeline.sharded_v4_compress_step
+
+    def tensors(self) -> tuple:
+        return self.blob, self.sc, self.dual0, self.sig0_idx, self.sig0_val, self.n_arr
+
+
+def mesh_inputs(an: Analysis, chunks: list[SlimChunk], n_gop: int, sup: int,
+                force_lanes: int | None = None) -> MeshInputs:
+    """Packs the chunks for one sharded_v4_compress_step, as
+    avrecode_tpu.device.compress_mesh does (device.py:941-993): the layout is
+    the elementwise max of the chunks' own, dk/ds key tables are padded to
+    the widest chunk's (UD, US, NS) with distinct scratch keys, and pad
+    chunks (up to a multiple of n_gop) carry live, distinct scratch keys too:
+    the model kernel's sorted-unique row scatter writes each row from one
+    slot, so rows of zeros would race on row 0."""
+    G = len(chunks)
+    G_pad = -(-G // n_gop) * n_gop
+    UD = max(c.ud for c in chunks)
+    US = max(c.us for c in chunks)
+    NS = max(c.ns for c in chunks)
+    M = NS * sup * an.batch
+    if M >= 1 << 24:  # the JAX expand's exactness bound (_div_floor2); kept for parity
+        raise ValueError(f"mesh chunks too large for the ANL5 device path: M={M}")
+    K = force_lanes or pick_lanes(max(c.n for c in chunks))
+    layout = tuple(max(col) for col in zip(*(_chunk_layout(c) for c in chunks)))
+    # Scratch keys per column, distinct within a row; a chunk's own pad keys
+    # occupy [n_dual + 1, n_dual + 1 + ud), so the column fill cannot collide.
+    dk_d0 = an.n_dual + 1 + np.arange(UD, dtype=np.uint32)
+    dk_s0 = an.n_sig + np.arange(US, dtype=np.uint32)
+    offs = mp._blob_layout_words(layout, NS * sup, NS, UD, US)
+    blob = np.zeros((G_pad, offs[-1]), np.uint32)
+    blob[:, offs[12]:offs[13]] = np.tile(dk_d0, NS)
+    blob[:, offs[13]:offs[14]] = np.tile(dk_s0, NS)
+    sc = np.zeros((G_pad, 6), np.int32)
+    sc[:, 5] = UD  # pad chunks: no slot shift
+    dual0 = np.ones((G_pad, an.n_dual, 4), np.int32)
+    n_arr = np.zeros(G_pad, np.int32)
+    SK = _bucket_pow2(max(max(len(c.sig0_idx) if c.sig0_idx is not None else 0
+                              for c in chunks), 1))
+    sig0_idx = np.full((G_pad, SK), an.n_sig, np.uint32)
+    sig0_val = np.zeros((G_pad, SK, 2), np.int32)
+    for g, c in enumerate(chunks):
+        dk_d = np.tile(dk_d0, (NS, 1))
+        dk_s = np.tile(dk_s0, (NS, 1))
+        dk_d[:c.ns, :c.ud] = c.dk_d
+        dk_s[:c.ns, :c.us] = c.dk_s
+        blob[g], sc[g] = _build_blob4(an, c, layout, dk_d=dk_d, dk_s=dk_s, ud_mesh=UD)
+        dual0[g] = c.dual0
+        n_arr[g] = c.n
+        if c.sig0_idx is not None and len(c.sig0_idx):
+            sig0_idx[g, :len(c.sig0_idx)] = c.sig0_idx
+            sig0_val[g, :len(c.sig0_idx)] = c.sig0_val
+    statics = dict(batch=int(an.batch), sup=int(sup), fast_w=int(an.fast_w),
+                   slow_w=int(an.slow_w), sig_w=int(an.sig_w), sig_alpha=int(an.sig_alpha),
+                   ud=int(UD), us=int(US), ns=int(NS), n_sig=int(an.n_sig), K_total=int(K),
+                   layout=layout)
+    return MeshInputs(*(_i32(a) for a in (blob, sc, dual0, sig0_idx, sig0_val, n_arr)),
+                      statics)
+
+
+def compress_mesh(data: bytes, mesh, lanes: int = 16, chunk_mode: int = 1,
+                  batch_size: int = 4096, sup: int = 0,
+                  force_lanes: int | None = None) -> tuple[bytes, host.Stats]:
+    """Mesh-sharded device compression of a clip into a container (the port
+    of avrecode_tpu.device.compress_mesh): the native session exports every
+    slim chunk (GOP chunks under chunk_mode=1), mesh_inputs packs them with
+    one mesh-uniform layout, and one parallel.pipeline.sharded_v4_compress_step
+    over `mesh` (parallel.mesh.make_mesh) expands and models each device
+    row's chunks and lane-scans each cell's lane slice. The lane outputs
+    reassemble into RansInterleaved blobs, and the session packs the same
+    container the single-device path writes (with force_lanes, or when
+    pick_lanes agrees), which the host decoder reads back."""
+    from .parallel.pipeline import sharded_v4_compress_step
+    if sup <= 0:
+        sup = mp.default_sup()
+    lib = host.lib()
+    h = lib.artc_session_open(data, len(data), lanes, chunk_mode, batch_size, 2)
+    if not h:
+        raise host.last_error()
+    try:
+        out = ctypes.POINTER(ctypes.c_uint8)()
+        out_len = ctypes.c_size_t()
+        n_chunks = lib.artc_session_analyze_begin(h, sup, 0)
+        if n_chunks < 0:
+            raise host.last_error()
+        rc = lib.artc_session_analyze_header(h, ctypes.byref(out), ctypes.byref(out_len))
+        an, _ = _parse_header(_fetch(rc, out, out_len))
+        chunks: list[SlimChunk] = []
+        prev = None
+        for i in range(n_chunks):
+            rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out), ctypes.byref(out_len))
+            prev = _parse_slim_chunk(np.frombuffer(_fetch(rc, out, out_len), np.uint8), an,
+                                     prev)
+            chunks.append(prev)
+        inputs = mesh_inputs(an, chunks, mesh.shape["gop"], sup, force_lanes)
+        step = sharded_v4_compress_step(mesh, **inputs.statics)
+        x_final, words, emits, _, total_words = step(*inputs.tensors())
+        x_final, words, emits = (t.cpu().numpy() for t in (x_final, words, emits))
+        if int(total_words) <= 0:
+            raise RuntimeError("mesh step emitted no payload words")
+        K = inputs.statics["K_total"]
+        blobs = [lx.assemble_blob(x_final[g], words[g], emits[g], c.n, K)
+                 for g, c in enumerate(chunks)]
+        return host.pack_session(h, blobs)
+    finally:
+        lib.artc_session_close(h)

@@ -1,0 +1,196 @@
+"""ctypes bindings to the shared native host library (libartc.so).
+
+The C++ engine (avrecode_tpu/native: the syntax walkers, the prior model,
+the CABAC engines, the rANS codec and the container) is host code shared by
+both packages: `_native.ensure_host_lib` compiles it, and this module binds
+its C ABI for the port. It is a copy of avrecode_tpu/host.py's bindings plus
+the analysis-session entries of avrecode_tpu/device.py (`_session_lib`,
+`_pack_session`), so the port imports nothing of the JAX package.
+Decompression runs here, on the host: every container the port writes is
+read back by the independent C++ decoder.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from dataclasses import dataclass, field
+
+from . import _native
+
+N_KLASSES = 11
+KLASS_NAMES = ["other", "sig", "eob", "res", "bypass_other", "bypass_res", "terminate", "sign",
+               "cbf", "skip", "mvd_sign"]
+
+
+class ArtcStatsC(ctypes.Structure):
+    _fields_ = [
+        ("input_bytes", ctypes.c_uint64),
+        ("output_bytes", ctypes.c_uint64),
+        ("cabac_in_bytes", ctypes.c_uint64),
+        ("recoded_bytes", ctypes.c_uint64),
+        ("literal_bytes", ctypes.c_uint64),
+        ("n_slices", ctypes.c_int32),
+        ("n_fallback", ctypes.c_int32),
+        ("n_chunks", ctypes.c_int32),
+        ("total_bins", ctypes.c_uint64),
+        ("klass_mbits", ctypes.c_uint64 * N_KLASSES),
+        ("klass_count", ctypes.c_uint64 * N_KLASSES),
+        ("klass_cabac_mbits", ctypes.c_uint64 * N_KLASSES),
+        ("eob_cabac_mbits", ctypes.c_uint64),
+        ("nz_mbits", ctypes.c_uint64),
+        ("nz_count", ctypes.c_uint64),
+        ("eob_count", ctypes.c_uint64),
+        ("ref_mbits", ctypes.c_uint64),
+    ]
+
+
+@dataclass
+class Stats:
+    input_bytes: int = 0
+    output_bytes: int = 0
+    cabac_in_bytes: int = 0
+    recoded_bytes: int = 0
+    literal_bytes: int = 0
+    n_slices: int = 0
+    n_fallback: int = 0
+    n_chunks: int = 0
+    total_bins: int = 0
+    bill: dict = field(default_factory=dict)
+    # Bytes the reference's model would have spent on the same bins (0
+    # unless ARTC_REFMODEL=1; native/refmodel.h).
+    ref_model_bytes: float = 0.0
+
+    @classmethod
+    def from_c(cls, c: ArtcStatsC) -> "Stats":
+        bill = {
+            KLASS_NAMES[i]: {
+                "count": int(c.klass_count[i]),
+                "bytes": c.klass_mbits[i] / 8000.0,
+                "cabac_bytes": c.klass_cabac_mbits[i] / 8000.0,
+            }
+            for i in range(N_KLASSES)
+        }
+        bill["nz"] = {"count": int(c.nz_count), "bytes": c.nz_mbits / 8000.0}
+        bill["eob_free_bins"] = {
+            "count": int(c.eob_count),
+            "bytes": 0.0,
+            "cabac_bytes": c.eob_cabac_mbits / 8000.0,
+        }
+        return cls(
+            ref_model_bytes=c.ref_mbits / 8000.0,
+            input_bytes=int(c.input_bytes),
+            output_bytes=int(c.output_bytes),
+            cabac_in_bytes=int(c.cabac_in_bytes),
+            recoded_bytes=int(c.recoded_bytes),
+            literal_bytes=int(c.literal_bytes),
+            n_slices=int(c.n_slices),
+            n_fallback=int(c.n_fallback),
+            n_chunks=int(c.n_chunks),
+            total_bins=int(c.total_bins),
+            bill=bill,
+        )
+
+
+class NativeError(RuntimeError):
+    pass
+
+
+_lib = None
+_LIB_LOCK = threading.Lock()
+
+_OUT = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
+_LEN = ctypes.POINTER(ctypes.c_size_t)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    """argtypes/restype of every C entry the port calls."""
+    c = ctypes
+    sigs = {
+        "artc_compress": (c.c_int, [c.c_char_p, c.c_size_t, c.c_int, c.c_int, c.c_uint32,
+                                    c.c_int, _OUT, _LEN, c.POINTER(ArtcStatsC)]),
+        "artc_decompress": (c.c_int, [c.c_char_p, c.c_size_t, _OUT, _LEN,
+                                      c.POINTER(ArtcStatsC)]),
+        "artc_free": (None, [c.POINTER(c.c_uint8)]),
+        "artc_last_error": (c.c_char_p, []),
+        "artc_container_version": (c.c_int, []),
+        "artc_session_open": (c.c_void_p, [c.c_char_p, c.c_size_t, c.c_int, c.c_int,
+                                           c.c_uint32, c.c_int]),
+        "artc_session_analyze2": (c.c_int, [c.c_void_p, c.c_int, c.c_int, _OUT, _LEN]),
+        "artc_session_analyze_begin": (c.c_int, [c.c_void_p, c.c_int, c.c_int]),
+        "artc_session_analyze_header": (c.c_int, [c.c_void_p, _OUT, _LEN]),
+        "artc_session_analyze_chunk": (c.c_int, [c.c_void_p, c.c_uint32, _OUT, _LEN]),
+        "artc_session_pack": (c.c_int, [c.c_void_p, c.c_char_p, c.POINTER(c.c_uint64), c.c_int,
+                                        _OUT, _LEN, c.POINTER(ArtcStatsC)]),
+        "artc_session_close": (None, [c.c_void_p]),
+        "artc_rans_encode": (c.c_int, [c.POINTER(c.c_uint8), c.POINTER(c.c_uint16), c.c_uint64,
+                                       c.c_int, _OUT, _LEN]),
+    }
+    for name, (restype, argtypes) in sigs.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+
+
+def lib() -> ctypes.CDLL:
+    """The host library, built if missing or stale (_native.ensure_host_lib)
+    and bound on first use."""
+    global _lib
+    with _LIB_LOCK:
+        if _lib is None:
+            handle = ctypes.CDLL(_native.ensure_host_lib())
+            _bind(handle)
+            _lib = handle
+    return _lib
+
+
+def container_version() -> int:
+    """The native library's ATRC container version (recode.h)."""
+    return int(lib().artc_container_version())
+
+
+def last_error() -> NativeError:
+    return NativeError(lib().artc_last_error().decode())
+
+
+def take(out, out_len) -> bytes:
+    """The bytes of a buffer the library returned, which is freed here."""
+    try:
+        return ctypes.string_at(out, out_len.value)
+    finally:
+        lib().artc_free(out)
+
+
+def _call(fn, data: bytes, *args) -> tuple[bytes, Stats]:
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    out_len = ctypes.c_size_t()
+    st = ArtcStatsC()
+    rc = fn(data, len(data), *args, ctypes.byref(out), ctypes.byref(out_len), ctypes.byref(st))
+    if rc != 0:
+        raise last_error()
+    return take(out, out_len), Stats.from_c(st)
+
+
+def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
+             batch_size: int = 1, model_profile: int = 0) -> tuple[bytes, Stats]:
+    """Host-only compression (the C++ engine end to end)."""
+    return _call(lib().artc_compress, data, lanes, chunk_mode, batch_size, model_profile)
+
+
+def decompress(data: bytes) -> tuple[bytes, Stats]:
+    """Host decompression of an ATRC container (the C++ serial decoder)."""
+    return _call(lib().artc_decompress, data)
+
+
+def pack_session(h, blobs: list[bytes]) -> tuple[bytes, Stats]:
+    """Packs an open analysis session's container around the chunks' lane
+    blobs (avrecode_tpu/device.py _pack_session)."""
+    blob_cat = b"".join(blobs)
+    lens = (ctypes.c_uint64 * len(blobs))(*[len(b) for b in blobs])
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    out_len = ctypes.c_size_t()
+    st = ArtcStatsC()
+    rc = lib().artc_session_pack(h, blob_cat, lens, len(blobs), ctypes.byref(out),
+                                 ctypes.byref(out_len), ctypes.byref(st))
+    if rc != 0:
+        raise last_error()
+    return take(out, out_len), Stats.from_c(st)

@@ -9,9 +9,10 @@ that sizes the compaction, and the bulk download that assembles the blob.
 
 `lane_scan_dev` (bins [0, n) of device-resident streams, the profile-2
 path), `lane_scan` ([T, K] planes with an explicit valid mask: the profile-0
-path's `encode_interleaved`) and `lane_compact` each have a plain PyTorch
-version, taken only for CPU tensors, and a CUDA kernel (csrc/lanes.cu) for
-CUDA tensors.
+path's `encode_interleaved`, and per chunk and lane slice the mesh steps of
+parallel/pipeline.py) and `lane_compact` each have a plain PyTorch version,
+taken only for CPU tensors, and a CUDA kernel (csrc/lanes.cu) for CUDA
+tensors.
 """
 from __future__ import annotations
 
@@ -82,53 +83,71 @@ def lane_scan(bits_tk: torch.Tensor, probs_tk: torch.Tensor, valid_tk: torch.Ten
     need not be a prefix. bits_tk/probs_tk: int32[T, K], valid probabilities
     in [1, 32767]; valid_tk: bool[T, K]. Returns x_final int64[K] (u32
     states), words int32[T, K] (u16 values), emits int32[T, K] (0/1) and
-    counts int32[K] (emissions per lane)."""
+    counts int32[K] (emissions per lane).
+
+    A leading chunk axis ([G, T, K] planes, the mesh's vmap written out)
+    scans G chunks at once, and every output gains it. The three planes may
+    be views with equal strides and a dense last dimension, such as a lane
+    slice [:, :, l*k:(l+1)*k] of wider planes: the kernel reads them in
+    place."""
     if _native.on_cpu("lane_scan", bits_tk):
         return _lane_scan_plain(bits_tk, probs_tk, valid_tk)
     return _lane_scan_cuda(bits_tk, probs_tk, valid_tk)
 
 
 def _lane_scan_plain(bits_tk, probs_tk, valid_tk):
-    """Plain version: one Python step per t over the K lanes (int64 math)."""
-    T, K = bits_tk.shape
+    """Plain version: one Python step per t over the K lanes (and the
+    chunks of a leading chunk axis), int64 math."""
+    *lead, T, K = bits_tk.shape
     dev = bits_tk.device
     b = bits_tk.to(torch.int64)
     valid = valid_tk.to(torch.bool)
     p = torch.where(valid, probs_tk.to(torch.int64), 1)  # invalid steps never divide
-    x = torch.full((K,), RANS_L, dtype=torch.int64, device=dev)
-    words = torch.empty((T, K), dtype=torch.int32, device=dev)
-    emits = torch.empty((T, K), dtype=torch.bool, device=dev)
+    x = torch.full((*lead, K), RANS_L, dtype=torch.int64, device=dev)
+    words = torch.empty((*lead, T, K), dtype=torch.int32, device=dev)
+    emits = torch.empty((*lead, T, K), dtype=torch.bool, device=dev)
     for t in range(T - 1, -1, -1):
-        one = b[t] == 1
-        pp = p[t]
-        v = valid[t]
+        one = b[..., t, :] == 1
+        pp = p[..., t, :]
+        v = valid[..., t, :]
         f = torch.where(one, pp, PROB_SCALE - pp)
         c = torch.where(one, PROB_SCALE - pp, 0)
         emit = (x >= (f << 17)) & v
-        words[t] = x & 0xFFFF
-        emits[t] = emit
+        words[..., t, :] = x & 0xFFFF
+        emits[..., t, :] = emit
         x1 = torch.where(emit, x >> 16, x)
         x = torch.where(v, ((x1 // f) << PROB_BITS) + x1 % f + c, x)
-    return x, words, emits.to(torch.int32), emits.sum(0, dtype=torch.int32)
+    return x, words, emits.to(torch.int32), emits.sum(-2, dtype=torch.int32)
 
 
 def _lane_scan_cuda(bits_tk, probs_tk, valid_tk):
-    _native.check_cuda("lane_scan", bits_tk, probs_tk)
-    _native.check_cuda("lane_scan", valid_tk, dtype=torch.bool)
-    if bits_tk.dim() != 2 or probs_tk.shape != bits_tk.shape \
-            or valid_tk.shape != bits_tk.shape or valid_tk.device != bits_tk.device:
-        raise ValueError("lane_scan: bits/probs/valid must all be [T, K] on one device")
-    T, K = bits_tk.shape
+    planes = (bits_tk, probs_tk, valid_tk)
+    dev = bits_tk.device
+    for t, dtype in zip(planes, (torch.int32, torch.int32, torch.bool)):
+        if not t.is_cuda or t.device != dev or t.dtype != dtype:
+            raise ValueError(f"lane_scan: planes must be int32, int32, bool on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    if bits_tk.dim() not in (2, 3) or any(t.shape != bits_tk.shape for t in planes):
+        raise ValueError("lane_scan: bits/probs/valid must all be [T, K] or [G, T, K]")
+    one = bits_tk.dim() == 2
+    if one:
+        planes = tuple(t[None] for t in planes)
+    G, T, K = planes[0].shape
+    strides = planes[0].stride()
+    if any(t.stride() != strides for t in planes) or strides[2] != 1 \
+            or (G > 1 and strides[0] < T * strides[1]) or (T > 1 and strides[1] < K):
+        raise ValueError(f"lane_scan: planes need equal strides and a dense last dimension, "
+                         f"got {[t.stride() for t in planes]}")
     if not 1 <= K <= 1024:
         raise ValueError(f"lane_scan: K={K} outside [1, 1024]")
-    dev = bits_tk.device
-    x_final = torch.empty(K, dtype=torch.int32, device=dev)
-    words = torch.empty((T, K), dtype=torch.int32, device=dev)
-    emits = torch.empty((T, K), dtype=torch.int32, device=dev)
-    counts = torch.empty(K, dtype=torch.int32, device=dev)
-    _native.launch("lane_scan", "artc_lane_scan", dev, bits_tk, probs_tk, valid_tk, x_final,
-                   words, emits, counts, T, K)
-    return x_final.to(torch.int64) & 0xFFFFFFFF, words, emits, counts
+    x_final = torch.empty((G, K), dtype=torch.int32, device=dev)
+    words = torch.empty((G, T, K), dtype=torch.int32, device=dev)
+    emits = torch.empty((G, T, K), dtype=torch.int32, device=dev)
+    counts = torch.empty((G, K), dtype=torch.int32, device=dev)
+    _native.launch("lane_scan", "artc_lane_scan", dev, *planes, x_final, words, emits, counts,
+                   G, T, K, strides[0], strides[1])
+    out = (x_final.to(torch.int64) & 0xFFFFFFFF, words, emits, counts)
+    return tuple(o[0] for o in out) if one else out
 
 
 def lane_compact(words: torch.Tensor, emits: torch.Tensor, maxW: int) -> torch.Tensor:

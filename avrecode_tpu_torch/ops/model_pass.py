@@ -128,7 +128,8 @@ def _dual0_expand_cuda(rows, idx, esc_idx, esc_val):
 # ----------------------------------------------------------- wire_expand4_blob
 
 def wire_expand4_blob(blob: torch.Tensor, sc: torch.Tensor, *, m: int, nsub: int,
-                      U: int, ud: int, us: int, ns: int, batch: int, layout: tuple):
+                      U: int, ud: int, us: int, ns: int, batch: int, layout: tuple,
+                      mesh: bool = False):
     """ANL5 wire decompression from one fused u32 blob (int32 bit patterns,
     segments per _blob_layout_words) and the scalar vector sc = [wa, wb,
     wcs, n, n_coo] (int32[5], on the blob's device).
@@ -137,23 +138,45 @@ def wire_expand4_blob(blob: torch.Tensor, sc: torch.Tensor, *, m: int, nsub: int
     3, slot ud-1, prior 1), deltas uint16[nsub, U, 2] ((ones, tot) per
     sub-batch and dictionary slot) and the key tables dk_d int32[ns, ud],
     dk_s int32[ns, us] (views into the blob). See the JAX function of the
-    same name for the wire format (recode.cc write_slim_chunk)."""
+    same name for the wire format (recode.cc write_slim_chunk).
+
+    mesh=True is the mesh step's form: the shapes are mesh-uniform (`ud` is
+    the widest chunk's dual width) and sc = [..., ud_real] (int32[6])
+    carries this chunk's own; COO slots >= ud_real shift up by ud - ud_real.
+    A leading chunk axis (blob [G, W], sc [G, 5 or 6]) expands G chunks of
+    one layout: every output gains it (dk_d/dk_s as strided views of the
+    blobs); the kernel runs one launch sequence per chunk."""
+    args = (m, nsub, U, ud, us, ns, batch, layout, mesh)
     if _native.on_cpu("wire_expand4_blob", blob):
-        return _wire_expand_plain(blob, sc, m, nsub, U, ud, us, ns, batch, layout)
-    return _wire_expand_cuda(blob, sc, m, nsub, U, ud, us, ns, batch, layout)
+        return _wire_expand_plain(blob, sc, *args)
+    return _wire_expand_cuda(blob, sc, *args)
+
+
+def _key_tables(blob, layout, nsub, ns, ud, us):
+    """The dk_d/dk_s segments of a blob [W] or blobs [G, W], as views."""
+    offs = _blob_layout_words(layout, nsub, ns, ud, us)
+    lead = blob.shape[:-1]
+    return (blob[..., offs[12]:offs[13]].reshape(*lead, ns, ud),
+            blob[..., offs[13]:offs[14]].reshape(*lead, ns, us))
 
 
 def _unpack(words: torch.Tensor, pos: torch.Tensor, w, base=0) -> torch.Tensor:
     """w-bit no-straddle entries (recode.cc BitPacker::put_ns: entry j lives
     wholly inside word j // (32//w)) of the stream starting at word `base`;
-    word indices clamp to the end of `words`, as a JAX gather clamps them."""
-    epw = 32 // w
+    word indices clamp to the end of `words`, as a JAX gather clamps them.
+    A 0-bit entry (the zero widths of the mesh's pad chunks) is 0."""
+    epw = 32 // (w.clamp_min(1) if torch.is_tensor(w) else max(w, 1))
     q = torch.div(pos, epw, rounding_mode="floor")
     off = (pos - q * epw) * w
     return (words[(base + q).clamp(0, words.shape[0] - 1)] >> off) & ((1 << w) - 1)
 
 
-def _wire_expand_plain(blob, sc, m, nsub, U, ud, us, ns, batch, layout):
+def _wire_expand_plain(blob, sc, m, nsub, U, ud, us, ns, batch, layout, mesh=False):
+    if blob.dim() == 2:  # the chunk axis: one chunk at a time
+        outs = [_wire_expand_plain(b, c, m, nsub, U, ud, us, ns, batch, layout, mesh)
+                for b, c in zip(blob, sc)]
+        planes = [torch.stack(x) for x in list(zip(*outs))[:5]]
+        return (*planes, *_key_tables(blob, layout, nsub, ns, ud, us))
     offs = _blob_layout_words(layout, nsub, ns, ud, us)
     Lh, La, Lb, Lc, npi, ne, nc, ncc = layout
     dev = blob.device
@@ -182,6 +205,9 @@ def _wire_expand_plain(blob, sc, m, nsub, U, ud, us, ns, batch, layout):
                    torch.where(cold, offs[2], offs[1]))
     # COO slots: clamped unpack (the bucketed nc can pass the packed stream).
     cs = _unpack(seg(3), torch.arange(nc, device=dev), wcs)
+    if mesh:  # this chunk's sig slots start at its own dual width sc[5]
+        ud_real = int(sc[5])
+        cs = torch.where(cs >= ud_real, cs + (ud - ud_real), cs)
     cnts = _u16s(seg(8))[:nsub]
     starts = torch.cumsum(cnts, 0) - cnts
     sbase = starts.repeat_interleave(batch)
@@ -214,34 +240,41 @@ def _wire_expand_plain(blob, sc, m, nsub, U, ud, us, ns, batch, layout):
     tbl = torch.zeros(nsub * U, dtype=torch.int64, device=dev)
     tbl[flat[keep]] = v32[keep]
     deltas = _as_i32(tbl).view(torch.uint16).reshape(nsub, U, 2)
-    dk_d = blob[offs[12]:offs[13]].view(ns, ud)
-    dk_s = blob[offs[13]:offs[14]].view(ns, us)
     i32 = torch.int32
-    return (bit.to(i32), kind.to(i32), slot.to(i32), prior.to(i32), deltas, dk_d, dk_s)
+    return (bit.to(i32), kind.to(i32), slot.to(i32), prior.to(i32), deltas,
+            *_key_tables(blob, layout, nsub, ns, ud, us))
 
 
-def _wire_expand_cuda(blob, sc, m, nsub, U, ud, us, ns, batch, layout):
+def _wire_expand_cuda(blob, sc, m, nsub, U, ud, us, ns, batch, layout, mesh):
     _native.check_cuda("wire_expand4_blob", blob, sc)
     offs = _blob_layout_words(layout, nsub, ns, ud, us)
     Lh, La, Lb, Lc, npi, ne, nc, ncc = layout
-    if blob.dim() != 1 or blob.shape[0] < offs[-1] or sc.shape[0] < 5:
-        raise ValueError(f"wire_expand4_blob: blob needs {offs[-1]} words and sc 5 "
-                         f"scalars, got {tuple(blob.shape)} / {tuple(sc.shape)}")
+    blobs, scs = (blob, sc) if blob.dim() == 2 else (blob[None], sc[None])
+    G = blobs.shape[0]
+    n_sc = 6 if mesh else 5
+    if blobs.dim() != 2 or blobs.shape[1] < offs[-1] or scs.shape[0] != G \
+            or scs.dim() != 2 or scs.shape[1] < n_sc:
+        raise ValueError(f"wire_expand4_blob: blob needs {offs[-1]} words and sc {n_sc} "
+                         f"scalars per chunk, got {tuple(blob.shape)} / {tuple(sc.shape)}")
     if m != nsub * batch or m >= 1 << 31:
         raise ValueError(f"wire_expand4_blob: m={m} != nsub*batch={nsub * batch}")
     dev = blob.device
-    out = [torch.empty(m, dtype=torch.int32, device=dev) for _ in range(4)]
-    deltas = torch.zeros(nsub * U, dtype=torch.int32, device=dev)
+    out = [torch.empty((G, m), dtype=torch.int32, device=dev) for _ in range(4)]
+    deltas = torch.zeros((G, nsub * U), dtype=torch.int32, device=dev)
+    # Scratch shared by the chunks' launch sequences (stream-ordered).
     block_ab = torch.empty(-(-m // _EXPAND_BINS), dtype=torch.int64, device=dev)
     starts = torch.empty(nsub, dtype=torch.int32, device=dev)
     coo_sub = torch.empty(max(nc, 1), dtype=torch.int32, device=dev)
     offs_c = (ctypes.c_longlong * len(offs))(*offs)
-    _native.launch("wire_expand", "artc_wire_expand", dev, blob, sc, *out, deltas,
-                   block_ab, starts, coo_sub, ctypes.addressof(offs_c), blob.shape[0],
-                   m, nsub, U, ud, batch, Lh, Lc, npi, ne, nc, ncc)
-    dk_d = blob[offs[12]:offs[13]].view(ns, ud)
-    dk_s = blob[offs[13]:offs[14]].view(ns, us)
-    return (*out, deltas.view(torch.uint16).reshape(nsub, U, 2), dk_d, dk_s)
+    for g in range(G):
+        _native.launch("wire_expand", "artc_wire_expand", dev, blobs[g], scs[g],
+                       *(o[g] for o in out), deltas[g], block_ab, starts, coo_sub,
+                       ctypes.addressof(offs_c), blobs.shape[1], m, nsub, U, ud, batch, Lh, Lc,
+                       npi, ne, nc, ncc, int(mesh))
+    planes = (*out, deltas.view(torch.uint16).reshape(G, nsub, U, 2))
+    if blob.dim() == 1:
+        planes = tuple(p[0] for p in planes)
+    return (*planes, *_key_tables(blob, layout, nsub, ns, ud, us))
 
 
 # ------------------------------------------------------ model_pass_v4 / v3_core
@@ -251,7 +284,8 @@ def model_pass_v4(bit_all, kind_all, slot_all, prior_all, dk_d, dk_s, deltas, du
                   sig_alpha: int, ud: int, us: int, n_sig: int = 1 << 17,
                   sig0_idx=None, sig0_val=None):
     """Frozen-batch pass over wire_expand4_blob's planes; returns (probs
-    int32[m], bits int32[m])."""
+    int32[m], bits int32[m]), or [G, m] with a leading chunk axis (see
+    v3_core)."""
     probs = v3_core(bit_all, kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0,
                     batch=batch, sup=sup, fast_w=fast_w, slow_w=slow_w, sig_w=sig_w,
                     sig_alpha=sig_alpha, ud=ud, us=us, n_sig=n_sig,
@@ -276,7 +310,14 @@ def v3_core(bit_all, kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, *
     warm rows scattered in and ones in the tail rows. Each step gathers its
     rows, stages every sub-batch's start state (deltas added, halved per
     window), computes each bin's probability by kind from its sub-batch's
-    staged state, and writes the final rows back. Returns probs int32[m]."""
+    staged state, and writes the final rows back. Returns probs int32[m].
+
+    A leading chunk axis (the mesh step's vmap, written out) runs G chunks
+    of one shape at once: planes [G, m], dk_d [G, ns, ud] / dk_s [G, ns,
+    us] (rows contiguous; the chunk stride is free, so they may be views of
+    the chunks' blobs), deltas [G, ns*sup, U, 2], dual0 [G, n_dual, 4],
+    sig0_idx [G, k] / sig0_val [G, k, 2]; probs [G, m]. The kernel puts the
+    chunk on a grid dimension (2 x ns launches for all G)."""
     if _native.on_cpu("v3_core", kind_all):
         return _v3_core_plain(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0,
                               batch, sup, fast_w, slow_w, sig_w, sig_alpha, ud, us,
@@ -293,6 +334,12 @@ def _alphas(sig_alpha: int) -> tuple[int, int]:
 
 def _v3_core_plain(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, batch, sup,
                    fast_w, slow_w, sig_w, sig_alpha, ud, us, n_sig, sig0_idx, sig0_val):
+    if kind_all.dim() == 2:  # the chunk axis: one chunk at a time
+        return torch.stack([_v3_core_plain(
+            kind_all[g], slot_all[g], prior_all[g], dk_d[g], dk_s[g], deltas[g], dual0[g],
+            batch, sup, fast_w, slow_w, sig_w, sig_alpha, ud, us, n_sig,
+            None if sig0_idx is None else sig0_idx[g],
+            None if sig0_val is None else sig0_val[g]) for g in range(kind_all.shape[0])])
     U = ud + us
     ns = kind_all.shape[0] // (sup * batch)
     dev = kind_all.device
@@ -361,43 +408,66 @@ def _staged_scan_plain(kind_all, slot_all, prior_all, pre1, pret, dk_d, dk_s, d_
     return probs.to(torch.int32)
 
 
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """True where every dimension but the first is dense (the first, the
+    chunk axis, may have any stride)."""
+    want = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != want:
+            return False
+        want *= size
+    return True
+
+
 def _v3_core_cuda(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, batch, sup,
                   fast_w, slow_w, sig_w, sig_alpha, ud, us, n_sig, sig0_idx, sig0_val):
-    _native.check_cuda("v3_core", kind_all, slot_all, prior_all, dk_d, dk_s, dual0)
+    one = kind_all.dim() == 1
+    if one:  # a single chunk is the chunk axis of length 1
+        kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0 = (
+            t[None] for t in (kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0))
+        if sig0_idx is not None:
+            sig0_idx, sig0_val = sig0_idx[None], sig0_val[None]
+    _native.check_cuda("v3_core", kind_all, slot_all, prior_all, dual0)
     U = ud + us
-    m = kind_all.shape[0]
+    G, m = kind_all.shape
     ns = m // (sup * batch)
     if m != ns * sup * batch or slot_all.shape != kind_all.shape \
             or prior_all.shape != kind_all.shape:
         raise ValueError(f"v3_core: m={m} planes must hold whole super-steps of "
                          f"{sup}x{batch} bins")
-    if dk_d.shape != (ns, ud) or dk_s.shape != (ns, us) or dual0.dim() != 2 \
-            or dual0.shape[1] != 4:
-        raise ValueError("v3_core: key tables must be [ns, ud] / [ns, us], dual0 [n, 4]")
-    if deltas.dtype != torch.uint16 or deltas.shape != (ns * sup, U, 2) \
+    for t, width in ((dk_d, ud), (dk_s, us)):
+        if t.shape != (G, ns, width) or t.dtype != torch.int32 or t.device != kind_all.device \
+                or not _rows_contiguous(t):
+            raise ValueError(f"v3_core: key tables must be int32 [G, ns, ud|us] with dense "
+                             f"rows on {kind_all.device}, got {tuple(t.shape)}")
+    if dual0.dim() != 3 or dual0.shape[0] != G or dual0.shape[2] != 4:
+        raise ValueError("v3_core: dual0 must be [n_dual, 4] per chunk")
+    if deltas.dtype != torch.uint16 or deltas.shape != (G, ns * sup, U, 2) \
             or not deltas.is_contiguous() or deltas.device != kind_all.device:
-        raise ValueError(f"v3_core: deltas must be contiguous uint16[{ns * sup}, {U}, 2]")
+        raise ValueError(f"v3_core: deltas must be contiguous uint16[{ns * sup}, {U}, 2] "
+                         f"per chunk")
     d32 = deltas.view(torch.int32)
     if sig0_idx is None:
         k_sig0, s_idx, s_val = 0, 0, 0
     else:
         _native.check_cuda("v3_core", kind_all, sig0_idx, sig0_val)
-        if sig0_val.shape != (sig0_idx.shape[0], 2):
-            raise ValueError("v3_core: sig0_val must be [k, 2]")
-        k_sig0, s_idx, s_val = sig0_idx.shape[0], sig0_idx, sig0_val
+        if sig0_idx.shape[0] != G or sig0_val.shape != (*sig0_idx.shape, 2):
+            raise ValueError("v3_core: sig0_val must be [k, 2] per chunk")
+        k_sig0, s_idx, s_val = sig0_idx.shape[1], sig0_idx, sig0_val
     dev = kind_all.device
-    n_dual = dual0.shape[0]
+    n_dual = dual0.shape[1]
     alpha_on, alpha_off = _alphas(sig_alpha)
-    dual_tbl = torch.empty((n_dual + 1 + ud) * 4, dtype=torch.int32, device=dev)
-    sig_tbl = torch.empty((n_sig + us) * 2, dtype=torch.int32, device=dev)
-    cst = torch.empty(sup * 4 * U, dtype=torch.int32, device=dev)
-    probs = torch.empty(m, dtype=torch.int32, device=dev)
+    dual_tbl = torch.empty((G, (n_dual + 1 + ud) * 4), dtype=torch.int32, device=dev)
+    sig_tbl = torch.empty((G, (n_sig + us) * 2), dtype=torch.int32, device=dev)
+    cst = torch.empty((G, sup * 4 * U), dtype=torch.int32, device=dev)
+    probs = torch.empty((G, m), dtype=torch.int32, device=dev)
     _native.launch("model_pass_v4", "artc_model_pass_v4", dev, kind_all, slot_all, prior_all,
-                   dk_d, dk_s, d32, dual0, s_idx, s_val, dual_tbl, sig_tbl, cst, probs,
-                   k_sig0, n_dual, n_sig, ns, sup, batch, ud, us, fast_w, slow_w, sig_w,
-                   im._halve_iters(fast_w, batch), im._halve_iters(slow_w, batch),
-                   im._halve_iters(sig_w, batch), alpha_on, alpha_off)
-    return probs
+                   dk_d, dk_s, d32, dual0, s_idx, s_val, dual_tbl, sig_tbl, cst, probs, G,
+                   dk_d.stride(0), dk_s.stride(0), k_sig0, n_dual, n_sig, ns, sup, batch, ud,
+                   us, fast_w, slow_w, sig_w, im._halve_iters(fast_w, batch),
+                   im._halve_iters(slow_w, batch), im._halve_iters(sig_w, batch), alpha_on,
+                   alpha_off)
+    return probs[0] if one else probs
 
 
 # -------------------------------------------------------------- model_pass_v2

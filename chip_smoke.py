@@ -7,43 +7,71 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
 Phases; any failure ends the script with a nonzero exit code:
 
-1. build: the port's CUDA kernels (nvcc, sm_90a, from avrecode_tpu_torch/csrc)
-   and, where needed, the native host library;
-2. kernels: every kernel of both compress paths against its plain PyTorch
-   version on the same inputs, at the full shapes of benchdata/bench.mp4's
-   chunks (profile 2: every chunk; profile 0: chunk 0 at batch 4096, sup
-   128), plus random lane streams with K in {16, 128}, the probability
-   extremes 1 and 32767 and valid masks that are not a prefix; all values
+1. build: the port's CUDA kernels (one nvcc per source under
+   avrecode_tpu_torch/csrc, sm_90a) and the native host library, all at once;
+2. kernels: every kernel against its plain PyTorch version on the same
+   inputs, timed with CUDA events, with its bound (bytes or operations over
+   the card's peak rates): at the full shapes of benchdata/bench.mp4's chunks
+   (profile 2: every chunk; profile 0: chunk 0 at batch 4096, sup 128), on
+   random lane streams (K in {16, 128}, the probability extremes, valid
+   masks that are not a prefix), and at the mesh-uniform shapes of
+   benchdata/multigop720.mp4 (chunk mode 1): the mesh-mode expand on every
+   chunk, the model pass over the chunk axis on all chunks at once, the
+   lane-sliced masked scan on one chunk; then both mesh steps, each against
+   the same step on a grid of CPU devices (the plain versions). All values
    are integers, so the tolerance is 0;
 3. main paths, each with the launch counters set to 0 just before it and
-   read just after: avrecode_tpu_torch.device.compress(device="cuda") on
-   bench.mp4 and multigop720.mp4, first under profile 2 (one warm-up, best
-   of 3), then under profile 0 with ARTC_MODEL_IMPL=v2 (one warm-up, best of
-   3) and dict, sort and mm (one run each). Every run's chunk probs equal
-   the host model's, every lane blob the C++ rANS encoder's, the host
-   decoder returns the input exactly, and the four profile-0 containers are
-   identical; the counters show each path went through each of its kernels.
+   read just after:
+   - compress(device="cuda") under profile 2 on bench.mp4 and
+     multigop720.mp4 (one warm-up, best of 3): probs == host model, lane
+     blobs == C++ encoder, exact roundtrip;
+   - compress(model_profile=0) with ARTC_MODEL_IMPL=v2 on both clips (one
+     warm-up, best of 3), dict, sort and mm once each on bench.mp4: the same
+     checks, and the containers identical across impls;
+   - compress_mesh on multigop720.mp4 (chunk mode 1, batch 4096, sup 128,
+     16 lanes) on a 1x1 and a 2x2 grid (four cells on cuda:0, or four
+     cards where there are four; one warm-up, best of 3): each container ==
+     the single-device container, exact roundtrip;
+   - sharded_recompress_step (the pre-ANL5 mesh step) on a 2x2 grid: probs
+     == the single-device model_pass of each chunk;
+   - the corpus: two processes joined over gloo, each `cli corpus --device
+     cuda --chunk-mode 1` over benchdata/*.mp4: both report the same merged stats, no
+     failures, and every output roundtrips.
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, the per-kernel JSON and the result JSON.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import glob
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLIPS = ("benchdata/bench.mp4", "benchdata/multigop720.mp4")
+MESH_CLIP = "benchdata/multigop720.mp4"
 BATCH, SUP = 4096, 128  # the compress path's defaults
+MESH_LANES = 16  # force_lanes of the mesh gate (__graft_entry__.py)
 PROFILE2_KERNELS = ("wire_expand", "dual0_expand", "model_pass_v4", "lane_scan_dev",
                     "lane_compact")
 PROFILE0_KERNELS = ("model_pass_v2", "model_pass_dict", "model_pass", "lane_scan",
                     "lane_compact")
+MESH_KERNELS = ("wire_expand", "model_pass_v4", "lane_scan", "sharded_v4_compress_step")
+RECOMPRESS_KERNELS = ("model_pass", "lane_scan", "sharded_recompress_step")
 IMPLS = ("v2", "dict", "sort", "mm")
+# Peak rates of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and the
+# float32 rate outside the tensor cores, taken for the kernels' int32
+# operations (the card's int32 rate is not higher, so the bound stays a
+# lower bound).
+HBM_BYTES_S = 3.35e12
+SCALAR_OPS_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -84,27 +112,28 @@ def host_timed(fn):
 
 
 def max_abs_err(a, b) -> int:
-    """Largest |a - b| over matching tensors (int64 math); raises on a shape
-    or dtype mismatch."""
+    """Largest |a - b| over matching tensors (int64 math, on a's device);
+    raises on a shape or dtype mismatch."""
     import torch
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
                              f"{tuple(b.shape)} {b.dtype}")
     if a.dtype == torch.uint16:  # widen through int16 bit patterns
         a, b = (t.view(torch.int16).long() & 0xFFFF for t in (a, b))
+    b = b.to(a.device)
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors (None skipped), each counted once."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def c_rans_encode(bits, probs, lanes: int) -> bytes:
     """The host C++ rANS encoder (native/rans.h) through the C ABI."""
     import numpy as np
-    from avrecode_tpu import host
+    from avrecode_tpu_torch import host
     lib = host.lib()
-    lib.artc_rans_encode.restype = ctypes.c_int
-    lib.artc_rans_encode.argtypes = [
-        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint16), ctypes.c_uint64,
-        ctypes.c_int, ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.POINTER(ctypes.c_size_t)]
     bits = np.ascontiguousarray(bits, np.uint8)
     probs = np.ascontiguousarray(probs, np.uint16)
     out = ctypes.POINTER(ctypes.c_uint8)()
@@ -113,16 +142,19 @@ def c_rans_encode(bits, probs, lanes: int) -> bytes:
                               probs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
                               len(bits), lanes, ctypes.byref(out), ctypes.byref(out_len))
     if rc != 0:
-        raise RuntimeError(lib.artc_last_error().decode())
-    try:
-        return ctypes.string_at(out, out_len.value)
-    finally:
-        lib.artc_free(out)
+        raise host.last_error()
+    return host.take(out, out_len)
+
+
+def roundtrip_ok(comp: bytes, data: bytes) -> bool:
+    from avrecode_tpu_torch import host
+    return host.decompress(comp)[0] == data
 
 
 class Kernels:
-    """Per-kernel results: worst error over all comparisons, and the device
-    times of the kernel and its plain version at main-path shapes."""
+    """Per-kernel results: worst error over all comparisons, the device
+    times of the kernel and its plain version at main-path shapes, and the
+    work (bytes moved, operations) that gives its bound."""
 
     # _native.launches counter -> (kernel source, the JAX function it replaces)
     SOURCES = {
@@ -142,11 +174,24 @@ class Kernels:
         "model_pass": ("avrecode_tpu_torch/csrc/model_pass.cu",
                        "avrecode_tpu/ops/model_pass.py:636"),
     }
+    # The mesh steps: the kernels each one launches (their counters).
+    STEPS = {
+        "sharded_v4_compress_step": ("avrecode_tpu_torch/parallel/pipeline.py",
+                                     "avrecode_tpu/parallel/pipeline.py:31",
+                                     ("wire_expand", "model_pass_v4", "lane_scan")),
+        "sharded_recompress_step": ("avrecode_tpu_torch/parallel/pipeline.py",
+                                    "avrecode_tpu/parallel/pipeline.py:107",
+                                    ("model_pass", "lane_scan")),
+    }
+    COLLECTIVE = ("_psum_across_processes", "avrecode_tpu_torch/parallel/distributed.py",
+                  "avrecode_tpu/parallel/distributed.py:165")
 
     def __init__(self):
-        self.err = {k: 0 for k in self.SOURCES}
+        self.err = {k: 0 for k in (*self.SOURCES, *self.STEPS)}
         self.ms = {}
         self.plain_ms = {}
+        self.work = {}  # name -> (bytes moved, operations)
+        self.mesh_ms = {}  # kernel times at the mesh shapes (printed, not in the JSON)
 
     def check(self, name: str, got, want, what: str) -> None:
         e = max_abs_err(got, want)
@@ -154,19 +199,42 @@ class Kernels:
         if e != 0:
             raise AssertionError(f"{name}: kernel != plain on {what} (max abs err {e})")
 
-    def json_line(self, launches: dict) -> str:
-        """launches: each kernel's count over the main-path runs (profile 2,
-        then profile 0), each path counted from 0."""
-        rows = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                 "launches": int(launches[k]), "max_abs_err": self.err[k],
-                 "ms": self.ms[k], "plain_ms": self.plain_ms[k]}
+    @staticmethod
+    def bound(nb: int, ops: int) -> tuple[float, str]:
+        """The least time (ms) for `nb` bytes and `ops` operations, and
+        which of the two bounds it."""
+        t_bytes, t_ops = nb / HBM_BYTES_S, ops / SCALAR_OPS_S
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+    def _row(self, name, route, src, rep, launches, err, ms, plain_ms, work, **extra):
+        bound_ms, bound_by = self.bound(*work)
+        return {"name": name, "route": route, "source": src, "replaces": rep,
+                "launches": int(launches), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "bytes": int(work[0]), "ops": int(work[1]), **extra}
+
+    def json_line(self, launches: dict, step_launched: dict, collective: dict) -> str:
+        """launches: each counter over the main-path runs, each path counted
+        from 0; step_launched: per step, the kernel counters of its own
+        main path; collective: the corpus run's measurements of row 12."""
+        rows = [self._row(k, "cuda", src, rep, launches[k], self.err[k], self.ms[k],
+                          self.plain_ms[k], self.work[k])
                 for k, (src, rep) in self.SOURCES.items()]
-        return json.dumps({"kernels": rows})
+        rows += [self._row(k, "cuda", src, rep, launches[k], self.err[k], self.ms[k],
+                           self.plain_ms[k], self.work[k],
+                           launched={c: step_launched[k][c] for c in kernels})
+                 for k, (src, rep, kernels) in self.STEPS.items()]
+        name, src, rep = self.COLLECTIVE
+        coll = self._row(name, "torch.distributed (gloo)", src, rep, collective["calls"],
+                         collective["err"], collective["ms"], collective["plain_ms"],
+                         (collective["bytes"], 0),
+                         launched="collective (torch.distributed)")
+        return json.dumps({"kernels": rows, "collectives": [coll]})
 
 
 def kernel_phase(K: Kernels, an, chunks, dev) -> None:
     """Each kernel against its plain version at the chunks' full shapes on
-    `dev`; the first chunk also gives the timings."""
+    `dev`; the first chunk also gives the timings and the work."""
     import torch
     from avrecode_tpu_torch import device as td
     from avrecode_tpu_torch.ops import lanes as lx
@@ -182,18 +250,23 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
         if timed:
             K.ms["dual0_expand"] = cuda_ms(lambda: mp.dual0_expand(*d0), 20)
             K.plain_ms["dual0_expand"] = cuda_ms(lambda: mp._dual0_expand_plain(*d0), 5)
+            # a gather of n_dual rows and the escape rows' scatter, 4 columns each
+            K.work["dual0_expand"] = (nbytes(*d0, got), 4 * (d0[1].numel() + d0[2].numel()))
         # wire_expand4_blob
         ex = st.statics["expand"]
+        eargs = [ex[k] for k in ("m", "nsub", "U", "ud", "us", "ns", "batch", "layout")]
         got = mp.wire_expand4_blob(st.blob, st.sc, **ex)
-        want = mp._wire_expand_plain(st.blob, st.sc, *(ex[k] for k in (
-            "m", "nsub", "U", "ud", "us", "ns", "batch", "layout")))
+        want = mp._wire_expand_plain(st.blob, st.sc, *eargs)
         for g, w in zip(got, want):
             K.check("wire_expand", g, w, what)
         if timed:
             K.ms["wire_expand"] = cuda_ms(lambda: mp.wire_expand4_blob(st.blob, st.sc, **ex), 10)
             K.plain_ms["wire_expand"] = cuda_ms(lambda: mp._wire_expand_plain(
-                st.blob, st.sc, *(ex[k] for k in (
-                    "m", "nsub", "U", "ud", "us", "ns", "batch", "layout"))), 2)
+                st.blob, st.sc, *eargs), 2)
+            # per bin: nibble decode, the rank scans, an unpack and the prior
+            # gather (16); per COO entry: an unpack and the delta scatter (8)
+            K.work["wire_expand"] = (nbytes(st.blob, st.sc, *got[:5]),
+                                     16 * ex["m"] + 8 * ex["layout"][6])
         # model_pass_v4 / v3_core
         bit, kind, slot, prior, deltas, dk_d, dk_s = got
         mo = st.statics["model"]
@@ -210,6 +283,9 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
         if timed:
             K.ms["model_pass_v4"] = cuda_ms(kernel_probs, 5)
             K.plain_ms["model_pass_v4"] = cuda_ms(lambda: mp._v3_core_plain(*margs), 1)
+            K.work["model_pass_v4"] = (
+                nbytes(kind, slot, prior, dk_d, dk_s, deltas, st.dual0, st.s_idx, st.s_val,
+                       probs), model_ops(ex["m"], ex["nsub"], ex["U"]))
             # lanes at the main path's shapes
             n = c.n
             lanes = td.pick_lanes(n)
@@ -222,18 +298,34 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
             K.ms["lane_scan_dev"] = cuda_ms(
                 lambda: lx.lane_scan_dev(bit, probs, n, T, lanes), 3)
             K.plain_ms["lane_scan_dev"] = plain_scan_s * 1e3
+            K.work["lane_scan_dev"] = (8 * n + 4 * sum(o.numel() for o in scan),
+                                       RANS_STEP_OPS * n)
             print(f"lane_scan_dev plain version: one run of its Python step loop "
                   f"(T={T} steps, K={lanes}), timed once on the host clock: "
                   f"{plain_scan_s:.3f} s", flush=True)
             _, words, emits, counts = scan
             maxW = bucket(max(int(counts.max()), 1))
-            K.check("lane_compact", lx.lane_compact(words, emits, maxW),
-                    lx._lane_compact_plain(words, emits, maxW), what)
+            out = lx.lane_compact(words, emits, maxW)
+            K.check("lane_compact", out, lx._lane_compact_plain(words, emits, maxW), what)
             K.ms["lane_compact"] = cuda_ms(lambda: lx.lane_compact(words, emits, maxW), 5)
             K.plain_ms["lane_compact"] = cuda_ms(
                 lambda: lx._lane_compact_plain(words, emits, maxW), 3)
+            # per step: the emit count's add and compare, one store
+            K.work["lane_compact"] = (nbytes(words, emits, out), 3 * words.numel())
         print(f"kernels == plain on {what}", flush=True)
     lane_streams(K, dev)
+
+
+# Operations of the model passes (int32, as the kernels do them): per bin
+# about 20 (the staged-row gather, the mix with one division, the clamp),
+# per staged (sub-batch, slot) about 24 (the delta add and the bounded
+# halving). One rANS step is about 10 (select f and c, the emit compare and
+# shift, one division and its remainder, the state update).
+RANS_STEP_OPS = 10
+
+
+def model_ops(m: int, nsub: int, U: int) -> int:
+    return 20 * m + 24 * nsub * U
 
 
 def lane_streams(K: Kernels, dev) -> None:
@@ -268,7 +360,7 @@ def lane_streams(K: Kernels, dev) -> None:
             if lx.encode_interleaved(bits, probs, lanes, device=dev) != blob:
                 raise AssertionError(f"encode_interleaved blob != C++ encoder on {what}")
             # The masked scan with a mask that is not a prefix: lane-sliced
-            # (every third lane off) and ragged, as the mesh slices it.
+            # (every third lane off) and ragged.
             valid = rng.random((T, lanes)) < 0.8
             valid[:, ::3] = False
             planes = [torch.from_numpy(np.resize(a, T * lanes).reshape(T, lanes)).to(dev)
@@ -329,6 +421,9 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
     host_equal("model_pass_v2", got)
     K.ms["model_pass_v2"] = cuda_ms(v2, 5)
     K.plain_ms["model_pass_v2"] = cuda_ms(v2_plain, 1)
+    # v4's work plus the per-bin prefix adders on six columns
+    K.work["model_pass_v2"] = (nbytes(*planes, *tables, got),
+                               model_ops(c.v2_m, ns * an.sup, ud + us) + 6 * c.v2_m)
     print(f"model_pass_v2 == plain == host on {what}", flush=True)
 
     # model_pass_dict and model_pass on run_chunk's padded layout
@@ -341,11 +436,20 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
     pkw = {k: kw[k] for k in ("batch", "fast_w", "slow_w", "sig_w", "sig_alpha")}
     pstatics = [pkw[k] for k in ("batch", "fast_w", "slow_w", "sig_w", "sig_alpha")]
     bin_u, dict_keys = mp.build_dicts(kind_p, key_p, n_dual + 1, an.batch)
+    U = dict_keys.shape[1]
     dargs = [up(a.reshape(nb, an.batch)) for a in (bit_p, kind_p, prior_p)] + [
         up(bin_u), up(dict_keys), up(dual_ext),
         up(np.zeros((an.n_sig + 1, 2), np.int32))]
     sargs = [up(a) for a in (bit_p, kind_p, key_p, prior_p, dual_ext,
                              np.zeros((an.n_sig, 2), np.int32))]
+    # Both count earlier equal keys in each batch (B^2 / 2 compares per
+    # batch) and compute each bin's probability (20); dict updates and
+    # halves its U entries per batch (40 each), sort/mm adds each bin into
+    # its row (4) and halves the whole tables per batch (16 iterations: 8
+    # operations per dual row, 4 per sig row).
+    prefix = nb * an.batch * (an.batch - 1) // 2
+    ops = {"model_pass_dict": prefix + 20 * m + 40 * nb * U,
+           "model_pass": prefix + 24 * m + nb * 16 * (8 * (n_dual + 1) + 4 * an.n_sig)}
     for name, kern, plain_fn, args, extra in (
             ("model_pass_dict", mp.model_pass_dict, mp._model_pass_dict_plain, dargs, {}),
             ("model_pass", mp.model_pass, mp._model_pass_plain, sargs, {"impl": "mm"})):
@@ -355,7 +459,8 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
         host_equal(name, got)
         K.ms[name] = cuda_ms(lambda: kern(*args, **pkw, **extra), 3)
         K.plain_ms[name] = plain_s * 1e3
-        print(f"{name} == plain == host on {what} ({nb} batches, U={dict_keys.shape[1]}); "
+        K.work[name] = (nbytes(*args, got), ops[name])
+        print(f"{name} == plain == host on {what} ({nb} batches, U={U}); "
               f"plain version timed once on the host clock: {plain_s:.3f} s", flush=True)
 
     # lane_scan at this chunk's K and T, the encode_interleaved layout
@@ -370,15 +475,174 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
         K.check("lane_scan", g, w, what)
     K.ms["lane_scan"] = cuda_ms(lambda: lx.lane_scan(*lane_planes, valid), 3)
     K.plain_ms["lane_scan"] = plain_s * 1e3
+    K.work["lane_scan"] = (nbytes(*lane_planes, valid) + 4 * sum(o.numel() for o in scan),
+                           RANS_STEP_OPS * n)
     print(f"lane_scan == plain on {what} (T={T}, K={lanes}); plain version: one run of "
           f"its Python step loop, timed once on the host clock: {plain_s:.3f} s", flush=True)
+
+
+def mesh_grids(dev):
+    """The 1x1 grid on `dev` and the 2x2 grid: four cards where the machine
+    has four, else four cells on `dev`."""
+    import torch
+    from avrecode_tpu_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(4)] if n >= 4 else [dev] * 4
+    return {"1x1": make_mesh(1, 1, [dev]), "2x2": make_mesh(2, 2, cards)}
+
+
+def step_outputs_equal(K: Kernels, name: str, got, want, what: str) -> None:
+    for label, g, w in zip(("x_final", "words", "emits", "probs", "total_words"), got, want):
+        K.check(name, g, w, f"{what}: {label}")
+
+
+def mesh_kernel_phase(K: Kernels, an, dev) -> None:
+    """The three mesh-mode kernels against their plain versions at the
+    mesh-uniform shapes of multigop720.mp4 (chunk mode 1, 2 x 2 grid):
+    the mesh expand on every chunk, the model pass over the chunk axis on
+    all chunks at once (probs == host model too), the lane-sliced masked
+    scan on one chunk (its plain version on a CPU copy: a Python loop of T
+    steps); then the whole step against the same step on a 2 x 2 grid of
+    CPU devices, the step's plain version. Not counted as main-path
+    launches (the counters are reset before each main path)."""
+    import numpy as np
+    import torch
+    from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch.ops import lanes as lx
+    from avrecode_tpu_torch.ops import model_pass as mp
+    from avrecode_tpu_torch.parallel import pipeline
+    from avrecode_tpu_torch.parallel.mesh import make_mesh
+    shapes = {(c.ns, c.ud, c.us) for c in an.chunks}
+    if len(shapes) < 2:  # the mesh gate of __graft_entry__.py
+        raise AssertionError(f"{MESH_CLIP} no longer stresses non-uniform padding: "
+                             f"all {len(an.chunks)} chunks share dict shape {shapes}")
+    inp = td.mesh_inputs(an, an.chunks, 2, SUP, MESH_LANES)
+    st = inp.statics
+    UD, US, NS, layout = st["ud"], st["us"], st["ns"], st["layout"]
+    G, M, T = inp.blob.shape[0], NS * SUP * BATCH, NS * SUP * BATCH // MESH_LANES
+    what = (f"{MESH_CLIP} mesh shapes (G={G}, M={M}, ud={UD}, us={US}, "
+            f"{len(shapes)} chunk shapes)")
+    blob, sc, dual0, si, sv, n_arr = (t.to(dev) for t in inp.tensors())
+    ekw = dict(m=M, nsub=NS * SUP, U=UD + US, ud=UD, us=US, ns=NS, batch=BATCH, layout=layout,
+               mesh=True)
+    planes = mp.wire_expand4_blob(blob, sc, **ekw)
+    for g in range(G):
+        want = mp._wire_expand_plain(blob[g], sc[g], M, NS * SUP, UD + US, UD, US, NS, BATCH,
+                                     layout, True)
+        for got, w in zip(planes, want):
+            K.check("wire_expand", got[g], w, f"{what}, chunk {g}, mesh mode")
+    K.mesh_ms["wire_expand"] = cuda_ms(lambda: mp.wire_expand4_blob(blob, sc, **ekw), 3)
+    bit, kind, slot, prior, deltas, dk_d, dk_s = planes
+    mkw = dict(batch=BATCH, sup=SUP, fast_w=an.fast_w, slow_w=an.slow_w, sig_w=an.sig_w,
+               sig_alpha=an.sig_alpha, ud=UD, us=US, n_sig=an.n_sig)
+
+    def v3():
+        return mp.v3_core(bit, kind, slot, prior, dk_d, dk_s, deltas, dual0, sig0_idx=si,
+                          sig0_val=sv, **mkw)
+
+    probs = v3()
+    plain = mp._v3_core_plain(kind, slot, prior, dk_d, dk_s, deltas, dual0,
+                              *(mkw[k] for k in ("batch", "sup", "fast_w", "slow_w", "sig_w",
+                                                 "sig_alpha", "ud", "us", "n_sig")), si, sv)
+    K.check("model_pass_v4", probs, plain, f"{what}, all chunks over the chunk axis")
+    for g, c in enumerate(an.chunks):
+        if not np.array_equal(probs[g, :c.n].cpu().numpy(), c.host_probs.astype(np.int32)):
+            raise AssertionError(f"{what}: chunk {g} probs != host probs")
+    K.mesh_ms["model_pass_v4"] = cuda_ms(v3, 3)
+    valid = torch.arange(M, device=dev) < n_arr[:, None]
+    lane_planes = [x.view(G, T, MESH_LANES)[:, :, MESH_LANES // 2:]
+                   for x in (bit, probs.clamp_min(1), valid)]  # lane cell 1 of 2
+    scan = lx.lane_scan(*lane_planes)
+    plain, plain_s = host_timed(lambda: lx._lane_scan_plain(*(x[0].cpu() for x in lane_planes)))
+    for got, w in zip(scan, plain):
+        K.check("lane_scan", got[0], w, f"{what}, chunk 0, lanes 8-15 of 16 in place")
+    K.mesh_ms["lane_scan"] = cuda_ms(lambda: lx.lane_scan(*lane_planes), 3)
+    print(f"mesh kernels == plain on {what}; probs == host; card ms: expand (G={G} chunks) "
+          f"{K.mesh_ms['wire_expand']:.3f}, model pass (chunk axis) "
+          f"{K.mesh_ms['model_pass_v4']:.3f}, lane-sliced scan (T={T}, 8 lanes x {G} chunks) "
+          f"{K.mesh_ms['lane_scan']:.3f}; the scan's plain version on one chunk, CPU, one "
+          f"run: {plain_s:.3f} s", flush=True)
+
+    # The whole step on the 2 x 2 grid against the plain step on 2 x 2 CPUs.
+    grid = mesh_grids(dev)["2x2"]
+    step = pipeline.sharded_v4_compress_step(grid, **st)
+    staged = (blob, sc, dual0, si, sv, n_arr)
+    got = step(*staged)
+    t0 = time.perf_counter()
+    want = pipeline.sharded_v4_compress_step(make_mesh(2, 2, ["cpu"] * 4), **st)(
+        *inp.tensors())
+    plain_s = time.perf_counter() - t0
+    name = "sharded_v4_compress_step"
+    step_outputs_equal(K, name, got, want, what)
+    K.ms[name] = cuda_ms(lambda: step(*staged), 3)
+    K.plain_ms[name] = plain_s * 1e3
+    nsub, U, nc = NS * SUP, UD + US, layout[6]
+    K.work[name] = (nbytes(*staged, *got), G * (16 * M + 8 * nc + model_ops(M, nsub, U)
+                                                + RANS_STEP_OPS * M))
+    print(f"{name} (2x2 on {grid.devices[1][1]}) == the step on a 2x2 CPU grid: card "
+          f"{K.ms[name]:.3f} ms, plain (CPU, host clock, one run) {plain_s:.3f} s", flush=True)
+
+
+def recompress_inputs():
+    """The pre-ANL5 step's inputs, as test_parallel.py builds them, at the
+    compress path's batch: 4 chunks of 65,536 pairs, the real sig table."""
+    import numpy as np
+    G, N = 4, 1 << 16
+    n_dual, n_sig = 4096, 1 << 17
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 2, (G, N)).astype(np.int32)
+    kinds = rng.integers(0, 3, (G, N)).astype(np.int32)
+    keys = np.where(kinds == 2, rng.integers(0, n_sig, (G, N)),
+                    rng.integers(0, n_dual - 1, (G, N))).astype(np.int32)
+    priors = rng.integers(1, 32767, (G, N)).astype(np.int32)
+    dual0 = np.ones((G, n_dual, 4), np.int32) * 3
+    sig0 = np.zeros((G, n_sig, 2), np.int32)
+    return bits, kinds, keys, priors, dual0, sig0
+
+
+def recompress_kernel_phase(K: Kernels, dev):
+    """sharded_recompress_step on the 2 x 2 grid against the same step on
+    a 2 x 2 grid of CPU devices, and its probs against the single-device
+    model_pass of each chunk (test_parallel.py:48-53). Returns the step and
+    its staged inputs for the main path."""
+    import torch
+    from avrecode_tpu_torch.ops import model_pass as mp
+    from avrecode_tpu_torch.parallel import pipeline
+    from avrecode_tpu_torch.parallel.mesh import make_mesh
+    name = "sharded_recompress_step"
+    host_in = [torch.from_numpy(a) for a in recompress_inputs()]
+    staged = [t.to(dev) for t in host_in]
+    kw = dict(batch=BATCH, fast_w=48, slow_w=640, sig_w=80, sig_alpha=1)
+    step = pipeline.sharded_recompress_step(mesh_grids(dev)["2x2"], **kw)(K_total=16)
+    got = step(*staged)
+    t0 = time.perf_counter()
+    want = pipeline.sharded_recompress_step(make_mesh(2, 2, ["cpu"] * 4), **kw)(
+        K_total=16)(*host_in)
+    plain_s = time.perf_counter() - t0
+    G, N = host_in[0].shape
+    what = f"random pairs G={G} N={N} batch {BATCH}, 16 lanes"
+    for label, g, w in zip(("probs", "x_final", "words", "emits", "total_words"), got, want):
+        K.check(name, g, w, f"{what}: {label}")
+    for g in range(G):
+        one = mp.model_pass(*(t[g] for t in staged), **kw)
+        K.check(name, got[0][g], one, f"{what}: chunk {g} probs vs single-device model_pass")
+    K.ms[name] = cuda_ms(lambda: step(*staged), 3)
+    K.plain_ms[name] = plain_s * 1e3
+    nb = N // BATCH
+    n_dual, n_sig = staged[4].shape[1], staged[5].shape[1]
+    per_chunk = (nb * BATCH * (BATCH - 1) // 2 + 24 * N
+                 + nb * 16 * (8 * n_dual + 4 * n_sig) + RANS_STEP_OPS * N)
+    K.work[name] = (nbytes(*staged, *got), G * per_chunk)
+    print(f"{name} (2x2) == the step on a 2x2 CPU grid and == model_pass per chunk on "
+          f"{what}: card {K.ms[name]:.3f} ms, plain (CPU, host clock, one run) "
+          f"{plain_s:.3f} s", flush=True)
+    return step, staged
 
 
 def main_path_phase(clips: dict, refs: dict, dev) -> dict:
     """compress(device=dev) on each clip: one warm-up, best of 3, then
     the checks on a further run that keeps its probs."""
     import numpy as np
-    from avrecode_tpu import pipeline
     from avrecode_tpu_torch import device as td
     report = {}
     for name, data in clips.items():
@@ -390,7 +654,7 @@ def main_path_phase(clips: dict, refs: dict, dev) -> dict:
             times.append(time.perf_counter() - t0)
         info = {}
         comp, stats = td.compress(data, batch_size=BATCH, device=dev, info=info,
-                                    keep_probs=True)
+                                  keep_probs=True)
         chunks = refs[name].chunks
         if len(chunks) != info["n_chunks"]:
             raise AssertionError(f"{name}: {info['n_chunks']} chunks vs {len(chunks)} analysed")
@@ -402,8 +666,7 @@ def main_path_phase(clips: dict, refs: dict, dev) -> dict:
             want = c_rans_encode(bits, c.host_probs, td.pick_lanes(c.n))
             if info["blobs"][i] != want:
                 raise AssertionError(f"{name} chunk {i}: lane blob != C++ encoder")
-        dec, _ = pipeline.decompress(comp)
-        if dec != data:
+        if not roundtrip_ok(comp, data):
             raise AssertionError(f"{name}: decompress(compress(x)) != x")
         best = min(times)
         report[name] = dict(bytes=len(data), container=len(comp), chunks=len(chunks),
@@ -421,21 +684,20 @@ def main_path_phase(clips: dict, refs: dict, dev) -> dict:
 
 
 def profile0_main_path_phase(clips: dict, refs0: dict, dev) -> dict:
-    """compress(model_profile=0, device=dev) on each clip: ARTC_MODEL_IMPL=v2
-    with one warm-up and best of 3, then dict, sort and mm once each; every
-    run is checked (probs == host, blobs == C++ encoder, exact roundtrip) and
-    the four containers must be identical."""
+    """compress(model_profile=0, device=dev): ARTC_MODEL_IMPL=v2 on each clip
+    with one warm-up and best of 3, then dict, sort and mm once each on the
+    first clip; every run is checked (probs == host, blobs == C++ encoder,
+    exact roundtrip) and a clip's containers must be identical."""
     import numpy as np
-    from avrecode_tpu import pipeline
     from avrecode_tpu_torch import device as td
     report = {}
-    for name, data in clips.items():
+    for ci, (name, data) in enumerate(clips.items()):
         chunks = refs0[name].chunks
         want_blobs = [c_rans_encode(c.bit, c.host_probs, td.pick_lanes(len(c.bit)))
                       for c in chunks]
         containers = {}
         runs = {}
-        for impl in IMPLS:
+        for impl in IMPLS if ci == 0 else IMPLS[:1]:
             os.environ["ARTC_MODEL_IMPL"] = impl
             reps = 4 if impl == "v2" else 1  # v2: one warm-up, then best of 3
             times = []
@@ -455,8 +717,7 @@ def profile0_main_path_phase(clips: dict, refs0: dict, dev) -> dict:
                                          f"(first at {bad})")
                 if info["blobs"][i] != want_blobs[i]:
                     raise AssertionError(f"{name} {impl} chunk {i}: lane blob != C++ encoder")
-            dec, _ = pipeline.decompress(comp)
-            if dec != data:
+            if not roundtrip_ok(comp, data):
                 raise AssertionError(f"{name} {impl}: decompress(compress(x)) != x")
             containers[impl] = comp
             timed = times[1:] if impl == "v2" else times
@@ -468,11 +729,158 @@ def profile0_main_path_phase(clips: dict, refs0: dict, dev) -> dict:
                   f"host, blobs == C++ encoder, roundtrip exact", flush=True)
         os.environ.pop("ARTC_MODEL_IMPL", None)
         if len(set(containers.values())) != 1:
-            raise AssertionError(f"{name}: the profile-0 containers differ across {IMPLS}")
+            raise AssertionError(f"{name}: the profile-0 containers differ across "
+                                 f"{list(containers)}")
         report[name] = dict(bytes=len(data), container=len(containers["v2"]),
                             chunks=len(chunks), bins=int(sum(len(c.bit) for c in chunks)),
                             impls=runs)
     return report
+
+
+def mesh_main_path_phase(data: bytes, single: bytes, dev) -> dict:
+    """compress_mesh on the 1x1 and the 2x2 grid: one warm-up, best of 3;
+    each container == the single-device container (computed before the
+    counters were reset), and the host decoder returns the input."""
+    from avrecode_tpu_torch import device as td
+    report = {}
+    for name, grid in mesh_grids(dev).items():
+        def run():
+            return td.compress_mesh(data, grid, chunk_mode=1, batch_size=BATCH, sup=SUP,
+                                    force_lanes=MESH_LANES)
+        run()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            comp, st = run()
+            times.append(time.perf_counter() - t0)
+        if comp != single:
+            raise AssertionError(f"{MESH_CLIP} {name} grid: mesh container != single-device")
+        if not roundtrip_ok(comp, data):
+            raise AssertionError(f"{MESH_CLIP} {name} grid: mesh container did not roundtrip")
+        best = min(times)
+        report[name] = dict(cells=[[str(d) for d in row] for row in grid.devices],
+                            chunks=st.n_chunks, container=len(comp), best_s=best, runs_s=times,
+                            mb_s=len(data) / 1e6 / best)
+        print(f"main path compress_mesh {MESH_CLIP} {name}: e2e best {best:.3f} s of "
+              f"{['%.3f' % t for t in times]} = {len(data) / 1e6 / best:.3f} MB/s, "
+              f"{st.n_chunks} chunks; container == single-device, roundtrip exact", flush=True)
+    return report
+
+
+_CORPUS_CHILD = """
+import json, os, sys, time
+import torch
+import torch.distributed as tdist
+from avrecode_tpu_torch import cli
+from avrecode_tpu_torch.parallel import distributed
+rc = cli.main(["corpus", sys.argv[1], sys.argv[2], "--device", "cuda", "--chunk-mode", "1"])
+calls = distributed.calls["_psum_across_processes"]
+rank, world = tdist.get_rank(), tdist.get_world_size()
+x = torch.arange(1, 5, dtype=torch.int64) * (rank + 1)
+def psum():
+    return distributed._psum_across_processes(x)
+def plain():
+    parts = [torch.empty_like(x) for _ in range(world)]
+    tdist.all_gather(parts, x)
+    return torch.stack(parts).sum(0)
+out = {}
+for name, fn in (("ms", psum), ("plain_ms", plain)):
+    for _ in range(5):
+        fn()
+    tdist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        got = fn()
+    out[name] = (time.perf_counter() - t0) / 50 * 1e3
+    out[name + "_value"] = got.tolist()
+tdist.barrier()
+tdist.destroy_process_group()
+out["calls"] = calls
+print(json.dumps(out), flush=True)
+sys.exit(rc)
+"""
+
+
+def corpus_phase() -> dict:
+    """Two processes on this machine join one gloo group through the JAX
+    launch variables and run `cli corpus --device cuda --chunk-mode 1` over
+    benchdata/*.mp4 (one chunk per GOP, the corpus's unit: multigop.mp4 as
+    one chunk overflows the slim wire's 8192-slot dictionary); both report the same merged stats with no failures,
+    and every output roundtrips. Each then times its collective (row 12)
+    against the plain sum of an all-gather."""
+    from avrecode_tpu_torch import host
+    out_dir = os.path.join(REPO, "avrecode_tpu_torch", "build", "corpus_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    src = os.path.join(REPO, "benchdata", "*.mp4")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    env.update(JAX_COORDINATOR=f"localhost:{port}", JAX_NUM_PROCESSES="2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _CORPUS_CHILD, src, out_dir],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=REPO, env={**env, "JAX_PROCESS_ID": str(i)})
+             for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):  # a failed file fails every rank's report
+        raise AssertionError("corpus: " + "; ".join(
+            f"process {i} exited {p.returncode}, stdout {out[-1500:]!r}, stderr {err[-3000:]!r}"
+            for i, (p, (out, err)) in enumerate(zip(procs, outs))))
+    reports, colls = [], []
+    for out, _ in outs:
+        lines = out.strip().splitlines()
+        reports.append(json.loads(lines[-2]))
+        colls.append(json.loads(lines[-1]))
+    for key in ("files", "input_bytes", "output_bytes", "failures"):
+        if reports[0][key] != reports[1][key]:
+            raise AssertionError(f"corpus: the processes' merged {key} differ: {reports}")
+    inputs = sorted(glob.glob(src))
+    if reports[0]["files"] != len(inputs) or reports[0]["failures"] != 0:
+        raise AssertionError(f"corpus: {reports[0]} for {len(inputs)} inputs")
+    for path in inputs:
+        with open(os.path.join(out_dir, os.path.basename(path) + ".atrc"), "rb") as f:
+            dec, _ = host.decompress(f.read())
+        with open(path, "rb") as f:
+            if dec != f.read():
+                raise AssertionError(f"corpus: {path} did not roundtrip")
+    err = max(abs(a - b) for c in colls for a, b in zip(c["ms_value"], c["plain_ms_value"]))
+    if any(c["ms_value"] != [3, 6, 9, 12] for c in colls) or err != 0:  # (1..4) * (1 + 2)
+        raise AssertionError(f"corpus: the collective's sums are wrong: {colls}")
+    print(f"corpus: 2 processes (gloo), {reports[0]['files']} files, "
+          f"{reports[0]['input_bytes']} -> {reports[0]['output_bytes']} bytes, wall "
+          f"{wall:.3f} s; merged stats equal on both, every output roundtrips; "
+          f"all-reduce {colls[0]['ms']:.4f} / {colls[1]['ms']:.4f} ms per call", flush=True)
+    return {"reports": reports, "wall_s": wall,
+            "collective": {"calls": sum(c["calls"] for c in colls), "err": err,
+                           "ms": max(c["ms"] for c in colls),
+                           "plain_ms": max(c["plain_ms"] for c in colls),
+                           "bytes": 2 * 4 * 8}}
+
+
+def build_all() -> None:
+    """The CUDA kernels and the host library, built at the same time."""
+    from avrecode_tpu_torch import _native
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        kern = ex.submit(timed, _native.build)
+        host_lib = ex.submit(timed, _native.ensure_host_lib)
+        t_nvcc, t_host = kern.result(), host_lib.result()
+    print(f"build (at once): kernels (one nvcc per source, sm_90a) {t_nvcc:.1f} s -> "
+          f"{os.path.relpath(_native.LIB_PATH, REPO)}; host library {t_host:.1f} s",
+          flush=True)
 
 
 def main() -> int:
@@ -488,58 +896,71 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the GPU only")
 
+    t_start = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}; card {torch.cuda.get_device_name(0)} "
           f"x{torch.cuda.device_count()}", flush=True)
-
-    t0 = time.perf_counter()
-    _native.build()
-    t_nvcc = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _native.ensure_host_lib()
-    t_host = time.perf_counter() - t0
-    print(f"build: kernels (nvcc sm_90a) {t_nvcc:.1f} s -> "
-          f"{os.path.relpath(_native.LIB_PATH, REPO)}; host library {t_host:.1f} s",
-          flush=True)
+    build_all()
 
     clips = {c: open(os.path.join(REPO, c), "rb").read() for c in CLIPS}
     refs = {c: td.analyze(d, batch_size=BATCH, model_profile=2, sup=SUP)
             for c, d in clips.items()}
     refs0 = {c: td.analyze(d, batch_size=BATCH, model_profile=0, sup=SUP)
              for c, d in clips.items()}
+    mesh_an = td.analyze(clips[MESH_CLIP], chunk_mode=1, batch_size=BATCH, model_profile=2,
+                         sup=SUP)
     dev = torch.device("cuda")
 
     K = Kernels()
     kernel_phase(K, refs[CLIPS[0]], refs[CLIPS[0]].chunks, dev)
     profile0_kernel_phase(K, refs0[CLIPS[0]], dev)
+    mesh_kernel_phase(K, mesh_an, dev)
+    recompress_step, recompress_in = recompress_kernel_phase(K, dev)
     for name, ms in K.ms.items():
+        bound_ms, bound_by = K.bound(*K.work[name])
         print(f"kernel {name}: {ms:.3f} ms on the card; plain version "
-              f"{K.plain_ms[name]:.3f} ms", flush=True)
+              f"{K.plain_ms[name]:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{K.work[name][0]} bytes, {K.work[name][1]} operations)", flush=True)
+    single_mesh_ref, _ = td.compress(clips[MESH_CLIP], chunk_mode=1, batch_size=BATCH,
+                                     force_lanes=MESH_LANES, device=dev)
 
     # Each main path counts its own launches, from 0.
-    launches = dict.fromkeys(Kernels.SOURCES, 0)
+    launches = dict.fromkeys(_native.launches, 0)
+    step_launched = {}
     report = {}
-    for profile, kernels, run in ((2, PROFILE2_KERNELS, lambda: main_path_phase(
-            clips, refs, dev)), (0, PROFILE0_KERNELS, lambda: profile0_main_path_phase(
-                clips, refs0, dev))):
+    paths = (
+        ("profile2", PROFILE2_KERNELS, lambda: main_path_phase(clips, refs, dev)),
+        ("profile0", PROFILE0_KERNELS, lambda: profile0_main_path_phase(clips, refs0, dev)),
+        ("mesh", MESH_KERNELS, lambda: mesh_main_path_phase(
+            clips[MESH_CLIP], single_mesh_ref, dev)),
+        ("recompress", RECOMPRESS_KERNELS, lambda: {
+            "total_words": int(recompress_step(*recompress_in)[4])}),
+    )
+    for path, kernels, run in paths:
         _native.reset_launches()
-        report[f"profile{profile}"] = run()
+        report[path] = run()
+        torch.cuda.synchronize()
         counts = dict(_native.launches)
         missing = [k for k in kernels if counts[k] == 0]
         if missing:
-            fail(f"the profile-{profile} main path never launched {missing}")
-        print(f"profile-{profile} main path launches: {counts}", flush=True)
+            fail(f"the {path} main path never launched {missing}")
+        print(f"{path} main path launches: {counts}", flush=True)
         for k, v in counts.items():
             launches[k] += v
+        for step, (_, _, used) in Kernels.STEPS.items():
+            if step in kernels:
+                step_launched[step] = {k: counts[k] for k in used}
+    report["corpus"] = corpus_phase()
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"no main path launched {missing}")
+    report["seconds"] = time.perf_counter() - t_start
     print(json.dumps({"main_path": report}), flush=True)
     print(card, flush=True)
-    print(K.json_line(launches), flush=True)
+    print(K.json_line(launches, step_launched, report["corpus"]["collective"]), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

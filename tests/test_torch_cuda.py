@@ -186,3 +186,75 @@ def test_compress_profile0_on_cuda(cuda, profile0_analysis, impl, monkeypatch):
         assert np.array_equal(probs, c.host_probs)
     dec, _ = pipeline.decompress(comp)
     assert dec == data
+
+
+@pytest.fixture(scope="module")
+def mesh_inputs(cuda):
+    with open(CLIP, "rb") as f:
+        data = f.read()
+    an = td.analyze(data, chunk_mode=1, batch_size=4096, model_profile=2, sup=128)
+    return data, an, td.mesh_inputs(an, an.chunks, 2, 128, 16)
+
+
+def test_mesh_expand_and_chunk_axis_kernels_match_plain(cuda, mesh_inputs):
+    """The mesh-mode expand (every chunk) and the model pass over the chunk
+    axis (all chunks in one launch sequence) at multigop720.mp4's
+    mesh-uniform shapes: kernel == plain, and probs == host model."""
+    _, an, inp = mesh_inputs
+    st = inp.statics
+    UD, US, NS = st["ud"], st["us"], st["ns"]
+    M = NS * 128 * 4096
+    blob, sc, dual0, si, sv, _ = (t.to(cuda) for t in inp.tensors())
+    ex = dict(m=M, nsub=NS * 128, U=UD + US, ud=UD, us=US, ns=NS, batch=4096,
+              layout=st["layout"], mesh=True)
+    _native.reset_launches()
+    planes = tmp.wire_expand4_blob(blob, sc, **ex)
+    assert _native.launches["wire_expand"] == blob.shape[0]
+    for g in range(blob.shape[0]):
+        for got, want in zip(planes, tmp._wire_expand_plain(blob[g], sc[g], *ex.values())):
+            _equal(got[g], want)
+    bit, kind, slot, prior, deltas, dk_d, dk_s = planes
+    mkw = dict(batch=4096, sup=128, fast_w=an.fast_w, slow_w=an.slow_w, sig_w=an.sig_w,
+               sig_alpha=an.sig_alpha, ud=UD, us=US, n_sig=an.n_sig)
+    probs = tmp.v3_core(bit, kind, slot, prior, dk_d, dk_s, deltas, dual0, sig0_idx=si,
+                        sig0_val=sv, **mkw)
+    assert _native.launches["model_pass_v4"] == 1
+    _equal(probs, tmp._v3_core_plain(kind, slot, prior, dk_d, dk_s, deltas, dual0,
+                                     *mkw.values(), si, sv))
+    for g, c in enumerate(an.chunks):
+        assert np.array_equal(probs[g, :c.n].cpu().numpy(), c.host_probs.astype(np.int32))
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_lane_scan_on_lane_slices_matches_plain(cuda, G):
+    """The masked scan reads a lane slice of wider [G, T, K] planes in place
+    (row and chunk strides): kernel == plain, one launch for all chunks."""
+    rng = np.random.default_rng(G)
+    T, K = 512, 16
+    bits = torch.from_numpy(rng.integers(0, 2, (G, T, K)).astype(np.int32)).to(cuda)
+    probs = torch.from_numpy(rng.integers(1, 32768, (G, T, K)).astype(np.int32)).to(cuda)
+    valid = (torch.arange(T * K, device=cuda) < T * K - 100).view(T, K).expand(G, T, K)
+    valid = valid.contiguous()
+    for cols in (slice(0, 8), slice(8, 16), slice(4, 7)):
+        planes = [x[:, :, cols] for x in (bits, probs, valid)]
+        _native.reset_launches()
+        got = tl.lane_scan(*planes)
+        assert _native.launches["lane_scan"] == 1
+        for g, w in zip(got, tl._lane_scan_plain(*(x.cpu() for x in planes))):
+            _equal(g.cpu(), w)
+
+
+def test_compress_mesh_on_cuda(cuda, mesh_inputs):
+    """compress_mesh on a 2 x 2 grid of cells on one card writes the
+    single-device container (16 lanes) through the mesh kernels."""
+    from avrecode_tpu_torch.parallel.mesh import make_mesh
+    data, _, _ = mesh_inputs
+    single, _ = td.compress(data, chunk_mode=1, force_lanes=16, device=cuda)
+    _native.reset_launches()
+    comp, _ = td.compress_mesh(data, make_mesh(2, 2, [cuda] * 4), chunk_mode=1,
+                               force_lanes=16)
+    for k in ("wire_expand", "model_pass_v4", "lane_scan", "sharded_v4_compress_step"):
+        assert _native.launches[k] > 0, k
+    assert comp == single
+    dec, _ = pipeline.decompress(comp)
+    assert dec == data

@@ -1,7 +1,9 @@
 """The port's compress path (avrecode_tpu_torch.device, plain versions on the
 CPU) against the JAX package's: byte-identical containers that the host
-decoder reads back; the port never imports jax; a CUDA request never runs
-on the CPU."""
+decoder reads back; the port never imports jax or the JAX package; a CUDA
+request never runs on the CPU."""
+import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -96,24 +98,92 @@ def test_cli_roundtrip(corpus_dir, tmp_path, capsys):
     assert dec == _read(corpus_dir, "i_main.264")
 
 
-def test_port_never_imports_jax(corpus_dir):
-    """Importing every module of the port and compressing a clip with it,
-    under profile 2 and under profile 0 with every model pass, leaves jax
-    out of sys.modules. Checked in a subprocess: this test
+def _same(a, b) -> bool:
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return a is not None and b is not None and a.dtype == b.dtype \
+            and np.array_equal(a, b)
+    return a == b
+
+
+@pytest.mark.parametrize("clip,kw", [
+    ("ipb_high.mp4", dict(batch_size=512, chunk_mode=1, model_profile=2)),
+    ("multislice.264", dict(batch_size=256, model_profile=2)),
+    ("ipb_high.mp4", dict(batch_size=512, model_profile=0, sup=4)),
+])
+def test_port_analysis_matches_jax(corpus_dir, monkeypatch, clip, kw):
+    """The port's copy of the parsers (avrecode_tpu_torch.analysis) reads
+    the native export into the JAX package's Analysis, field by field, and
+    its layout buckets, warm sig0 forms and lane rule agree."""
+    if clip == "multislice.264":
+        for k, v in WARM.items():
+            monkeypatch.setenv(k, v)
+    data = _read(corpus_dir, clip)
+    got, want = td.analyze(data, **kw), jd.analyze(data, **kw)
+    head = ("lanes", "batch", "n_dual", "n_sig", "fast_w", "slow_w", "sig_w", "sig_alpha",
+            "profile", "sup", "slim")
+    assert [getattr(got, f) for f in head] == [getattr(want, f) for f in head]
+    assert len(got.chunks) == len(want.chunks) > 0
+    for g, w in zip(got.chunks, want.chunks):
+        for f in dataclasses.fields(w):
+            assert _same(getattr(g, f.name), getattr(w, f.name)), f.name
+        if got.slim:
+            assert td._chunk_layout(g) == jd._chunk_layout(w)
+            for a, b in zip(td._sig0_sparse_padded(g, got.n_sig),
+                            jd._sig0_sparse_padded(w, want.n_sig)):
+                assert (a is None and b is None) or _same(a, b)
+            assert np.array_equal(g.packed, w.packed) and np.array_equal(g.dual0, w.dual0)
+        else:
+            a, b = td._sig0_dense(g, got.n_sig), jd._sig0_dense(w, want.n_sig)
+            assert (a is None and b is None) or _same(a, b)
+    for n in (1, 16 * 32768, 16 * 32768 + 16, 1 << 24, 1 << 30):
+        assert td.pick_lanes(n) == jd.pick_lanes(n)
+
+
+def test_port_host_decoder_matches_jax_package(corpus_dir):
+    """The port's own host bindings (avrecode_tpu_torch.host) load the same
+    library file the JAX package builds, and compress / decompress as the
+    JAX package's bindings do."""
+    from avrecode_tpu import host as jhost
+    from avrecode_tpu_torch import host as thost
+    data = _read(corpus_dir, "ipb_high.mp4")
+    comp, st = thost.compress(data, chunk_mode=1, batch_size=512)
+    want, want_st = jhost.compress(data, chunk_mode=1, batch_size=512)
+    assert comp == want and vars(st) == vars(want_st)
+    assert thost.decompress(comp)[0] == jhost.decompress(comp)[0] == data
+    assert thost.container_version() == jhost.container_version() == comp[4]
+    assert _native.HOST_LIB_PATH == os.path.abspath(jhost._LIB_PATH)
+
+
+def test_port_never_imports_jax(corpus_dir, tmp_path):
+    """Importing every module of the port and running every entry point on
+    a clip (compress under profile 2 and under profile 0 with every model
+    pass, compress_mesh on a CPU grid, corpus_compress through the port)
+    leaves jax and every module of the JAX package (avrecode_tpu,
+    avrecode_tpu.*) out of sys.modules. Checked in a subprocess: this test
     process has imported jax already (conftest)."""
+    clip = os.path.join(corpus_dir, "i_main.264")
     code = (
         "import sys\n"
         "import avrecode_tpu_torch, avrecode_tpu_torch._native, avrecode_tpu_torch.cli\n"
         "import avrecode_tpu_torch.ops.intmath, avrecode_tpu_torch.ops.lanes\n"
-        "import avrecode_tpu_torch.ops.model_pass\n"
+        "import avrecode_tpu_torch.ops.model_pass, avrecode_tpu_torch.analysis\n"
+        "import avrecode_tpu_torch.host, avrecode_tpu_torch.parallel.mesh\n"
+        "import avrecode_tpu_torch.parallel.pipeline, avrecode_tpu_torch.parallel.distributed\n"
         "import os\n"
         "from avrecode_tpu_torch import device\n"
-        f"data = open({os.path.join(corpus_dir, 'i_main.264')!r}, 'rb').read()\n"
+        "from avrecode_tpu_torch.parallel import distributed, mesh\n"
+        f"data = open({clip!r}, 'rb').read()\n"
         "device.compress(data, batch_size=1024, device='cpu')\n"
         "for impl in ('v2', 'dict', 'sort', 'mm'):\n"
         "    os.environ['ARTC_MODEL_IMPL'] = impl\n"
         "    device.compress(data, batch_size=1024, model_profile=0, device='cpu')\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "device.compress_mesh(data, mesh.make_mesh(2, 2, ['cpu'] * 4), batch_size=512, sup=4,\n"
+        "                     force_lanes=4)\n"
+        f"rep = distributed.corpus_compress([{clip!r}], {str(tmp_path)!r}, use_device=True,\n"
+        "                                  device='cpu', batch_size=512)\n"
+        "assert rep.files == 1 and rep.failures == 0, rep\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'avrecode_tpu'))\n"
         "assert not bad, bad\n"
         "print('no-jax-ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -122,6 +192,52 @@ def test_port_never_imports_jax(corpus_dir):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "no-jax-ok" in res.stdout
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "profile_torch_compress.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "avrecode_tpu_torch")):
+        files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
+    return files
+
+
+def _jax_side_imports(path):
+    """(line, module) of every import of jax, jaxlib or the JAX package
+    (avrecode_tpu, avrecode_tpu.*) in a source file, at any depth (inside
+    functions too)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names
+                  if n.split(".")[0] in ("jax", "jaxlib", "avrecode_tpu")]
+    return found
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_port_sources_import_nothing_of_jax(path):
+    """No module of the port, nor chip_smoke.py or the port's profiling
+    tool, imports jax or anything of the JAX package, at any depth."""
+    assert _jax_side_imports(path) == []
+
+
+def test_import_guard_sees_nested_imports(tmp_path):
+    """The AST guard finds the imports it must reject, also inside
+    functions, and passes the port's own relative imports."""
+    src = tmp_path / "m.py"
+    src.write_text("import os\nfrom . import host\nfrom .ops import lanes\n"
+                   "def f():\n    import jax.numpy as jnp\n"
+                   "    from avrecode_tpu.device import analyze\n"
+                   "    from avrecode_tpu import host\n    import avrecode_tpu\n")
+    assert [m for _, m in _jax_side_imports(str(src))] == [
+        "jax.numpy", "avrecode_tpu.device", "avrecode_tpu", "avrecode_tpu"]
 
 
 def test_cuda_request_never_runs_on_cpu(corpus_dir):

@@ -18,13 +18,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHILD = """
 import os, sys
 import numpy as np
-from avrecode_tpu import host
 from avrecode_tpu_torch import _native
 from avrecode_tpu_torch import device as td
-_native.ensure_host_lib()
+path = _native.ensure_host_lib()
 an = td.analyze(open(sys.argv[1], "rb").read(), batch_size=1024, model_profile=2, sup=128)
 ok = all(np.array_equal(td.device_probs(an, c, "cpu"), c.host_probs) for c in an.chunks)
-print(host._LIB_PATH, os.stat(host._LIB_PATH).st_ino, ok)
+print(path, os.stat(path).st_ino, ok)
 """
 
 
