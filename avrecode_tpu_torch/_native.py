@@ -52,10 +52,10 @@ _SIGNATURES = {
     "artc_wire_expand": "p" * 11 + "i" * 13,
     "artc_dual0_expand": "p" * 5 + "i" * 3,
     "artc_model_pass_v4": "p" * 13 + "i" * 19,
-    "artc_lane_scan_dev": "p" * 6 + "i" * 3,
+    "artc_lane_scan_dev": "p" * 7 + "i" * 3,
     "artc_lane_compact": "p" * 4 + "i" * 3,
     "artc_model_pass_v2": "p" * 15 + "i" * 15,
-    "artc_lane_scan": "p" * 7 + "i" * 5,
+    "artc_lane_scan": "p" * 8 + "i" * 5,
     "artc_model_pass_dict": "p" * 13 + "i" * 10,
     "artc_model_pass": "p" * 11 + "i" * 9,
 }

@@ -11,96 +11,372 @@
 // planes is read in place through a row stride (K) and a chunk stride, from a
 // pointer at the slice's first column.
 //
-// What bounds it: the scan is a serial recurrence of T steps per lane (T =
-// 65,536 at bench size) with one integer division per step; its K lanes are
-// only K threads (K <= 128), so the card is nearly idle and the time is T
-// times the latency of one step. The compaction only moves the [T, K]
-// planes (about 64 MB at bench size), so it is bound by how much of that
-// traffic is in flight at once.
+// What bounds the scans: each lane is one serial chain of T steps (T =
+// 65,536 at bench size, 131,072 on the mesh's lane slices), and K <= 128
+// lanes are only a few warps, so the card is nearly idle and the time is T
+// times the latency of the dependent instructions of one step. Everything
+// else (loads, the step's parameters, the stores) can be taken off that
+// chain.
 //
-// Design: one thread per lane walks t = T-1 ... 0. Lane l reads bin t*K + l,
-// so the K threads of a step read neighbouring words. The state is u32:
-// f << 17 and (x / f) << 15 stay below 2^32. Each step records the low 16
-// bits of the state and whether it emitted, at [t, l] as the JAX scan does.
-// The compaction splits T into tiles of kTile steps: one thread per (tile,
-// lane) counts the tile's emissions, one thread per lane scans its tile
-// counts, and one thread per (tile, lane) writes its emitted words in
-// ascending-t order into [maxW, K] from its tile's offset; a serial walk
-// per lane would leave the card as idle as the scan. Spreading the scan's
-// own recurrence is later work.
+// Design: one block per chunk and group of 32 lanes. Warp 0, the consumer,
+// runs one thread per lane and walks t = T-1 ... 0; it does only the chain:
+//   x1 = x > thr ? x >> 16 : x                (compare, select)
+//   q  = hi32(x1 * m + a) >> s                (multiply-high, shift: x1 / f)
+//   x  = q * g + (x1 + c)                     (multiply-add)
+// with g = 32768 - f, which is (q << 15) + x1 % f + c, and thr = (f << 17) - 1
+// (emit iff x >= f << 17). The magic (m, s, a = inc ? m : 0) is exact for
+// every f in [1, 32767] and every x1 < f << 17 (ops/lanes.py _magic_table
+// proves it; f = 1 takes m = 2^32 - 1 with the increment). A step's record
+// is 8 bytes, m and w = g << 17 | one << 6 | inc << 5 | s, unpacked off the
+// chain (thr = ~(g << 17)); an invalid step is the record 0 (thr = 2^32 - 1,
+// never exceeded; m = a = s = g = c = 0), an exact identity, so the chain has
+// no branch. The consumer reads a block of records ahead from shared memory
+// and writes back each state's low 16 bits and whether it emitted; a tile
+// with no valid step (the padding past n, a chunk's end on the mesh) skips
+// the chain. Four helper warps feed it through a ring of kSlots tiles of
+// kSteps steps: for a tile they cp.async the raw bits, probabilities and
+// mask into shared memory, 16 bytes (4 lanes) a copy where the rows allow
+// (reading the planes in place), pack the records (m and inc from the magic
+// table, copied into shared memory when the block starts), and, once the
+// consumer has passed the tile, write words and emits and count the
+// emissions. mbarriers order the two sides: full[slot] (helper -> consumer)
+// and done[slot] (consumer -> helper). Helper h owns slot h and the tiles h,
+// h + 4, ...; as soon as it has packed a tile it starts the copies of the
+// next one into the raw planes, so they have four of the consumer's tiles to
+// land. The loops are kept short rather than unrolled whole: with hot code
+// several times larger, blocks on the two SMs of one TPC ran markedly
+// slower than a block alone (on an H100; most likely instruction fetch).
+//
+// The compaction only moves the [T, K] planes (about 64 MB at bench size),
+// so it is bound by how much of that traffic is in flight at once. It splits
+// T into tiles of kTile steps: one thread per (tile, lane) counts the tile's
+// emissions, one thread per lane scans its tile counts, and one thread per
+// (tile, lane) writes its emitted words in ascending-t order into [maxW, K]
+// from its tile's offset.
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr uint32_t kRansL = 1u << 16;
+constexpr int kSteps = 32;   // steps per ring tile
+constexpr int kChainBlock = kSteps / 2;  // steps per straight-line block of the consumer
+constexpr int kHelpers = 4;  // helper warps, one ring slot each
+constexpr int kSlots = kHelpers;
+// Warp w is scheduled by the SM's scheduler w % 4. The consumer is warp 0;
+// warp 4 would share its scheduler, so it idles, and the helpers are warps
+// 1-3 and 5.
+constexpr int kIdleWarp = 4;
+constexpr int kScanThreads = 32 * (2 + kHelpers);
+// The magic table (ops/lanes.py _magic_words): m by f, then the inc bits.
+constexpr int kMagicWords = artc::kProbScale + artc::kProbScale / 32;
 
-// One encode step of state x for a bin of probability p (of a one) and value
-// bit; returns 1 if the low 16 bits of x were emitted first.
-__device__ inline int rans_step(uint32_t& x, uint32_t p, bool one) {
-  const uint32_t f = one ? p : artc::kProbScale - p;
-  const uint32_t c = one ? artc::kProbScale - p : 0u;
-  int e = 0;
-  if (x >= (f << 17)) {
-    e = 1;
-    x >>= 16;
-  }
-  x = ((x / f) << artc::kProbBits) + x % f + c;
-  return e;
+// One ring tile: kSteps steps x 32 lanes (16-byte aligned: 16-byte copies
+// land in bit and prob).
+struct alignas(16) Slot {
+  uint2 rec[kSteps][32];       // m, w = g << 17 | one << 6 | inc << 5 | s
+  uint32_t bit[kSteps][32];    // raw planes, cp.async'd
+  uint32_t prob[kSteps][32];
+  uint32_t state[kSteps][32];  // low 16 bits of the state before each step | emitted << 16
+  uint8_t valid[kSteps][32];   // the masked scan's raw mask
+  uint32_t any;                // whether any step of the tile is valid
+};
+constexpr int kRingBytes = kMagicWords * 4 + kSlots * int(sizeof(Slot));
+
+struct ScanArgs {
+  const int* bits;
+  const int* probs;
+  const uint8_t* valid;  // the masked scan's mask (null for the dense scan)
+  const uint4* magic;    // kMagicWords words
+  int* x_final;
+  int* words;
+  int* emits;
+  int* counts;
+  long long n, T, K, chunk_stride, row_stride;
+  bool vec;  // 16-byte rows: aligned planes, K and the strides multiples of 4
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return uint32_t(__cvta_generic_to_shared(p));
 }
 
-__global__ void lane_scan_dev_kernel(const int* __restrict__ bits,
-                                     const int* __restrict__ probs, int* __restrict__ x_final,
-                                     int* __restrict__ words, int* __restrict__ emits,
-                                     int* __restrict__ counts, long long n, long long T,
-                                     long long K) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= K) return;
-  uint32_t x = kRansL;
-  int count = 0;
-  for (long long t = T - 1; t >= 0; --t) {
-    const long long idx = t * K + l;
-    const uint32_t word = x & 0xffffu;
-    int e = 0;
-    if (idx < n) {  // bins past n are padding: no emission, no state change
-      const int pv = probs[idx];
-      e = rans_step(x, uint32_t(pv > 1 ? pv : 1), bits[idx] == 1);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t ok = 0;
+  while (!ok) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(ok)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// One step (ops/lanes.py _chain_step mirrors it): the record's fields are
+// unpacked off the chain; `word` gets the state's low 16 bits and the
+// emission at bit 16.
+__device__ __forceinline__ uint32_t chain_step(uint32_t x, uint2 r, uint32_t& word) {
+  const uint32_t thr = ~(r.y & 0xfffe0000u);  // (f << 17) - 1; 2^32 - 1 if invalid
+  const uint32_t g = r.y >> 17;
+  const uint32_t a = (r.y & 32u) ? r.x : 0u;
+  const uint32_t c = (r.y & 64u) ? g : 0u;
+  const bool emit = x > thr;
+  word = (x & 0xffffu) | (emit ? 0x10000u : 0u);
+  const uint32_t x1 = emit ? x >> 16 : x;
+  const uint32_t q = uint32_t((uint64_t(x1) * r.x + a) >> 32) >> (r.y & 31u);
+  return q * g + (x1 + c);
+}
+
+// A helper's view of the planes: step j of tile i is t = T - 1 - i*kSteps - j.
+template <bool kDense>
+struct Ring {
+  ScanArgs a;
+  Slot* slots;
+  const uint32_t* magic;  // the table, in shared memory
+  long long g, l;         // chunk, lane
+  bool live;              // l < K
+  int rows;               // steps t < rows may be valid (dense: the bins below n)
+
+  __device__ long long in_index(long long t) const {
+    return kDense ? t * a.K + l : g * a.chunk_stride + t * a.row_stride + l;
+  }
+
+  // Starts tile i's copies into its slot. A whole tile of aligned rows is
+  // copied 16 bytes (4 lanes) at a time, 8 row pieces a thread; the last
+  // tile, the dense stream's end and unaligned planes go a lane at a time.
+  __device__ void issue(long long i) const {
+    Slot& sl = slots[i % kSlots];
+    const int ln = threadIdx.x & 31;
+    const long long t0 = a.T - 1 - i * kSteps, lane0 = l - ln;
+    const long long top0 = in_index(t0) - ln;  // lane0's index in row t0
+    const long long step = kDense ? a.K : a.row_stride;
+    const int lanes = a.K - lane0 < 32 ? int(a.K - lane0) : 32;  // the group's live lanes
+    if (a.vec && t0 >= kSteps - 1 && (!kDense || top0 + lanes - 1 < a.n)) {
+#pragma unroll
+      for (int k = 0; k < kSteps / 4; ++k) {
+        const int j = (ln >> 3) + 4 * k, c = 4 * (ln & 7);
+        if (c < lanes) {
+          const long long idx = top0 - j * step + c;
+          cp_async16(&sl.bit[j][c], a.bits + idx);
+          cp_async16(&sl.prob[j][c], a.probs + idx);
+          if (!kDense) cp_async4(&sl.valid[j][c], a.valid + idx);
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int j = 0; j < kSteps; ++j) {
+        const long long t = t0 - j, idx = top0 + ln - j * step;
+        if (live && t >= 0 && (!kDense || idx < a.n)) {  // dense: bins past n are padding
+          cp_async4(&sl.bit[j][ln], a.bits + idx);
+          cp_async4(&sl.prob[j][ln], a.probs + idx);
+          if (!kDense) sl.valid[j][ln] = __ldg(a.valid + idx);
+        }
+      }
     }
-    words[idx] = int(word);
-    emits[idx] = e;
-    count += e;
   }
-  x_final[l] = int(x);
-  counts[l] = count;
+
+  // Waits for tile i's copies (the warp's: a thread reads pieces other
+  // threads copied) and packs its records (ops/lanes.py _pack_steps mirrors
+  // it), and whether the tile has a valid step at all. Eight steps at a
+  // time, their loads batched ahead of the arithmetic; no branch: an invalid
+  // step (stale raw values) packs a record and stores 0, the identity.
+  __device__ void convert(long long i) const {
+    constexpr int kGroup = 8;
+    Slot& sl = slots[i % kSlots];
+    const int ln = threadIdx.x & 31;
+    const uint32_t* inc_bits = magic + artc::kProbScale;
+    const int t0 = int(a.T - 1 - i * kSteps);
+    uint32_t any = 0;
+    cp_async_wait_all();
+    __syncwarp();
+#pragma unroll 1
+    for (int j0 = 0; j0 < kSteps; j0 += kGroup) {
+      uint32_t one[kGroup], f[kGroup], keep[kGroup], m[kGroup], inc[kGroup];
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const int j = j0 + k;
+        const int pv = int(sl.prob[j][ln]);
+        const uint32_t p = uint32_t(kDense && pv < 1 ? 1 : pv);  // JAX floors the dense p at 1
+        one[k] = sl.bit[j][ln] == 1u;
+        f[k] = (one[k] ? p : artc::kProbScale - p) & (artc::kProbScale - 1);
+        const int t = t0 - j;
+        keep[k] = 0u - (uint32_t(live) & uint32_t(t >= 0) & uint32_t(t < rows) &
+                        uint32_t(kDense || sl.valid[j][ln] != 0));
+      }
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        m[k] = magic[f[k]];
+        inc[k] = inc_bits[f[k] >> 5];
+      }
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const uint32_t w = (artc::kProbScale - f[k]) << 17 | one[k] << 6 |
+                           (inc[k] >> (f[k] & 31u) & 1u) << 5 |
+                           (31u - __clz(f[k] | 1u));  // s = floor(log2 f)
+        any |= keep[k];
+        sl.rec[j0 + k][ln] = make_uint2(m[k] & keep[k], w & keep[k]);
+      }
+    }
+    any = __any_sync(0xffffffffu, any != 0);
+    if (ln == 0) sl.any = any;
+  }
+
+  // Writes tile i's words and emits; returns its emissions.
+  __device__ int flush(long long i) const {
+    Slot& sl = slots[i % kSlots];
+    const int ln = threadIdx.x & 31;
+    const long long t0 = a.T - 1 - i * kSteps, top = (g * a.T + t0) * a.K + l;
+    const int last = t0 < kSteps - 1 ? int(t0) : kSteps - 1;  // the last tile ends at t = 0
+    int count = 0;
+    if (live) {
+#pragma unroll 4
+      for (int j = 0; j <= last; ++j) {
+        const uint32_t w = sl.state[j][ln];
+        a.words[top - j * a.K] = int(w & 0xffffu);
+        a.emits[top - j * a.K] = int(w >> 16);
+        count += int(w >> 16);
+      }
+    }
+    return count;
+  }
+};
+
+template <bool kDense>
+__device__ __forceinline__ void lane_scan_body(const ScanArgs& a) {
+  extern __shared__ __align__(16) unsigned char ring_smem[];
+  __shared__ uint64_t full[kSlots], done[kSlots];
+  __shared__ int part[kHelpers][32];
+  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const long long l = (long long)blockIdx.x * 32 + ln;
+  uint32_t* magic = reinterpret_cast<uint32_t*>(ring_smem);
+  const int rows = !kDense ? int(a.T) : a.n > l ? int((a.n - l + a.K - 1) / a.K) : 0;
+  const Ring<kDense> ring{a,  reinterpret_cast<Slot*>(ring_smem + kMagicWords * 4),
+                          magic, (long long)blockIdx.y, l, l < a.K, rows};
+  const long long ntiles = (a.T + kSteps - 1) / kSteps;
+  for (int k = threadIdx.x; k < kMagicWords / 4; k += blockDim.x)
+    reinterpret_cast<uint4*>(magic)[k] = __ldg(a.magic + k);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&done[s], 32);
+    }
+  }
+  __syncthreads();
+  uint32_t x = kRansL;
+  if (warp == 0) {  // the consumer: the chain and nothing else
+    for (long long i = 0; i < ntiles; ++i) {
+      const int s = int(i % kSlots);
+      mbar_wait(&full[s], uint32_t(i / kSlots) & 1u);
+      Slot& sl = ring.slots[s];
+      if (!sl.any) {  // every step is the identity: the state stays, no emission
+#pragma unroll 8
+        for (int j = 0; j < kSteps; ++j) sl.state[j][ln] = x & 0xffffu;
+      } else {
+#pragma unroll 1
+        for (int j0 = 0; j0 < kSteps; j0 += kChainBlock) {  // short code: see the note
+          uint2 r[kChainBlock];  // the records, all loads issued before the chain
+#pragma unroll
+          for (int j = 0; j < kChainBlock; ++j) r[j] = sl.rec[j0 + j][ln];
+#pragma unroll
+          for (int j = 0; j < kChainBlock; ++j) {
+            uint32_t word;
+            x = chain_step(x, r[j], word);
+            sl.state[j0 + j][ln] = word;
+          }
+        }
+      }
+      __syncwarp();
+      mbar_arrive(&done[s]);
+    }
+  } else if (warp != kIdleWarp) {  // helper h: slot h, tiles h, h + kHelpers, ...
+    const int h = warp < kIdleWarp ? warp - 1 : warp - 2;
+    int count = 0;
+    if (h < ntiles) ring.issue(h);
+    for (long long i = h; i < ntiles; i += kHelpers) {
+      // Tile i's copies have landed (they had the consumer's last kHelpers
+      // tiles of time): pack it, and start the copies of this slot's next
+      // tile at once, into the raw planes it no longer needs.
+      ring.convert(i);
+      __syncwarp();
+      mbar_arrive(&full[h]);
+      if (i + kHelpers < ntiles) ring.issue(i + kHelpers);
+      mbar_wait(&done[h], uint32_t(i / kSlots) & 1u);
+      count += ring.flush(i);
+    }
+    part[h][ln] = count;
+  }
+  __syncthreads();
+  if (warp == 0 && ring.live) {
+    int total = 0;
+#pragma unroll
+    for (int h = 0; h < kHelpers; ++h) total += part[h][ln];
+    a.x_final[ring.g * a.K + l] = int(x);
+    a.counts[ring.g * a.K + l] = total;
+  }
 }
 
-// The same walk over the [T, K] planes of chunk blockIdx.y; step [t, l] runs
-// where valid[t, l] is nonzero, and an invalid step neither emits nor
-// changes the state. The inputs sit at g * chunk_stride + t * row_stride + l
-// (a lane slice of wider planes, read in place); the outputs are dense
-// [G][T][K] and [G][K]. As in JAX's _lane_scan, p is taken as it is (valid
-// probabilities are in [1, 32767]).
-__global__ void lane_scan_kernel(const int* __restrict__ bits, const int* __restrict__ probs,
-                                 const uint8_t* __restrict__ valid, int* __restrict__ x_final,
-                                 int* __restrict__ words, int* __restrict__ emits,
-                                 int* __restrict__ counts, long long T, long long K,
-                                 long long chunk_stride, long long row_stride) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= K) return;
-  const long long g = blockIdx.y;
-  const long long in0 = g * chunk_stride + l, out0 = g * T * K + l;
-  uint32_t x = kRansL;
-  int count = 0;
-  for (long long t = T - 1; t >= 0; --t) {
-    const long long in = in0 + t * row_stride, out = out0 + t * K;
-    const uint32_t word = x & 0xffffu;
-    int e = 0;
-    if (valid[in]) e = rans_step(x, uint32_t(probs[in]), bits[in] == 1);
-    words[out] = int(word);
-    emits[out] = e;
-    count += e;
+// Bins [0, n) of dense streams (bin t*K + l is lane l's step t); bins past n
+// are padding: no emission, no state change.
+__global__ void __launch_bounds__(kScanThreads, 1) lane_scan_dev_kernel(const ScanArgs a) {
+  lane_scan_body<true>(a);
+}
+
+// The [T, K] planes of chunk blockIdx.y at g * chunk_stride + t * row_stride
+// + l (a lane slice of wider planes, read in place); step [t, l] runs where
+// valid is nonzero. Outputs are dense [G][T][K] and [G][K]. As in JAX's
+// _lane_scan, p is taken as it is (valid probabilities are in [1, 32767]).
+__global__ void __launch_bounds__(kScanThreads, 1) lane_scan_kernel(const ScanArgs a) {
+  lane_scan_body<false>(a);
+}
+
+bool aligned(const void* p, uintptr_t bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+// Per scan kernel, the devices (bit d: device d < 64) on which its shared
+// memory limit is already raised to kRingBytes.
+std::atomic<uint64_t> ring_ready[2];
+
+template <typename Kernel>
+int launch_scan(Kernel kernel, std::atomic<uint64_t>& ready, ScanArgs a, long long G,
+                cudaStream_t st) {
+  a.vec = aligned(a.bits, 16) && aligned(a.probs, 16) && a.K % 4 == 0 &&
+          a.row_stride % 4 == 0 && a.chunk_stride % 4 == 0 &&
+          (a.valid == nullptr || aligned(a.valid, 4));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (err == cudaSuccess && !(ready.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+    if (err == cudaSuccess) ready.fetch_or(bit);
   }
-  x_final[g * K + l] = int(x);
-  counts[g * K + l] = count;
+  if (err != cudaSuccess) return int(err);
+  kernel<<<dim3(artc::grid_for(a.K, 32), unsigned(G)), kScanThreads, kRingBytes, st>>>(a);
+  return int(cudaGetLastError());
 }
 
 // ops/lanes.py _COMPACT_TILE sizes the per-tile scratch from this.
@@ -157,24 +433,25 @@ ARTC_API const char* artc_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-ARTC_API int artc_lane_scan_dev(const int* bits, const int* probs, int* x_final, int* words,
-                                int* emits, int* counts, long long n, long long T, long long K,
-                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  lane_scan_dev_kernel<<<artc::grid_for(K, 128), 128, 0, st>>>(bits, probs, x_final, words,
-                                                              emits, counts, n, T, K);
-  return int(cudaGetLastError());
+ARTC_API int artc_lane_scan_dev(const int* bits, const int* probs, const void* magic,
+                                int* x_final, int* words, int* emits, int* counts, long long n,
+                                long long T, long long K, void* stream) {
+  const ScanArgs a{bits, probs, nullptr, static_cast<const uint4*>(magic),
+                   x_final, words, emits, counts, n, T, K, /*chunk_stride=*/0, /*row_stride=*/K,
+                   /*vec=*/false};
+  return launch_scan(lane_scan_dev_kernel, ring_ready[0], a, 1,
+                     static_cast<cudaStream_t>(stream));
 }
 
 ARTC_API int artc_lane_scan(const int* bits, const int* probs, const uint8_t* valid,
-                            int* x_final, int* words, int* emits, int* counts, long long G,
-                            long long T, long long K, long long chunk_stride,
-                            long long row_stride, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                            const void* magic, int* x_final, int* words, int* emits,
+                            int* counts, long long G, long long T, long long K,
+                            long long chunk_stride, long long row_stride, void* stream) {
   if (G <= 0) return int(cudaGetLastError());
-  lane_scan_kernel<<<dim3(artc::grid_for(K, 128), unsigned(G)), 128, 0, st>>>(
-      bits, probs, valid, x_final, words, emits, counts, T, K, chunk_stride, row_stride);
-  return int(cudaGetLastError());
+  const ScanArgs a{bits, probs, valid, static_cast<const uint4*>(magic),
+                   x_final, words, emits, counts, /*n=*/0, T, K, chunk_stride, row_stride,
+                   /*vec=*/false};
+  return launch_scan(lane_scan_kernel, ring_ready[1], a, G, static_cast<cudaStream_t>(stream));
 }
 
 ARTC_API int artc_lane_compact(const int* words, const int* emits, int* out, int* tile_cnt,

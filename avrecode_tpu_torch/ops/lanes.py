@@ -13,8 +13,18 @@ path's `encode_interleaved`, and per chunk and lane slice the mesh steps of
 parallel/pipeline.py) and `lane_compact` each have a plain PyTorch version,
 taken only for CPU tensors, and a CUDA kernel (csrc/lanes.cu) for CUDA
 tensors.
+
+The scan kernels run each step as a short chain of multiplies fed by
+per-step records (csrc/lanes.cu's note). `_magic_table` proves the exact
+division magic of every frequency, and `_magic_words` lays it out for the
+kernels, which read it from device memory (`_magic_on`). `_pack_steps`,
+`_chain_step` and `_lane_scan_chain` mirror how the kernels pack the records
+and run the chain, in numpy, for the CPU tests (nothing on the main path
+calls those three).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -26,6 +36,11 @@ PROB_SCALE = 1 << PROB_BITS
 RANS_L = 1 << 16
 # Steps per tile of csrc/lanes.cu's compaction (kTile): sizes its scratch.
 _COMPACT_TILE = 256
+# The largest chain index q = x1 // f of a step: x1 < f << 17.
+_Q_MAX = (1 << 17) - 1
+_U32 = 0xFFFFFFFF
+# The magic table on each device the scans have run on.
+_MAGIC_ON = {}
 
 
 def _bucket(t: int) -> int:
@@ -33,6 +48,112 @@ def _bucket(t: int) -> int:
     while b < t:
         b *= 2
     return b
+
+
+@functools.lru_cache(maxsize=None)
+def _magic_table() -> np.ndarray:
+    """uint32[32768, 2]: for each f in [1, 32767], (m, s | inc << 5) with
+    floor(x1 / f) == ((x1 + inc) * m) >> (32 + s) for every x1 < f << 17
+    (row 0 is unused). s = floor(log2 f); m = ceil(2^(32+s) / f) with inc
+    = 0 where that is exact, else floor(2^(32+s) / f) with inc = 1 (capped
+    at 2^32 - 1: f = 1). Proved here for every f: x1 -> ((x1 + inc) * m) >> k
+    is monotone, so it equals x1 // f on all of [0, f << 17) iff, for every
+    q <= _Q_MAX, it is >= q at x1 = q*f and <= q at x1 = q*f + f - 1; both
+    are linear in q, so the two ends of q suffice."""
+    f = np.arange(1, PROB_SCALE, dtype=np.int64)
+    s = np.frexp(f)[1].astype(np.int64) - 1
+    k = 32 + s
+
+    def exact(m, inc):
+        d = f * m - (1 << k)
+        ok = m < (1 << 32)
+        for q in (0, _Q_MAX):
+            ok &= q * d + inc * m >= 0
+            ok &= q * d + (f - 1 + inc) * m - (1 << k) < 0
+        return ok
+
+    up = -(-(1 << k) // f)
+    down = np.minimum((1 << k) // f, _U32)
+    use_up = exact(up, 0)
+    if not (use_up | exact(down, 1)).all():
+        raise AssertionError("_magic_table: no exact magic for some f")
+    m = np.where(use_up, up, down)
+    inc = (~use_up).astype(np.int64)
+    table = np.zeros((PROB_SCALE, 2), np.uint32)
+    table[1:, 0] = m
+    table[1:, 1] = s | inc << 5
+    return table
+
+
+def _magic_words() -> np.ndarray:
+    """The table the scan kernels copy into shared memory: uint32[32768 +
+    1024], m of each f (_magic_table's first column), then the inc bits, f
+    at bit f % 32 of word 32768 + f // 32. s = floor(log2 f) is not stored:
+    the kernels count it (31 - clz(f))."""
+    table = _magic_table()
+    inc = (table[:, 1] >> 5).astype(np.uint32).reshape(-1, 32)
+    bits = (inc << np.arange(32, dtype=np.uint32)).sum(1, dtype=np.uint64).astype(np.uint32)
+    return np.concatenate([table[:, 0], bits])
+
+
+def _magic_on(device: torch.device) -> torch.Tensor:
+    """_magic_words as int32 on `device`, uploaded once; the upload ends
+    before any stream can read it."""
+    t = _MAGIC_ON.get(device)
+    if t is None:
+        t = torch.from_numpy(_magic_words().view(np.int32)).to(device)
+        torch.cuda.current_stream(device).synchronize()
+        _MAGIC_ON[device] = t
+    return t
+
+
+def _pack_steps(bits, probs, valid) -> dict:
+    """The scan kernels' per-step records (csrc/lanes.cu Ring::convert), in
+    numpy int64: m and w = g << 17 | one << 6 | inc << 5 | s, with g =
+    32768 - f, (m, inc) from _magic_words and s = floor(log2 f); an invalid
+    step is the record 0, an exact identity of the chain. p is taken as it
+    is (the dense scan floors it at 1 first)."""
+    b, p = (np.asarray(a, np.int64) for a in (bits, probs))
+    v = np.asarray(valid, bool)
+    one = (b == 1).astype(np.int64)
+    f = np.where(one == 1, p, PROB_SCALE - p) & (PROB_SCALE - 1)
+    words = _magic_words().astype(np.int64)
+    inc = words[PROB_SCALE + (f >> 5)] >> (f & 31) & 1
+    s = np.frexp(f | 1)[1].astype(np.int64) - 1
+    w = (PROB_SCALE - f) << 17 | one << 6 | inc << 5 | s
+    return {"m": np.where(v, words[f], 0), "w": np.where(v, w, 0)}
+
+
+def _chain_step(x, rec: dict):
+    """One step of the kernels' chain (csrc/lanes.cu chain_step) on u32
+    states x (int64 arrays): returns (new state, emitted)."""
+    x = np.asarray(x, np.int64)
+    m, w = rec["m"], rec["w"]
+    thr = ~(w & 0xFFFE0000) & _U32
+    g = w >> 17
+    a = np.where(w & 32, m, 0)
+    c = np.where(w & 64, g, 0)
+    emit = x > thr
+    x1 = np.where(emit, x >> 16, x)
+    prod = x1.astype(np.uint64) * m.astype(np.uint64) + a.astype(np.uint64)
+    q = ((prod >> np.uint64(32)) >> (w & 31).astype(np.uint64)).astype(np.int64)
+    return (q * g + x1 + c) & _U32, emit
+
+
+def _lane_scan_chain(bits_tk, probs_tk, valid_tk):
+    """The masked scan ([T, K] or [G, T, K]) through _pack_steps and
+    _chain_step, as the kernels run it; returns what _lane_scan_plain
+    returns, as numpy arrays (x_final int64, words, emits, counts int32)."""
+    rec = _pack_steps(bits_tk, probs_tk, valid_tk)
+    *lead, T, K = rec["m"].shape
+    x = np.full((*lead, K), RANS_L, np.int64)
+    words = np.empty((*lead, T, K), np.int32)
+    emits = np.empty((*lead, T, K), np.int32)
+    for t in range(T - 1, -1, -1):
+        words[..., t, :] = x & 0xFFFF
+        x, e = _chain_step(x, {k: r[..., t, :] for k, r in rec.items()})
+        emits[..., t, :] = e
+    return x, words, emits, emits.sum(-2, dtype=np.int32)
 
 
 def lane_scan_dev(bits_m: torch.Tensor, probs_m: torch.Tensor, n: int, T: int, K: int):
@@ -71,8 +192,8 @@ def _lane_scan_dev_cuda(bits_m, probs_m, n: int, T: int, K: int):
     words = torch.empty((T, K), dtype=torch.int32, device=dev)
     emits = torch.empty((T, K), dtype=torch.int32, device=dev)
     counts = torch.empty(K, dtype=torch.int32, device=dev)
-    _native.launch("lane_scan_dev", "artc_lane_scan_dev", dev, bits_m, probs_m, x_final,
-                   words, emits, counts, n, T, K)
+    _native.launch("lane_scan_dev", "artc_lane_scan_dev", dev, bits_m, probs_m,
+                   _magic_on(dev), x_final, words, emits, counts, n, T, K)
     return x_final.to(torch.int64) & 0xFFFFFFFF, words, emits, counts
 
 
@@ -107,17 +228,20 @@ def _lane_scan_plain(bits_tk, probs_tk, valid_tk):
     words = torch.empty((*lead, T, K), dtype=torch.int32, device=dev)
     emits = torch.empty((*lead, T, K), dtype=torch.bool, device=dev)
     for t in range(T - 1, -1, -1):
-        one = b[..., t, :] == 1
-        pp = p[..., t, :]
-        v = valid[..., t, :]
-        f = torch.where(one, pp, PROB_SCALE - pp)
-        c = torch.where(one, PROB_SCALE - pp, 0)
-        emit = (x >= (f << 17)) & v
         words[..., t, :] = x & 0xFFFF
-        emits[..., t, :] = emit
-        x1 = torch.where(emit, x >> 16, x)
-        x = torch.where(v, ((x1 // f) << PROB_BITS) + x1 % f + c, x)
+        x, emits[..., t, :] = _plain_step(x, b[..., t, :], p[..., t, :], valid[..., t, :])
     return x, words, emits.to(torch.int32), emits.sum(-2, dtype=torch.int32)
+
+
+def _plain_step(x, b, p, v):
+    """One step of the plain scan on int64 states x: returns (new state,
+    emitted); an invalid step (v false) keeps x and never emits."""
+    one = b == 1
+    f = torch.where(one, p, PROB_SCALE - p)
+    c = torch.where(one, PROB_SCALE - p, 0)
+    emit = (x >= (f << 17)) & v
+    x1 = torch.where(emit, x >> 16, x)
+    return torch.where(v, ((x1 // f) << PROB_BITS) + x1 % f + c, x), emit
 
 
 def _lane_scan_cuda(bits_tk, probs_tk, valid_tk):
@@ -144,8 +268,8 @@ def _lane_scan_cuda(bits_tk, probs_tk, valid_tk):
     words = torch.empty((G, T, K), dtype=torch.int32, device=dev)
     emits = torch.empty((G, T, K), dtype=torch.int32, device=dev)
     counts = torch.empty((G, K), dtype=torch.int32, device=dev)
-    _native.launch("lane_scan", "artc_lane_scan", dev, *planes, x_final, words, emits, counts,
-                   G, T, K, strides[0], strides[1])
+    _native.launch("lane_scan", "artc_lane_scan", dev, *planes, _magic_on(dev), x_final, words,
+                   emits, counts, G, T, K, strides[0], strides[1])
     out = (x_final.to(torch.int64) & 0xFFFFFFFF, words, emits, counts)
     return tuple(o[0] for o in out) if one else out
 

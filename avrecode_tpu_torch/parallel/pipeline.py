@@ -14,8 +14,13 @@ shard_map instance computes:
   - its share of the payload-word total, sum(emits) + 2 * G_l * k_local,
     which the JAX psum adds over both axes: the controller adds the cells'
     per-lane counts, each cell once, even where cells share a card.
-All launches of all cells are issued first (each on its device's current
-stream), and only then are the outputs gathered on the first cell's device.
+All launches of all cells are issued first, and only then are the outputs
+gathered on the first cell's device. A cell on a CUDA device issues its
+launches on a stream of its own (made once per built step), which first
+waits on the controller's current streams, so cells that share a card
+overlap their work as JAX's cells on their own devices do; the gather waits
+on each cell's stream before it reads that cell's outputs. A cell on the
+CPU runs in place.
 """
 from __future__ import annotations
 
@@ -43,6 +48,45 @@ def _count(mesh: Mesh, name: str) -> None:
         _native.count(name)
 
 
+def _cell_streams(mesh: Mesh) -> dict:
+    """A stream of its own for each cell on a CUDA device (None for a CPU
+    cell), made once per built step: the caching allocator keeps a stream's
+    freed blocks for that stream, so later steps reuse them."""
+    return {(g, l): torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+            for g, row in enumerate(mesh.devices) for l, dev in enumerate(row)}
+
+
+def _run_cells(mesh: Mesh, streams: dict, src: torch.device, cell) -> dict:
+    """cell(g, l, dev) for every cell of the mesh, keyed (g, l) -> (outputs,
+    stream). A cell on a CUDA device runs on its stream, which first waits on
+    the current streams of its device and of the inputs' device `src`; a CPU
+    cell runs as it is (stream None)."""
+    cells = {}
+    for g, row in enumerate(mesh.devices):
+        for l, dev in enumerate(row):
+            stream = streams[(g, l)]
+            if stream is not None:
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                if src.type == "cuda" and src != dev:
+                    stream.wait_stream(torch.cuda.current_stream(src))
+            with torch.cuda.stream(stream):
+                cells[(g, l)] = (cell(g, l, dev), stream)
+    return cells
+
+
+def _joined(dev: torch.device, outputs, stream):
+    """A cell's outputs, readable on `dev`'s current stream, which reads them
+    (or copies them to another card, which waits on it): it waits on the
+    cell's stream, and the caching allocator keeps the outputs' memory until
+    its reads are done."""
+    if stream is not None:
+        reader = torch.cuda.current_stream(dev)
+        reader.wait_stream(stream)
+        for t in outputs:
+            t.record_stream(reader)
+    return outputs
+
+
 def _gather(mesh: Mesh, cells: dict, G: int, N: int, T: int, K_total: int):
     """Assembles the cells' (probs, x_final, words, emits, counts) on the
     first cell's device: probs [G, N] from each row's lane-0 cell, the lane
@@ -54,7 +98,8 @@ def _gather(mesh: Mesh, cells: dict, G: int, N: int, T: int, K_total: int):
     words = torch.empty((G, T, K_total), dtype=torch.int32, device=out)
     emits = torch.empty((G, T, K_total), dtype=torch.int32, device=out)
     total = torch.zeros((), dtype=torch.int64, device=out)
-    for (g, l), (p, x, w, e, counts) in cells.items():
+    for (g, l), (outputs, stream) in cells.items():
+        p, x, w, e, counts = _joined(mesh.devices[g][l], outputs, stream)
         rows, cols = slice(g * G_l, (g + 1) * G_l), slice(l * k_local, (l + 1) * k_local)
         if l == 0:
             probs[rows] = p.to(out)
@@ -111,14 +156,15 @@ def sharded_v4_compress_step(mesh: Mesh, *, batch: int, sup: int, fast_w: int, s
         planes = _lane_slices((bit, probs.clamp_min(1), valid), G_l, T, K_total, cols)
         return (probs, *lx.lane_scan(*planes))
 
+    streams = _cell_streams(mesh)
+
     def step(blob, sc, dual0, sig0_idx, sig0_val, n_arr):
         G = blob.shape[0]
         G_l, k_local = _grid(mesh, G, K_total)
         _count(mesh, "sharded_v4_compress_step")
-        cells = {(g, l): cell(dev, slice(g * G_l, (g + 1) * G_l),
-                              slice(l * k_local, (l + 1) * k_local),
-                              blob, sc, dual0, sig0_idx, sig0_val, n_arr)
-                 for g, row in enumerate(mesh.devices) for l, dev in enumerate(row)}
+        cells = _run_cells(mesh, streams, blob.device, lambda g, l, dev: cell(
+            dev, slice(g * G_l, (g + 1) * G_l), slice(l * k_local, (l + 1) * k_local),
+            blob, sc, dual0, sig0_idx, sig0_val, n_arr))
         probs, x_final, words, emits, total = _gather(mesh, cells, G, M, T, K_total)
         return x_final, words, emits, probs, total
 
@@ -153,16 +199,17 @@ def sharded_recompress_step(mesh: Mesh, batch: int, fast_w: int = 48, slow_w: in
             planes = _lane_slices((b, probs, valid), G_l, N // K_total, K_total, cols)
             return (probs, *lx.lane_scan(*planes))
 
+        streams = _cell_streams(mesh)
+
         def step(bits, kinds, keys, priors, dual0, sig0):
             G, N = bits.shape
             if N % K_total:
                 raise ValueError(f"N={N} pairs do not split into {K_total} lanes")
             G_l, k_local = _grid(mesh, G, K_total)
             _count(mesh, "sharded_recompress_step")
-            cells = {(g, l): cell(dev, slice(g * G_l, (g + 1) * G_l),
-                                  slice(l * k_local, (l + 1) * k_local),
-                                  bits, kinds, keys, priors, dual0, sig0)
-                     for g, row in enumerate(mesh.devices) for l, dev in enumerate(row)}
+            cells = _run_cells(mesh, streams, bits.device, lambda g, l, dev: cell(
+                dev, slice(g * G_l, (g + 1) * G_l), slice(l * k_local, (l + 1) * k_local),
+                bits, kinds, keys, priors, dual0, sig0))
             return _gather(mesh, cells, G, N, N // K_total, K_total)
 
         return step

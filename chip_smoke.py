@@ -11,15 +11,22 @@ Phases; any failure ends the script with a nonzero exit code:
    avrecode_tpu_torch/csrc, sm_90a) and the native host library, all at once;
 2. kernels: every kernel against its plain PyTorch version on the same
    inputs, timed with CUDA events, with its bound (bytes or operations over
-   the card's peak rates): at the full shapes of benchdata/bench.mp4's chunks
+   the card's peak rates, and for the two lane scans their serial chain:
+   the longest lane's valid steps x the 5 dependent instructions of the
+   recurrence's step (fewer if the consumer's block in the built kernel's
+   SASS, read with cuobjdump, has a shorter chain) x 4 cycles at the card's
+   max SM clock): at the full shapes of benchdata/bench.mp4's chunks
    (profile 2: every chunk; profile 0: chunk 0 at batch 4096, sup 128), on
    random lane streams (K in {16, 128}, the probability extremes, valid
-   masks that are not a prefix), and at the mesh-uniform shapes of
-   benchdata/multigop720.mp4 (chunk mode 1): the mesh-mode expand on every
-   chunk, the model pass over the chunk axis on all chunks at once, the
-   lane-sliced masked scan on one chunk; then both mesh steps, each against
-   the same step on a grid of CPU devices (the plain versions). All values
-   are integers, so the tolerance is 0;
+   masks that are not a prefix; K in {1, 7, 33}, whose 32-lane groups are
+   ragged, dense and over a chunk axis with a ragged mask), and at the
+   mesh-uniform shapes of benchdata/multigop720.mp4 (chunk mode 1): the
+   mesh-mode expand on every chunk, the model pass over the chunk axis on
+   all chunks at once, the lane-sliced masked scan on one chunk; then both
+   mesh steps, each against the same step on a grid of CPU devices (the
+   plain versions), and the product step's device time on a 1x1 and a 2x2
+   grid of this one card (cells on their own streams), with their ratio.
+   All values are integers, so the tolerance is 0;
 3. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - compress(device="cuda") under profile 2 on bench.mp4 and
@@ -72,6 +79,13 @@ IMPLS = ("v2", "dict", "sort", "mm")
 # lower bound).
 HBM_BYTES_S = 3.35e12
 SCALAR_OPS_S = 67e12
+# The lane scans' third bound, their serial chain: the longest lane's valid
+# steps x the dependent instructions of one step x this many cycles each, at
+# the card's max SM clock. A step of the recurrence is DEP_PER_STEP dependent
+# instructions (compare, select, multiply-high, shift, multiply-add); the
+# bound takes fewer only where the built kernel's SASS shows a shorter chain.
+CYCLES_PER_DEP = 4
+DEP_PER_STEP = 5
 
 
 def fail(msg: str) -> None:
@@ -100,6 +114,26 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_median(fn, calls: int) -> float:
+    """Median device time of single calls of fn() (CUDA events around each
+    call on the current stream), after two warm-up calls: steps that issue
+    work from the host vary from call to call."""
+    import statistics
+    import torch
+    fn()
+    fn()
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def host_timed(fn):
@@ -191,6 +225,9 @@ class Kernels:
         self.ms = {}
         self.plain_ms = {}
         self.work = {}  # name -> (bytes moved, operations)
+        self.steps = {}  # serial kernels: name -> the longest lane's valid steps when timed
+        self.chain = {}  # serial kernels: name -> dependent instructions per step
+        self.sm_clock_hz = 0.0  # the card's max SM clock
         self.mesh_ms = {}  # kernel times at the mesh shapes (printed, not in the JSON)
 
     def check(self, name: str, got, want, what: str) -> None:
@@ -199,15 +236,25 @@ class Kernels:
         if e != 0:
             raise AssertionError(f"{name}: kernel != plain on {what} (max abs err {e})")
 
-    @staticmethod
-    def bound(nb: int, ops: int) -> tuple[float, str]:
-        """The least time (ms) for `nb` bytes and `ops` operations, and
-        which of the two bounds it."""
-        t_bytes, t_ops = nb / HBM_BYTES_S, ops / SCALAR_OPS_S
-        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    def chain_ms(self, name: str, steps: int) -> float:
+        """The least time (ms) of a serial kernel's chain of `steps` steps."""
+        return steps * self.chain[name] * CYCLES_PER_DEP / self.sm_clock_hz * 1e3
+
+    def bound(self, name: str, work) -> tuple[float, str]:
+        """The least time (ms) for `work` = (bytes, operations), and for a
+        serial kernel its chain too, and which of them bounds it."""
+        nb, ops = work
+        times = {"bytes": nb / HBM_BYTES_S * 1e3, "operations": ops / SCALAR_OPS_S * 1e3}
+        if name in self.steps:
+            times["chain"] = self.chain_ms(name, self.steps[name])
+        by = max(times, key=times.get)
+        return times[by], by
 
     def _row(self, name, route, src, rep, launches, err, ms, plain_ms, work, **extra):
-        bound_ms, bound_by = self.bound(*work)
+        bound_ms, bound_by = self.bound(name, work)
+        if name in self.steps:
+            extra.update(chain_steps=self.steps[name], chain_dep_per_step=self.chain[name],
+                         sm_clock_mhz=self.sm_clock_hz / 1e6)
         return {"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": int(launches), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -300,9 +347,23 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
             K.plain_ms["lane_scan_dev"] = plain_scan_s * 1e3
             K.work["lane_scan_dev"] = (8 * n + 4 * sum(o.numel() for o in scan),
                                        RANS_STEP_OPS * n)
+            K.steps["lane_scan_dev"] = -(-n // lanes)  # lane 0's bins below n
             print(f"lane_scan_dev plain version: one run of its Python step loop "
                   f"(T={T} steps, K={lanes}), timed once on the host clock: "
                   f"{plain_scan_s:.3f} s", flush=True)
+            # Where the padded tiles' time goes: the same T and K with every
+            # bin valid (the chunk's bins repeated), beside the chunk itself.
+            full = T * lanes
+            fb, fp = (x.repeat(-(-full // x.numel()))[:full] for x in (bit, probs))
+            full_ms = cuda_ms(lambda: lx.lane_scan_dev(fb, fp, full, T, lanes), 3)
+            steps, hz = K.steps["lane_scan_dev"], K.sm_clock_hz
+            pad_ms = K.ms["lane_scan_dev"] - full_ms * steps / T
+            print(f"lane_scan_dev with all {T} steps valid: {full_ms:.3f} ms = "
+                  f"{full_ms * 1e-3 * hz / T:.1f} cycles a step; {what}: "
+                  f"{K.ms['lane_scan_dev']:.3f} ms = {K.ms['lane_scan_dev'] * 1e-3 * hz / steps:.1f} "
+                  f"cycles a valid step ({steps} of {T}); its {T - steps} padded steps then "
+                  f"take {pad_ms:.3f} ms = {pad_ms * 1e-3 * hz / max(T - steps, 1):.1f} cycles a step "
+                  f"(at the max SM clock)", flush=True)
             _, words, emits, counts = scan
             maxW = bucket(max(int(counts.max()), 1))
             out = lx.lane_compact(words, emits, maxW)
@@ -326,6 +387,13 @@ RANS_STEP_OPS = 10
 
 def model_ops(m: int, nsub: int, U: int) -> int:
     return 20 * m + 24 * nsub * U
+
+
+def chain_steps(valid) -> int:
+    """The steps a lane scan's chain needs on this data: an invalid step is
+    the identity, so the most valid steps any one lane (of any chunk) has
+    (valid: bool [T, K] or [G, T, K])."""
+    return int(valid.sum(-2).max())
 
 
 def lane_streams(K: Kernels, dev) -> None:
@@ -370,6 +438,39 @@ def lane_streams(K: Kernels, dev) -> None:
                 K.check("lane_scan", g, w, what + ", non-prefix valid mask")
             print(f"kernels == plain, blobs == C++ encoder on {what} (and the masked "
                   f"scan on a non-prefix mask)", flush=True)
+    ragged_lane_groups(K, dev, rng)
+
+
+def ragged_lane_groups(K: Kernels, dev, rng) -> None:
+    """Lane counts that leave the scans' 32-lane groups ragged (K = 1, 7,
+    33): the dense scan on n not a multiple of K (its last ring tile part
+    padding), and the masked scan over G = 3 chunks with a ragged mask on a
+    lane slice of wider planes (T = 1000, not a multiple of the ring's
+    tile), each against its plain version on CPU copies."""
+    import numpy as np
+    import torch
+    from avrecode_tpu_torch.ops import lanes as lx
+    for lanes in (1, 7, 33):
+        n = lanes * 3001 + lanes // 2
+        T = bucket(-(-n // lanes))
+        bits = rng.integers(0, 2, n).astype(np.int32)
+        probs = np.where(rng.random(n) < 0.2, rng.choice([1, 32767], n),
+                         rng.integers(1, 32768, n)).astype(np.int32)
+        b, p = (torch.from_numpy(a) for a in (bits, probs))
+        scan = lx.lane_scan_dev(b.to(dev), p.to(dev), n, T, lanes)
+        for g, w in zip(scan, lx._lane_scan_dev_plain(b, p, n, T, lanes)):
+            K.check("lane_scan_dev", g, w, f"n={n} K={lanes} T={T}")
+        G, T2, wide = 3, 1000, lanes + 5
+        planes = [torch.from_numpy(a) for a in (
+            rng.integers(0, 2, (G, T2, wide)).astype(np.int32),
+            rng.integers(1, 32768, (G, T2, wide)).astype(np.int32),
+            (rng.random((G, T2, wide)) < 0.7) & (rng.random((G, 1, wide)) < 0.9))]
+        sliced = [x.to(dev)[:, :, 2:2 + lanes] for x in planes]
+        for g, w in zip(lx.lane_scan(*sliced), lx._lane_scan_plain(
+                *(x[:, :, 2:2 + lanes] for x in planes))):
+            K.check("lane_scan", g, w, f"G={G} T={T2} K={lanes} slice of {wide}, ragged mask")
+        print(f"lane scans == plain at K={lanes} (dense n={n}, T={T}; masked G={G}, T={T2}, "
+              f"lane slice 2..{2 + lanes} of {wide}, ragged mask)", flush=True)
 
 
 def profile0_kernel_phase(K: Kernels, an, dev) -> None:
@@ -477,6 +578,7 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
     K.plain_ms["lane_scan"] = plain_s * 1e3
     K.work["lane_scan"] = (nbytes(*lane_planes, valid) + 4 * sum(o.numel() for o in scan),
                            RANS_STEP_OPS * n)
+    K.steps["lane_scan"] = chain_steps(valid)
     print(f"lane_scan == plain on {what} (T={T}, K={lanes}); plain version: one run of "
           f"its Python step loop, timed once on the host clock: {plain_s:.3f} s", flush=True)
 
@@ -560,8 +662,9 @@ def mesh_kernel_phase(K: Kernels, an, dev) -> None:
     print(f"mesh kernels == plain on {what}; probs == host; card ms: expand (G={G} chunks) "
           f"{K.mesh_ms['wire_expand']:.3f}, model pass (chunk axis) "
           f"{K.mesh_ms['model_pass_v4']:.3f}, lane-sliced scan (T={T}, 8 lanes x {G} chunks) "
-          f"{K.mesh_ms['lane_scan']:.3f}; the scan's plain version on one chunk, CPU, one "
-          f"run: {plain_s:.3f} s", flush=True)
+          f"{K.mesh_ms['lane_scan']:.3f} (chain bound "
+          f"{K.chain_ms('lane_scan', chain_steps(lane_planes[2])):.4f}); the "
+          f"scan's plain version on one chunk, CPU, one run: {plain_s:.3f} s", flush=True)
 
     # The whole step on the 2 x 2 grid against the plain step on 2 x 2 CPUs.
     grid = mesh_grids(dev)["2x2"]
@@ -581,6 +684,17 @@ def mesh_kernel_phase(K: Kernels, an, dev) -> None:
                                                 + RANS_STEP_OPS * M))
     print(f"{name} (2x2 on {grid.devices[1][1]}) == the step on a 2x2 CPU grid: card "
           f"{K.ms[name]:.3f} ms, plain (CPU, host clock, one run) {plain_s:.3f} s", flush=True)
+    # The 1x1 and the 2x2 step on this one card: the 2x2 grid's four cells
+    # run on four streams of the card.
+    one_card = {"1x1": make_mesh(1, 1, [dev]), "2x2": make_mesh(2, 2, [dev] * 4)}
+    for label, g in one_card.items():
+        one_step = pipeline.sharded_v4_compress_step(g, **st)
+        step_outputs_equal(K, name, one_step(*staged), want, f"{what} ({label} on {dev})")
+        K.mesh_ms[f"step_{label}"] = cuda_ms_median(lambda: one_step(*staged), 15)
+    ratio = K.mesh_ms["step_2x2"] / K.mesh_ms["step_1x1"]
+    print(f"{name} on one card ({torch.cuda.get_device_name(dev)}), median of 15 calls: 1x1 "
+          f"{K.mesh_ms['step_1x1']:.3f} ms, 2x2 {K.mesh_ms['step_2x2']:.3f} ms (cells on their "
+          f"own streams), 2x2 / 1x1 = {ratio:.3f}", flush=True)
 
 
 def recompress_inputs():
@@ -865,6 +979,135 @@ def corpus_phase() -> dict:
                            "bytes": 2 * 4 * 8}}
 
 
+_CONTROL = ("BRA", "BRX", "JMP", "JMX", "EXIT", "RET", "CALL", "BSSY", "BSYNC", "WARPSYNC",
+            "BREAK", "KILL", "BPT")
+# Opcodes whose operands are all read (stores, copies into shared memory,
+# barriers, branches).
+_NO_DEST = ("ST", "STS", "STG", "STL", "RED", "LDGSTS", "BAR", "MEMBAR", "SYNCS", "DEPBAR",
+            "NOP", "ERRBAR", "CCTL", "FENCE", "ARRIVES", "YIELD", *_CONTROL)
+_REG = r"\b(U?R\d+|U?P\d)\b"
+
+
+def _sass_functions(lib_path: str) -> dict:
+    """The built library's SASS (cuobjdump -sass), as function name -> its
+    instruction lines."""
+    import re
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        cuobjdump = shutil.which("cuobjdump") or cuobjdump
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None and (re.match(r"\s*/\*[0-9a-f]{4,}\*/", line)
+                                   or re.match(r"\s*\.L\w*:", line)):
+            funcs[name].append(line)
+    return funcs
+
+
+def _blocks(lines) -> list:
+    """The basic blocks of these SASS lines, each a list of (guard, opcode,
+    operands): blocks end at labels, branch targets and control
+    instructions."""
+    import re
+    targets = {int(t, 16) for line in lines for t in re.findall(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)",
+                                                                   line)}
+    blocks, block = [], []
+    for line in lines:
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s*(.*?)\s*;", line)
+        if (not m or int(m.group(1), 16) in targets) and block:  # a label or a branch target
+            blocks.append(block)
+            block = []
+        if not m:
+            continue
+        ins = m.group(2)
+        guard = re.match(r"@!?(U?P\w+)\s+", ins)
+        if guard:
+            ins = ins[guard.end():]
+        op, _, rest = ins.partition(" ")
+        block.append((guard.group(1) if guard else None, op,
+                      [o.strip() for o in rest.split(",")] if rest else []))
+        if op.split(".")[0] in _CONTROL:
+            blocks.append(block)
+            block = []
+    if block:
+        blocks.append(block)
+    return blocks
+
+
+def _chain(block) -> int:
+    """The longest chain of dependent instructions in one basic block: a
+    register's reader depends on its last writer in the block."""
+    import re
+    depth, longest = {}, 0
+    for guard, op, ops in block:
+        dests, srcs = [], [guard] if guard else []
+        if op.split(".")[0] in _NO_DEST or not ops:
+            srcs += ops
+        else:
+            dests.append(ops[0])
+            i = 1
+            while i < len(ops) and i < 3 and re.fullmatch(r"U?P(\d|T)", ops[i]):
+                dests.append(ops[i])
+                i += 1
+            srcs += ops[i:]
+        width = 4 if ".128" in op else 2 if (".64" in op or ".WIDE" in op) else 1
+        read = set()
+        for o in srcs:
+            read.update(re.findall(_REG, o))
+        if ".WIDE" in op and srcs:  # the addend is a register pair
+            read.update(f"R{int(r[1:]) + 1}" for r in re.findall(r"\bR\d+\b", srcs[-1]))
+        d = 1 + max((depth.get(r, 0) for r in read), default=0)
+        for o in dests:
+            for r in re.findall(_REG, o):
+                if r[0] == "R":  # a vector load or a wide result fills a register run
+                    depth.update((f"R{int(r[1:]) + k}", d) for k in range(width))
+                else:
+                    depth[r] = d
+        longest = max(longest, d)
+    return longest
+
+
+def scan_chains() -> dict:
+    """Dependent instructions per step of each lane scan, for its chain
+    bound: DEP_PER_STEP, the recurrence's own, or fewer where the built
+    kernel's consumer has a shorter chain. The consumer's straight-line
+    block of steps is the one that holds the step records' 8-byte shared
+    loads (LDS.64, one a step, and in no other block); its longest chain
+    over its steps is printed beside its issued instructions a step."""
+    from avrecode_tpu_torch import _native
+    funcs = _sass_functions(_native.LIB_PATH)
+    out = {}
+    for name, kernel in (("lane_scan_dev", "lane_scan_dev_kernel"),
+                         ("lane_scan", "lane_scan_kernel")):
+        found = [lines for f, lines in funcs.items() if kernel in f]
+        if len(found) != 1:
+            raise AssertionError(f"SASS of {kernel}: {len(found)} functions match")
+        block = max(_blocks(found[0]), key=lambda b: sum(op == "LDS.64" for _, op, _ in b))
+        steps = sum(op == "LDS.64" for _, op, _ in block)
+        if steps == 0:
+            raise AssertionError(f"SASS of {kernel}: no block loads step records")
+        chain = _chain(block)
+        out[name] = min(DEP_PER_STEP, chain / steps)
+        print(f"{name} SASS: the consumer's block of {steps} steps has a longest dependent "
+              f"chain of {chain} instructions = {chain / steps:.3f} a step (the bound takes "
+              f"{out[name]:.3f}) and issues {len(block)} instructions = "
+              f"{len(block) / steps:.2f} a step", flush=True)
+    return out
+
+
+def max_sm_clock_hz() -> float:
+    """The card's max SM clock, from nvidia-smi."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
 def build_all() -> None:
     """The CUDA kernels and the host library, built at the same time."""
     from avrecode_tpu_torch import _native
@@ -915,15 +1158,18 @@ def main() -> int:
     dev = torch.device("cuda")
 
     K = Kernels()
+    K.chain, K.sm_clock_hz = scan_chains(), max_sm_clock_hz()
     kernel_phase(K, refs[CLIPS[0]], refs[CLIPS[0]].chunks, dev)
     profile0_kernel_phase(K, refs0[CLIPS[0]], dev)
     mesh_kernel_phase(K, mesh_an, dev)
     recompress_step, recompress_in = recompress_kernel_phase(K, dev)
     for name, ms in K.ms.items():
-        bound_ms, bound_by = K.bound(*K.work[name])
+        bound_ms, bound_by = K.bound(name, K.work[name])
+        chain = (f", chain of {K.steps[name]} steps x {K.chain[name]:.3f} dependent "
+                 f"instructions x {CYCLES_PER_DEP} cycles" if name in K.steps else "")
         print(f"kernel {name}: {ms:.3f} ms on the card; plain version "
               f"{K.plain_ms[name]:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{K.work[name][0]} bytes, {K.work[name][1]} operations)", flush=True)
+              f"{K.work[name][0]} bytes, {K.work[name][1]} operations{chain})", flush=True)
     single_mesh_ref, _ = td.compress(clips[MESH_CLIP], chunk_mode=1, batch_size=BATCH,
                                      force_lanes=MESH_LANES, device=dev)
 

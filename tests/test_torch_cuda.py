@@ -121,6 +121,29 @@ def test_masked_lane_scan_matches_plain(cuda, K):
         _equal(g, w)
 
 
+@pytest.mark.parametrize("K", [1, 7, 33])
+def test_lane_scans_on_ragged_lane_groups(cuda, K):
+    """Lane counts that leave the kernels' 32-lane groups ragged: the dense
+    scan with n not a multiple of K, and the masked scan over 3 chunks of a
+    lane slice with a ragged mask and T not a multiple of the ring's tile;
+    kernel == plain (on CPU copies)."""
+    rng = np.random.default_rng(K)
+    n = K * 1001 + K // 2
+    T = tl._bucket(-(-n // K))
+    b, p = (torch.from_numpy(a.astype(np.int32)) for a in _random_biased_stream(rng, n))
+    for g, w in zip(tl.lane_scan_dev(b.to(cuda), p.to(cuda), n, T, K),
+                    tl._lane_scan_dev_plain(b, p, n, T, K)):
+        _equal(g.cpu(), w)
+    G, T, wide = 3, 333, K + 5
+    planes = [torch.from_numpy(a) for a in (
+        rng.integers(0, 2, (G, T, wide)).astype(np.int32),
+        rng.integers(1, 32768, (G, T, wide)).astype(np.int32),
+        rng.random((G, T, wide)) < 0.7)]
+    got = tl.lane_scan(*(x.to(cuda)[:, :, 2:2 + K] for x in planes))
+    for g, w in zip(got, tl._lane_scan_plain(*(x[:, :, 2:2 + K] for x in planes))):
+        _equal(g.cpu(), w)
+
+
 @pytest.fixture(scope="module")
 def profile0_analysis(cuda):
     with open(CLIP, "rb") as f:
