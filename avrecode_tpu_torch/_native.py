@@ -56,8 +56,8 @@ _SIGNATURES = {
     "artc_lane_compact": "p" * 4 + "i" * 3,
     "artc_model_pass_v2": "p" * 15 + "i" * 15,
     "artc_lane_scan": "p" * 8 + "i" * 5,
-    "artc_model_pass_dict": "p" * 13 + "i" * 10,
-    "artc_model_pass": "p" * 11 + "i" * 9,
+    "artc_model_pass_dict": "p" * 15 + "i" * 12,
+    "artc_model_pass": "p" * 15 + "i" * 12,
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_longlong}
 
@@ -164,6 +164,8 @@ def load() -> ctypes.CDLL:
                 fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
             lib.artc_cuda_error_string.restype = ctypes.c_char_p
             lib.artc_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.artc_pass_launches.restype = ctypes.c_int
+            lib.artc_pass_launches.argtypes = []
             _lib = lib
     return _lib
 
@@ -187,6 +189,12 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {rc} "
                            f"({lib.artc_cuda_error_string(rc).decode()})")
     count(kernel)
+
+
+def pass_launches() -> int:
+    """Device-side launches (kernels, copies, clears) that the calling
+    thread's last model_pass_dict / model_pass call made."""
+    return int(load().artc_pass_launches())
 
 
 def check_cuda(name: str, *tensors: torch.Tensor, dtype=torch.int32) -> None:

@@ -32,25 +32,14 @@
 // separate dual and sig (ones, total) planes) and in v2's per-bin prefix
 // adders.
 //
-// model_pass_dict and model_pass share one precompute launch over every
-// batch at once: the within-batch per-key exclusive prefix counts depend only
-// on (key, bit), not on the tables, so they leave the serial chain. One
-// block per batch holds the batch's packed (key << 1 | bit) words in shared
-// memory and each thread counts the earlier equal keys of its bins: the
-// masked key-equality product of the "mm" formulation, which equals the
-// sort-based segmented prefix of "sort". The one-hot products of the TPU's
-// dict pass are gathers here. The serial part per batch is then:
-//   - dict: probabilities from the gathered dict rows, then one thread per
-//     dict entry updates and halves its row (16 iterations, _halve_while's
-//     default). Padding entries duplicate the scratch key and every entry
-//     aliases the other table's scratch row; a live row has exactly one
-//     writer, and scratch rows are never written (they only feed padding and
-//     kind-3 bins, whose probabilities do not read them or are trimmed), so
-//     no write races at all and the pass is deterministic;
-//   - sort/mm: probabilities, integer atomic adds of every bin's counts into
-//     its row (duplicate keys; addition commutes, so the result is exact),
-//     then the halving of the whole dual and sig tables (16 iterations), as
-//     JAX does it.
+// model_pass_dict and model_pass run as a pre-pass over every batch at once
+// (the within-batch per-key exclusive prefix counts and update totals depend
+// only on keys, kinds and bits, not on the tables, so they leave the serial
+// chain) and one persistent kernel that walks the batches; their section
+// below says how. The one-hot products of the TPU's dict pass are gathers
+// here, and the "sort" and "mm" formulations of the prefix counts are one
+// ordered walk with a hash table. Both are exact and deterministic: a live
+// row has one writer a batch, and dict's scratch rows are never written.
 // Integer division replaces the TPU's float-reciprocal divide (which existed
 // only for its vector unit). All arithmetic is int32: every value stays below
 // 2^31 (the CPU tests assert it).
@@ -303,224 +292,726 @@ void launch_scan(const int* kind, const int* slot, const int* prior, const int* 
 }
 
 // ------------------------------------------------- model_pass_dict / model_pass
+//
+// Both passes run as seven or eight launches whatever the number of batches
+// (two copies, two clears, and three or four kernels): a pre-pass over every
+// batch at once (everything that does not depend on the tables), and one
+// persistent cooperative kernel that walks the batches.
+//
+// The only true dependency is between batches: batch b reads table rows as
+// batch b - 1 left them. A batch touches a set of distinct rows, its
+// entries: the host's dictionary for model_pass_dict, and for model_pass the
+// distinct unified keys of the batch, found on the device by the pre-pass.
+// Per entry the pre-pass leaves an int4 (dual row to read, sig row to read,
+// packed dual totals, packed sig totals; the totals are masked by kind as in
+// JAX, so they are not the prefix totals) and per bin its entry and its
+// packed prefix counts. With that, the chain of a pass is per batch: load the
+// entries' rows (they hit L2), add the totals, halve, store, one barrier.
+// The probabilities are not on the chain at all: the chain stages every
+// entry's start-of-batch row into a ring in device memory and publishes the
+// batches (release); consumer blocks of the same launch wait for them
+// (acquire), compute the probabilities from the staged rows plus the prefix
+// counts, and hand the ring slots back. The launch is cooperative, so every
+// block is resident and the waits cannot deadlock; a launch the card refuses
+// is returned as an error.
+//
+//   - The chain of a chunk is a thread-block cluster of kCluster blocks on
+//     neighbouring SMs, which meet at the cluster's hardware barrier once a
+//     batch (release / acquire: rows stored before it are visible after it).
+//     One SM could not run a batch's few hundred instructions an entry fast
+//     enough: a single block took 3.7-6.1 us a batch on an H100, the cluster
+//     1.9-2.1 us. Entry u belongs to block u % kCluster, so a batch of up to
+//     2,048 entries is one entry a thread. The entries come from a
+//     thread-private cp.async ring in shared memory, four batches ahead
+//     (each thread copies what it will read itself, so the ring needs no
+//     barrier of its own). Table loads bypass L1 (ld.global.cg): another SM
+//     may have written the row one barrier earlier.
+//   - A ninth warp in each chain block holds no entries and only keeps the
+//     barriers' count; in block 0 it also publishes the staged batches and
+//     watches the ring, between its arrival at a barrier and its wait, so no
+//     warp with entries pays for a release fence or a poll.
+//   - One writer per row: entries of a batch are distinct keys. A batch in
+//     which a bin's key is out of range reads a clamped row that another
+//     entry may write (gathers clamp, adds drop): such a batch, flagged by
+//     the pre-pass, separates its loads from its stores by a second barrier.
+//   - model_pass halves both whole tables after every batch in JAX. A row
+//     within its window is a fixed point of the halving, and the rows a
+//     batch touches are halved by their entries (the same 16 iterations), so
+//     once every row is within its window, whole-table halving changes
+//     nothing a batch did not touch, by induction over the batches. The
+//     chain therefore halves the whole tables after batch 0 as JAX does,
+//     counts the rows still over a window, and goes on halving whole tables
+//     after each batch only while that count is not zero (entries then only
+//     add, and the table pass halves every row once, as JAX does); it starts
+//     again if an entry's 16 iterations leave a row over its window. Real
+//     seeds are within their windows, so real streams halve whole tables
+//     once.
+//   - model_pass takes a leading chunk axis (blockIdx.y; every chunk its own
+//     tables, ring, flags, chain cluster and consumers).
+//   - The pre-pass counts earlier equal keys in order with one warp per
+//     batch: 32 bins a step, __match_any_sync groups equal keys within the
+//     step, and a hash table in shared memory (64-bit slots: key, entry)
+//     carries each key's running (ones, total) between steps. It is linear in
+//     the batch, where comparing every pair was quadratic.
+//
+// Bin kinds are 0-3. All counts stay below 2^15 (batch <= 12288), so (ones,
+// total) pack into one word, and the per-entry totals are one atomic add a
+// bin.
 
-// Largest batch the prefix kernel's shared memory holds (48 KB of int32).
+// Largest batch (and dictionary width): the chain's entry ring and the
+// pre-pass's hash table must fit shared memory, and counts 15 bits.
 constexpr long long kMaxPrefixBatch = 12288;
+constexpr int kPassThreads = 1024;
+constexpr int kCluster = 8;        // chain blocks of a chunk: one thread-block cluster
+constexpr int kChainThreads = 256; // entry-owning threads of a chain block (warps 0-7)
+constexpr int kLiveThreads = kChainThreads + 32;  // and its control warp (warp 8)
+constexpr int kStages = 4;         // batches of entries copied ahead
+constexpr int kMaxConsumerClusters = 6;  // clusters of consumer blocks a chunk
+constexpr int kPublishEvery = 16;   // batches between two releases to the consumers
+constexpr int kTotShift = 15;
+constexpr uint32_t kCountMask = (1u << kTotShift) - 1;
+constexpr uint32_t kLoadBit = 1u << 31;  // the row is read whatever the totals
+constexpr uint32_t kLiveBit = 1u << 30;  // the row may be written
+constexpr uint32_t kPending = 0xfffffffeu;
+// Cycle counters (clock64) the kernel leaves behind the flags, so that a run
+// can say what paced it: the time block 0's ninth warp was held up by a full
+// ring; of block 0's thread 0 its waits at the batch barrier (the barrier
+// itself and the slowest warp of the cluster) and for the entries' copies,
+// its own loads-to-stores, and the rest (copies started, whole-table
+// halvings); of the first consumer block's thread 0 its waits for a published
+// batch and its batches' work.
+enum PassProf { kProfRing, kProfBarrier, kProfCopies, kProfBody, kProfRest, kProfConsumerWait,
+                kProfConsumerWork, kProf = 8 };
+// Behind them, the chain cluster's own words: more[3] and over[3] (see
+// chain_role).
+constexpr int kCtl = 6;
+constexpr int kSyncTail = kProf + kCtl;
 
-// One block per batch b: pre1[i] = #{j < i in the batch : key_j == key_i,
-// bit_j == 1}, pret[i] = #{j < i : key_j == key_i}. With mode 0 the key is
-// bin_u (dict); with mode 1 it is model_pass's unified key (kind 3 -> the
-// dual scratch row n_dual - 1, kind 2 -> key + n_dual).
-__global__ void prefix_kernel(const int* __restrict__ bits, const int* __restrict__ kinds,
-                              const int* __restrict__ keys, int* __restrict__ pre1,
-                              int* __restrict__ pret, long long batch, long long n_dual,
-                              int mode) {
-  extern __shared__ uint32_t packed[];  // key << 1 | bit, per bin of the batch
-  const long long base = (long long)blockIdx.x * batch;
-  for (long long j = threadIdx.x; j < batch; j += blockDim.x) {
-    uint32_t key = uint32_t(keys[base + j]);
-    if (mode == 1) {
-      const int k = kinds[base + j];
-      if (k == 3) key = uint32_t(n_dual - 1);
-      else if (k == 2) key += uint32_t(n_dual);
+struct Pass {
+  const int *bits, *kinds, *priors;
+  const int* keys;       // model_pass: keys; dict: bin_u
+  const int* dict_keys;  // dict: [nb][U]
+  const int* bin_e;      // each bin's entry (dict: bin_u; model_pass: from the pre-pass)
+  int* bin_e_out;        // model_pass: the pre-pass writes bin_e here
+  int* pre;              // per bin pre_ones | pre_tot << 16
+  int4* entries;         // [G][nb][U]: dual row, sig row, dual totals, sig totals
+  int2* meta;            // [G][nb]: entries in use, hazard
+  int4* stage;           // [G][R][U][2]: staged dual row, staged sig row
+  int* sync;             // [G][1 + R + kSyncTail]: batches published, per slot the batch
+                         // consumed + 1, the cycle counters of PassProf, the chain's words
+  int *dual, *sig;       // [G] working tables
+  int* probs;
+  long long nb, batch, U, n_dual, n_sig, R, g0;
+  int K;  // entries a chain thread
+  int slots_log2;
+  int fast_w, slow_w, sig_w, alpha_on, alpha_off;
+  int dict;  // 1: model_pass_dict (no key retarget, no whole-table halving)
+};
+
+__device__ __forceinline__ int clampi(long long v, long long hi) {
+  return int(v < 0 ? 0 : (v > hi ? hi : v));
+}
+
+// Pre-pass, one warp per (batch, chunk): per bin the exclusive per-key prefix
+// counts, in order; for model_pass also each bin's entry (keys numbered in
+// order of first appearance), the entries' rows and the count of entries.
+__global__ void __launch_bounds__(32) prefix_walk_kernel(Pass P) {
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  const long long slots = 1ll << P.slots_log2;
+  unsigned long long* slot = reinterpret_cast<unsigned long long*>(walk_smem);
+  uint32_t* val = reinterpret_cast<uint32_t*>(slot + slots);  // running ones | total << 16
+  const int lane = threadIdx.x;
+  const uint32_t lt = (1u << lane) - 1u;
+  const long long gb = (long long)blockIdx.y * P.nb + blockIdx.x;
+  const long long base = gb * P.batch;
+  int4* ent = P.entries + gb * P.U;
+  for (long long s = lane; s < slots; s += 32) slot[s] = ~0ull;
+  __syncwarp();
+  int n_u = 0;
+  // One step: 32 bins, in order. `ukey` and `bit` were loaded kAhead steps
+  // ahead: a single warp has nothing else to hide the loads' latency behind.
+  auto step = [&](long long i0, uint32_t ukey, uint32_t bit) {
+    const long long i = i0 + lane;
+    const bool active = i < P.batch;
+    const uint32_t amask = __ballot_sync(0xffffffffu, active);
+    if (active) {
+      const uint32_t m = __match_any_sync(amask, ukey);
+      const uint32_t bm = __ballot_sync(amask, bit != 0);
+      const int leader = __ffs(m) - 1;
+      uint32_t h = 0, e = 0, v = 0;
+      bool isnew = false;
+      if (lane == leader) {  // find the key's slot, or claim an empty one
+        h = (ukey * 2654435761u) >> (32 - P.slots_log2);
+        for (;;) {
+          unsigned long long w = *reinterpret_cast<volatile unsigned long long*>(&slot[h]);
+          if (w == ~0ull) {
+            w = atomicCAS(&slot[h], ~0ull, (unsigned long long)ukey << 32 | kPending);
+            if (w == ~0ull) {
+              isnew = true;
+              break;
+            }
+          }
+          if (uint32_t(w >> 32) == ukey) {
+            e = uint32_t(w);
+            break;
+          }
+          h = (h + 1) & uint32_t(slots - 1);
+        }
+        if (!isnew) v = val[h];
+      }
+      __syncwarp(amask);
+      const uint32_t newmask = __ballot_sync(amask, isnew);
+      if (isnew) {
+        e = uint32_t(n_u + __popc(newmask & lt));
+        slot[h] = (unsigned long long)ukey << 32 | e;
+        if (!P.dict) {
+          const long long uk = int32_t(ukey), sk = uk - P.n_dual;
+          ent[e] = make_int4(clampi(uk, P.n_dual - 1), clampi(sk, P.n_sig - 1),
+                             int(uk >= 0 && uk < P.n_dual ? kLiveBit : 0u),
+                             int(sk >= 0 && sk < P.n_sig ? kLiveBit : 0u));
+        }
+      }
+      if (lane == leader) val[h] = v + (uint32_t(__popc(m & bm)) | uint32_t(__popc(m)) << 16);
+      n_u += __popc(newmask);
+      v = __shfl_sync(amask, v, leader);
+      e = __shfl_sync(amask, e, leader);
+      const uint32_t pre1 = (v & 0xffffu) + uint32_t(__popc(m & bm & lt));
+      const uint32_t pret = (v >> 16) + uint32_t(__popc(m & lt));
+      P.pre[base + i] = int(pre1 | pret << 16);
+      if (!P.dict) P.bin_e_out[base + i] = int(e);
     }
-    packed[j] = (key << 1) | uint32_t(bits[base + j] & 1);
-  }
-  __syncthreads();
-  for (long long i = threadIdx.x; i < batch; i += blockDim.x) {
-    const uint32_t key = packed[i] >> 1;
-    int ones = 0, tot = 0;
-    for (long long j = 0; j < i; ++j) {
-      const uint32_t v = packed[j];
-      if ((v >> 1) == key) {
-        ++tot;
-        ones += int(v & 1u);
+    __syncwarp();
+  };
+  constexpr int kAhead = 8;  // steps whose inputs are in flight
+  uint32_t nk[kAhead], nb_[kAhead];
+  auto fetch = [&](long long i0) {
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+      const long long i = i0 + q * 32 + lane;
+      nk[q] = nb_[q] = 0;
+      if (i < P.batch) {
+        nk[q] = uint32_t(P.keys[base + i]);
+        if (!P.dict) {  // model_pass's unified key
+          const int k = P.kinds[base + i];
+          if (k == 3) nk[q] = uint32_t(P.n_dual - 1);
+          else if (k == 2) nk[q] += uint32_t(P.n_dual);
+        }
+        nb_[q] = uint32_t(P.bits[base + i]) & 1u;
       }
     }
-    pre1[base + i] = ones;
-    pret[base + i] = tot;
+  };
+  fetch(0);
+  for (long long i0 = 0; i0 < P.batch; i0 += 32 * kAhead) {
+    uint32_t ck[kAhead], cb[kAhead];
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+      ck[q] = nk[q];
+      cb[q] = nb_[q];
+    }
+    if (i0 + 32 * kAhead < P.batch) fetch(i0 + 32 * kAhead);
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {  // unrolled: ck and cb stay in registers
+      if (i0 + q * 32 < P.batch) step(i0 + q * 32, ck[q], cb[q]);
+    }
   }
+  if (!P.dict && lane == 0) P.meta[gb].x = n_u;
 }
 
-// dict: per-(batch, entry) update totals (d_ones, d_tot, s_ones, s_tot),
-// masked by kind as in JAX (kind 3 updates nothing, kind 2 only sig).
-__global__ void dict_totals_kernel(const int* __restrict__ bits, const int* __restrict__ kinds,
-                                   const int* __restrict__ bin_u, int* __restrict__ tot,
-                                   long long n, long long batch, long long U) {
+// dict pre-pass, one thread per (batch, entry): the rows of dict entry dk. A
+// dual key reads its dual row and the sig scratch row, a sig key (>= n_dual)
+// its sig row and the dual scratch row; scratch rows are never written.
+__global__ void dict_entries_kernel(Pass P) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P.nb * P.U) return;
+  const long long dk = P.dict_keys[i];
+  const bool is_sig = dk >= P.n_dual;
+  const int d = clampi(is_sig ? P.n_dual - 1 : dk, P.n_dual - 1);
+  const int s = clampi(is_sig ? dk - P.n_dual : P.n_sig - 1, P.n_sig - 1);
+  P.entries[i] = make_int4(d, s, int(kLoadBit | (d != P.n_dual - 1 ? kLiveBit : 0u)),
+                           int(kLoadBit | (s != P.n_sig - 1 ? kLiveBit : 0u)));
+  if (i % P.U == 0) P.meta[i / P.U] = make_int2(int(P.U), 0);
+}
+
+// Pre-pass, one thread per bin: adds the bin to its entry's update totals,
+// masked by kind as in JAX (kind 3 updates nothing, kind 2 only sig, the
+// others only dual), and flags a model_pass batch that holds an out-of-range
+// key.
+__global__ void entry_totals_kernel(Pass P, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int k = kinds[i];
+  const int k = P.kinds[i];
   if (k == 3) return;
-  long long u = bin_u[i];
-  u = u < 0 ? 0 : (u > U - 1 ? U - 1 : u);
-  int* row = tot + ((i / batch) * U + u) * 4 + (k == 2 ? 2 : 0);
-  atomicAdd(row, bits[i]);
-  atomicAdd(row + 1, 1);
+  const long long gb = i / P.batch;
+  const int e = clampi(P.bin_e[i], P.U - 1);
+  int* t = reinterpret_cast<int*>(P.entries + gb * P.U + e);
+  atomicAdd(t + (k == 2 ? 3 : 2), (P.bits[i] & 1) | (1 << kTotShift));
+  if (!P.dict) {
+    const long long key = P.keys[i];
+    if (key < 0 || key >= (k == 2 ? P.n_sig : P.n_dual)) P.meta[gb].y = 1;
+  }
 }
 
-struct DictRows {
-  long long drow, srow;
+// halve() with the same result in fewer instructions where few iterations
+// are needed: it stops at the first iteration that finds the pair within
+// its window (every later one would find the same).
+__device__ __forceinline__ void halve_until(int& p, int& n, int window) {
+  for (int k = 0; k < kHalveDefault && p + n > window; ++k) {
+    p = (p + 1) >> 1;
+    n = (n + 1) >> 1;
+  }
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_entry(int4* dst, const int4* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   uint32_t(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most `pending` of this thread's copy groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
+struct EntryTotals {
+  int ones, zeros;
+  bool load, write;
 };
 
-// The table rows of dict entry dk: a dual key reads its dual row and the sig
-// scratch row, a sig key (>= n_dual) its sig row and the dual scratch row.
-__device__ inline DictRows dict_rows(long long dk, long long n_dual, long long n_sig) {
-  const bool is_sig = dk >= n_dual;
-  long long d = is_sig ? n_dual - 1 : dk, s = is_sig ? dk - n_dual : n_sig - 1;
-  d = d < 0 ? 0 : (d > n_dual - 1 ? n_dual - 1 : d);
-  s = s < 0 ? 0 : (s > n_sig - 1 ? n_sig - 1 : s);
-  return {d, s};
+__device__ __forceinline__ EntryTotals entry_totals(int packed) {
+  const uint32_t z = uint32_t(packed);
+  const int ones = int(z & kCountMask), tot = int((z >> kTotShift) & kCountMask);
+  const bool load = (z & kLoadBit) != 0 || tot > 0;
+  return {ones, tot - ones, load, load && (z & kLiveBit) != 0};
 }
 
-// dict batch b, one thread per bin: start-of-batch row of its entry plus the
-// prefix counts.
-__global__ void dict_prob_kernel(const int* __restrict__ kinds, const int* __restrict__ priors,
-                                 const int* __restrict__ bin_u,
-                                 const int* __restrict__ dict_keys,
-                                 const int* __restrict__ pre1, const int* __restrict__ pret,
-                                 const int* __restrict__ dual, const int* __restrict__ sig,
-                                 int* __restrict__ probs, Model M, long long b) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= M.batch) return;
-  const long long i = b * M.batch + j;
-  long long u = bin_u[i];
-  u = u < 0 ? 0 : (u > M.U - 1 ? M.U - 1 : u);
-  const DictRows r = dict_rows(dict_keys[b * M.U + u], M.n_dual, M.n_sig);
-  const int* d = dual + r.drow * 4;
-  const int* s = sig + r.srow * 2;
-  const int ones = pre1[i], zeros = pret[i] - pre1[i];
-  probs[i] = bin_prob(kinds[i], priors[i], d[0] + ones, d[1] + zeros, d[2] + ones,
-                      d[3] + zeros, s[0] + ones, s[1] + zeros, M.alpha_on, M.alpha_off);
-}
-
-// dict batch b, one thread per entry u: add the batch's totals to its live
-// row and halve it. Scratch rows are never written (see the file comment).
-__global__ void dict_update_kernel(const int* __restrict__ dict_keys,
-                                   const int* __restrict__ tot, int* __restrict__ dual,
-                                   int* __restrict__ sig, Model M, long long b) {
-  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (u >= M.U) return;
-  const DictRows r = dict_rows(dict_keys[b * M.U + u], M.n_dual, M.n_sig);
-  const int* t = tot + (b * M.U + u) * 4;
-  if (r.drow != M.n_dual - 1) {
-    int* d = dual + r.drow * 4;
-    int fp = d[0] + t[0], fn = d[1] + (t[1] - t[0]);
-    int sp = d[2] + t[0], sn = d[3] + (t[1] - t[0]);
-    halve(fp, fn, M.fast_w, kHalveDefault);
-    halve(sp, sn, M.slow_w, kHalveDefault);
-    d[0] = fp;
-    d[1] = fn;
-    d[2] = sp;
-    d[3] = sn;
-  }
-  if (r.srow != M.n_sig - 1) {
-    int* s = sig + r.srow * 2;
-    int gp = s[0] + t[2], gn = s[1] + (t[3] - t[2]);
-    halve(gp, gn, M.sig_w, kHalveDefault);
-    s[0] = gp;
-    s[1] = gn;
-  }
-}
-
-// model_pass: a bin's dual row (the scratch row for sig bins and, through
-// the kind-3 retarget, for kind-3 bins) and sig row (row 0 for non-sig
-// bins). The gathers clamp, as JAX's do; the adds drop out-of-range rows.
-struct SortRows {
-  long long dkey, skey;
-};
-
-__device__ inline SortRows sort_rows(int kind, long long key, long long n_dual) {
-  if (kind == 3) key = n_dual - 1;
-  return {kind == 2 ? n_dual - 1 : key, kind == 2 ? key : 0};
-}
-
-__device__ inline long long clamp_row(long long r, long long n) {
-  return r < 0 ? 0 : (r > n - 1 ? n - 1 : r);
-}
-
-// model_pass batch b, one thread per bin: probability from the tables as of
-// the batch start plus the prefix counts.
-__global__ void sort_prob_kernel(const int* __restrict__ kinds, const int* __restrict__ keys,
-                                 const int* __restrict__ priors, const int* __restrict__ pre1,
-                                 const int* __restrict__ pret, const int* __restrict__ dual,
-                                 const int* __restrict__ sig, int* __restrict__ probs, Model M,
-                                 long long b) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= M.batch) return;
-  const long long i = b * M.batch + j;
-  const int k = kinds[i];
-  const SortRows r = sort_rows(k, keys[i], M.n_dual);
-  const int* d = dual + clamp_row(r.dkey, M.n_dual) * 4;
-  const int* s = sig + clamp_row(r.skey, M.n_sig) * 2;
-  const int ones = pre1[i], zeros = pret[i] - pre1[i];
-  probs[i] = bin_prob(k, priors[i], d[0] + ones, d[1] + zeros, d[2] + ones, d[3] + zeros,
-                      s[0] + ones, s[1] + zeros, M.alpha_on, M.alpha_off);
-}
-
-// model_pass batch b, one thread per bin: scatter-add of its count.
-__global__ void sort_add_kernel(const int* __restrict__ bits, const int* __restrict__ kinds,
-                                const int* __restrict__ keys, int* __restrict__ dual,
-                                int* __restrict__ sig, Model M, long long b) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= M.batch) return;
-  const long long i = b * M.batch + j;
-  const int k = kinds[i];
-  if (k == 3) return;  // kind 3 adds zeros
-  const SortRows r = sort_rows(k, keys[i], M.n_dual);
-  const int one = bits[i], zero = 1 - bits[i];
-  if (k == 2) {
-    if (r.skey < 0 || r.skey >= M.n_sig) return;
-    int* s = sig + r.skey * 2;
-    if (one) atomicAdd(s, one);
-    if (zero) atomicAdd(s + 1, zero);
-  } else {
-    if (r.dkey < 0 || r.dkey >= M.n_dual) return;
-    int* d = dual + r.dkey * 4;
-    if (one) {
-      atomicAdd(d, one);
-      atomicAdd(d + 2, one);
+// One entry's update: the rows it may write take its totals and, unless a
+// whole-table halving follows (`whole`), are halved. Returns whether a row
+// it halved is still over its window (16 iterations were not enough).
+__device__ __forceinline__ bool entry_update(const Pass& P, int* dual, int* sig, int4 en, int4 d,
+                                             int2 s, bool whole) {
+  const EntryTotals td = entry_totals(en.z), ts = entry_totals(en.w);
+  bool over = false;
+  if (td.write) {
+    int fp = d.x + td.ones, fn = d.y + td.zeros, sp = d.z + td.ones, sn = d.w + td.zeros;
+    if (!whole) {
+      halve_until(fp, fn, P.fast_w);
+      halve_until(sp, sn, P.slow_w);
+      over = fp + fn > P.fast_w || sp + sn > P.slow_w;
     }
-    if (zero) {
-      atomicAdd(d + 1, zero);
-      atomicAdd(d + 3, zero);
+    *reinterpret_cast<int4*>(dual + (long long)en.x * 4) = make_int4(fp, fn, sp, sn);
+  }
+  if (ts.write) {
+    int gp = s.x + ts.ones, gn = s.y + ts.zeros;
+    if (!whole) {
+      halve_until(gp, gn, P.sig_w);
+      over = over || gp + gn > P.sig_w;
+    }
+    *reinterpret_cast<int2*>(sig + (long long)en.y * 2) = make_int2(gp, gn);
+  }
+  return over;
+}
+
+// model_pass's whole-table halving, rows first, first + stride, ...; returns
+// how many of them are still over a window after the 16 iterations.
+__device__ int halve_tables(const Pass& P, int* dual, int* sig, int first, int stride) {
+  int over = 0;
+  for (long long r = first; r < P.n_dual + P.n_sig; r += stride) {
+    if (r < P.n_dual) {
+      int4* row = reinterpret_cast<int4*>(dual) + r;
+      int4 d = __ldcg(row);
+      if (d.x + d.y > P.fast_w || d.z + d.w > P.slow_w) {
+        halve_until(d.x, d.y, P.fast_w);
+        halve_until(d.z, d.w, P.slow_w);
+        *row = d;
+        over += int(d.x + d.y > P.fast_w || d.z + d.w > P.slow_w);
+      }
+    } else {
+      int2* row = reinterpret_cast<int2*>(sig) + (r - P.n_dual);
+      int2 s = __ldcg(row);
+      if (s.x + s.y > P.sig_w) {
+        halve_until(s.x, s.y, P.sig_w);
+        *row = s;
+        over += int(s.x + s.y > P.sig_w);
+      }
     }
   }
+  return over;
 }
 
-// model_pass, after each batch's adds: halve every row of both tables.
-__global__ void halve_tables_kernel(int* __restrict__ dual, int* __restrict__ sig, Model M) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < M.n_dual) {
-    int* d = dual + r * 4;
-    int fp = d[0], fn = d[1], sp = d[2], sn = d[3];
-    if (fp + fn > M.fast_w) {
-      halve(fp, fn, M.fast_w, kHalveDefault);
-      d[0] = fp;
-      d[1] = fn;
+// The chain cluster's barrier, for every thread of it that has not exited
+// (release / acquire at cluster scope: what its blocks stored before their
+// arrival is visible after the wait).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Warp 8 of a chain block: every barrier of the entry warps (chain_role),
+// with nothing between them, so it arrives at a batch's first barrier as
+// soon as the one before has passed. In block 0 it first makes sure the
+// batch's ring slot is free (the consumers hand slots back; 32 slots a
+// poll), and after arriving, while the batch runs, it releases the staged
+// batches to the consumers every kPublishEvery batches and polls ahead.
+__device__ void control_role(const Pass& P, int* sync, const int2* meta, const int* more,
+                             const int* over, int rank, int lane) {
+  const int nb = int(P.nb);
+  long long fr = P.R < P.nb ? P.R : P.nb;  // batches < fr have a free ring slot
+  long long waited = 0;
+  auto poll = [&]() {  // batch fr + lane may be staged once batch fr + lane - R is consumed
+    const long long q = fr + lane;
+    const bool ok = q < P.nb && ld_acquire(sync + 1 + q % P.R) >= int(q - P.R + 1);
+    const int ahead = __ffs(int(~__ballot_sync(0xffffffffu, ok))) - 1;  // leading oks
+    fr += ahead < 0 ? 32 : ahead;
+  };
+  bool whole = !P.dict;
+  int m3 = 0;
+  cluster_arrive();
+  for (int b = 0; b < nb; ++b) {
+    cluster_wait();  // batch b - 1's rows are stored, in every block
+    if (!P.dict && __ldcg(more + m3)) whole = true;
+    if (__ldg(meta + b).y != 0) cluster_sync();  // a hazard batch's second barrier
+    if (whole) {
+      cluster_sync();
+      cluster_sync();
+      whole = __ldcg(over + m3) != 0;
     }
-    if (sp + sn > M.slow_w) {
-      halve(sp, sn, M.slow_w, kHalveDefault);
-      d[2] = sp;
-      d[3] = sn;
+    if (rank == 0 && fr <= b + 1 && b + 1 < nb) {  // the ring is full: wait for a slot
+      const long long t0 = clock64();
+      while (fr <= b + 1) poll();
+      waited += clock64() - t0;
     }
-  } else if (r < M.n_dual + M.n_sig) {
-    int* s = sig + (r - M.n_dual) * 2;
-    int gp = s[0], gn = s[1];
-    if (gp + gn > M.sig_w) {
-      halve(gp, gn, M.sig_w, kHalveDefault);
-      s[0] = gp;
-      s[1] = gn;
+    cluster_arrive();  // batch b + 1's first barrier, or the last one
+    if (rank == 0) {
+      if (lane == 0 && b > 0 && b % kPublishEvery == 0) st_release(sync, b);  // batches < b
+      if (fr < P.nb && fr - b < P.R / 2) poll();
     }
+    m3 = m3 == 2 ? 0 : m3 + 1;
+  }
+  cluster_wait();
+  if (rank == 0 && lane == 0) {
+    st_release(sync, nb);
+    sync[1 + P.R + kProfRing] = int(waited >> 4);  // units of 16 cycles
   }
 }
 
-int launch_prefix(const int* bits, const int* kinds, const int* keys, int* pre1, int* pret,
-                  long long nb, long long batch, long long n_dual, int mode, cudaStream_t st) {
-  if (batch > kMaxPrefixBatch) return int(cudaErrorInvalidValue);
-  const int threads = batch >= 1024 ? 1024 : int((batch + 31) / 32 * 32);
-  prefix_kernel<<<unsigned(nb), threads, size_t(batch) * sizeof(int), st>>>(
-      bits, kinds, keys, pre1, pret, batch, n_dual, mode);
+// Block `rank` of chunk g's chain cluster. Entry u of a batch belongs to
+// block u % kCluster, thread (u / kCluster) % kChainThreads. Warp 8 holds no
+// entries; it runs the same barriers (control_role), and in block 0 it keeps
+// the ring beside them, so that no warp with entries pays for a release fence
+// or a poll.
+__device__ void chain_role(const Pass& P, long long g, int rank) {
+  extern __shared__ __align__(16) unsigned char pass_smem[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid >= kLiveThreads) return;  // exited threads do not count at cluster barriers
+  const bool control = tid >= kChainThreads;
+  int4* ring = reinterpret_cast<int4*>(pass_smem);  // [kStages][K][kChainThreads]
+  int* sync = P.sync + g * (1 + P.R + kSyncTail);
+  int* prof_out = sync + 1 + P.R;
+  // more[(b + 1) % 3]: an entry of batch b left a row over its window, so
+  // batch b + 1 halves the whole tables again; read at the top of batch
+  // b + 1, cleared during batch b + 2, written again during batch b + 3.
+  // over[b % 3]: rows over a window after batch b's whole-table halving;
+  // cleared during batch b - 1. (Zero at the start.)
+  int* more = prof_out + kProf;
+  int* over = more + 3;
+  long long prof[5] = {0, 0, 0, 0, 0}, t0 = clock64(), t1;
+  auto lap = [&](int what) {  // the time since the last lap goes to `what`
+    t1 = clock64();
+    prof[what] += t1 - t0;
+    t0 = t1;
+  };
+  const bool timed = rank == 0 && tid == 0;
+  const int2* meta = P.meta + g * P.nb;
+  const int4* ent = P.entries + g * P.nb * P.U + rank;
+  int4* stage = P.stage + g * P.R * P.U * 2;
+  int* dual = P.dual + g * P.n_dual * 4;
+  int* sig = P.sig + g * P.n_sig * 2;
+  const int K = P.K, nb = int(P.nb);
+  const int stride = kChainThreads * kCluster;  // entries a round of the cluster
+  if (control) {
+    control_role(P, sync, meta, more, over, rank, lane);
+    return;
+  }
+  for (int j = 0; j < kStages; ++j) {  // the first batches' entries -> ring stage j
+    const int n_u = j < nb ? __ldg(meta + j).x : 0;
+    for (int k = 0; k < K && (k * kChainThreads + tid) * kCluster + rank < n_u; ++k)
+      cp_async_entry(ring + (j * K + k) * kChainThreads + tid,
+                     ent + j * P.U + (k * kChainThreads + tid) * kCluster);
+    cp_async_commit();
+  }
+  bool whole = !P.dict;
+  int2 cur = __ldg(meta);
+  // b % kStages, b % R and b % 3 as counters, and the copies' source as a
+  // running pointer: a 64-bit remainder is a hundred instructions on a warp.
+  int rs = 0, slot = 0, m3 = 0;
+  const int4* src = ent + (long long)kStages * P.U + tid * kCluster;  // batch b + kStages
+  for (int b = 0; b < nb; ++b) {
+    const int m3n = m3 == 2 ? 0 : m3 + 1, m3p = m3 == 0 ? 2 : m3 - 1;  // (b + 1), (b + 2) % 3
+    cluster_sync();  // batch b - 1's rows are stored, in every block
+    if (timed) lap(kProfBarrier);
+    const int2 next = b + 1 < nb ? __ldg(meta + b + 1) : make_int2(0, 0);
+    const int far_n = b + kStages < nb ? __ldg(meta + b + kStages).x : 0;
+    const int n_u = cur.x;
+    const bool hazard = cur.y != 0;
+    if (!P.dict) {
+      if (__ldcg(more + m3)) whole = true;
+      if (rank == 0 && tid == 0) more[m3p] = over[m3n] = 0;
+    }
+    bool left_over = false;
+    int4* mine = ring + rs * K * kChainThreads + tid;
+    int4* st = stage + ((long long)slot * P.U + tid * kCluster + rank) * 2;
+    {
+      cp_async_wait(kStages - 1);
+      if (timed) lap(kProfCopies);
+      constexpr int kGroup = 2;  // entries whose loads are in flight together
+      for (int k0 = 0; k0 < K && k0 * stride + tid * kCluster + rank < n_u; k0 += kGroup) {
+        int4 en[kGroup], d[kGroup];
+        int2 s[kGroup];
+        bool act[kGroup];
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q) {
+          const int k = k0 + q;
+          act[q] = k < K && k * stride + tid * kCluster + rank < n_u;
+          d[q] = make_int4(0, 0, 0, 0);
+          s[q] = make_int2(0, 0);
+          if (act[q]) {
+            en[q] = mine[k * kChainThreads];
+            if (entry_totals(en[q].z).load)
+              d[q] = __ldcg(reinterpret_cast<const int4*>(dual) + en[q].x);
+            if (entry_totals(en[q].w).load)
+              s[q] = __ldcg(reinterpret_cast<const int2*>(sig) + en[q].y);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q) {
+          if (act[q]) {
+            int4* o = st + (long long)(k0 + q) * stride * 2;
+            o[0] = d[q];
+            o[1] = make_int4(s[q].x, s[q].y, 0, 0);
+            if (!hazard) left_over |= entry_update(P, dual, sig, en[q], d[q], s[q], whole);
+          }
+        }
+      }
+    }
+    if (hazard) {  // every load of the batch comes before any of its stores
+      cluster_sync();
+      for (int k = 0; k < K && k * stride + tid * kCluster + rank < n_u; ++k) {
+        const int4* o = st + (long long)k * stride * 2;
+        const int4 s = __ldcg(o + 1);
+        left_over |= entry_update(P, dual, sig, mine[k * kChainThreads], __ldcg(o),
+                                  make_int2(s.x, s.y), whole);
+      }
+    }
+    if (left_over) more[m3n] = 1;
+    if (timed) lap(kProfBody);
+    for (int k = 0; k < K && k * stride + tid * kCluster + rank < far_n; ++k)
+      cp_async_entry(mine + k * kChainThreads, src + (long long)k * stride);
+    cp_async_commit();
+    src += P.U;
+    if (whole) {
+      cluster_sync();  // the batch's adds are stored
+      const int n = halve_tables(P, dual, sig, rank * kChainThreads + tid, stride);
+      if (n) atomicAdd(over + m3, n);
+      cluster_sync();
+      whole = __ldcg(over + m3) != 0;
+    }
+    cur = next;
+    rs = rs + 1 == kStages ? 0 : rs + 1;
+    slot = slot + 1 == int(P.R) ? 0 : slot + 1;
+    m3 = m3n;
+    if (timed) lap(kProfRest);
+  }
+  cluster_sync();
+  if (timed) {
+    lap(kProfBarrier);
+    for (int q = kProfBarrier; q <= kProfRest; ++q) prof_out[q] = int(prof[q] >> 4);
+  }
+}
+
+// A consumer block of chunk g: the probabilities of batches c, c + n, ...
+__device__ void consumer_role(const Pass& P, long long g, long long c, long long n) {
+  const int tid = threadIdx.x;
+  int* sync = P.sync + g * (1 + P.R + kSyncTail);
+  const int4* stage = P.stage + g * P.R * P.U * 2;
+  long long waited = 0, worked = 0, t0 = clock64(), t1;
+  for (long long b = c; b < P.nb; b += n) {
+    if (tid == 0) {
+      while (ld_acquire(sync) < int(b + 1)) __nanosleep(1000);
+      t1 = clock64();
+      waited += t1 - t0;
+      t0 = t1;
+    }
+    __syncthreads();
+    const int4* st = stage + (b % P.R) * P.U * 2;
+    for (long long j = tid; j < P.batch; j += kPassThreads) {
+      const long long i = (g * P.nb + b) * P.batch + j;
+      const int k = P.kinds[i];
+      const int pre = P.pre[i];
+      const int ones = pre & 0xffff, zeros = (pre >> 16) - ones;
+      const int4* row = st + (long long)clampi(P.bin_e[i], P.U - 1) * 2;
+      int4 d = make_int4(0, 0, 0, 0), s = d;
+      if (k == 0 || k == 1) d = __ldcg(row);
+      else if (k != 3) s = __ldcg(row + 1);
+      P.probs[i] = bin_prob(k, P.priors[i], d.x + ones, d.y + zeros, d.z + ones, d.w + zeros,
+                            s.x + ones, s.y + zeros, P.alpha_on, P.alpha_off);
+    }
+    __syncthreads();  // every read of the slot is done
+    if (tid == 0) {
+      st_release(sync + 1 + b % P.R, int(b + 1));
+      t1 = clock64();
+      worked += t1 - t0;
+      t0 = t1;
+    }
+  }
+  if (tid == 0 && c == 0) {
+    sync[1 + P.R + kProfConsumerWait] = int(waited >> 4);
+    sync[1 + P.R + kProfConsumerWork] = int(worked >> 4);
+  }
+}
+
+__global__ void __launch_bounds__(kPassThreads) pass_kernel(Pass P) {
+  const long long g = P.g0 + blockIdx.y;
+  if (blockIdx.x < kCluster) chain_role(P, g, int(blockIdx.x));
+  else consumer_role(P, g, blockIdx.x - kCluster, gridDim.x - kCluster);
+}
+
+// Launches of the last model_pass_dict / model_pass call of this thread
+// (copies and clears included).
+thread_local int g_pass_launches = 0;
+
+int check_launch(int& count) {
+  ++count;
   return int(cudaGetLastError());
+}
+
+// phases, a sum of: 1 = the pre-pass's ordered walk, 4 = its totals, 2 = the
+// chain (each on the outputs of the phases before it, from this or an
+// earlier call on the same buffers); 7 = the pass.
+int run_pass(Pass P, long long G, const int* dual_in, const int* sig_in, int phases,
+             cudaStream_t st) {
+  int count = 0, rc = 0;
+  g_pass_launches = 0;
+  if (P.batch < 1 || P.batch > kMaxPrefixBatch || P.U < 1 || P.U > kMaxPrefixBatch ||
+      G > 65535)
+    return int(cudaErrorInvalidValue);
+  if (P.nb == 0 || G == 0) return 0;
+  const long long n = G * P.nb * P.batch;
+  if (phases & 1) {
+    cudaMemsetAsync(P.meta, 0, size_t(G * P.nb) * sizeof(int2), st);
+    if ((rc = check_launch(count))) return rc;
+    P.slots_log2 = 6;
+    // slots >= batch: a batch of distinct keys fills the table and still ends
+    // every probe; real batches repeat keys and leave it half empty. A small
+    // table lets more walks share an SM.
+    while ((1ll << P.slots_log2) < P.batch) ++P.slots_log2;
+    const size_t smem = (size_t(1) << P.slots_log2) * 12;
+    cudaFuncSetAttribute(prefix_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         int(smem));
+    prefix_walk_kernel<<<dim3(unsigned(P.nb), unsigned(G)), 32, smem, st>>>(P);
+    if ((rc = check_launch(count))) return rc;
+  }
+  if (phases & 4) {
+    if (P.dict) {
+      dict_entries_kernel<<<artc::grid_for(P.nb * P.U, 256), 256, 0, st>>>(P);
+      if ((rc = check_launch(count))) return rc;
+    }
+    entry_totals_kernel<<<artc::grid_for(n, 256), 256, 0, st>>>(P, n);
+    if ((rc = check_launch(count))) return rc;
+  }
+  if (phases & 2) {
+    cudaMemcpyAsync(P.dual, dual_in, size_t(G * P.n_dual) * 4 * sizeof(int),
+                    cudaMemcpyDeviceToDevice, st);
+    if ((rc = check_launch(count))) return rc;
+    cudaMemcpyAsync(P.sig, sig_in, size_t(G * P.n_sig) * 2 * sizeof(int),
+                    cudaMemcpyDeviceToDevice, st);
+    if ((rc = check_launch(count))) return rc;
+    cudaMemsetAsync(P.sync, 0, size_t(G * (1 + P.R + kSyncTail)) * sizeof(int), st);
+    if ((rc = check_launch(count))) return rc;
+    const int round = kChainThreads * kCluster;  // entries a round of the chain cluster
+    P.K = int((P.U + round - 1) / round);
+    const size_t smem = size_t(kStages) * P.K * kChainThreads * sizeof(int4);
+    cudaFuncSetAttribute(pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    cudaLaunchAttribute attrs[2];
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = kCluster;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    attrs[1].id = cudaLaunchAttributeCooperative;
+    attrs[1].val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(2 * kCluster);
+    cfg.blockDim = dim3(kPassThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attrs;
+    cfg.numAttrs = 1;
+    int resident = 0;  // clusters the card holds at once
+    cudaOccupancyMaxActiveClusters(&resident, pass_kernel, &cfg);
+    if ((rc = int(cudaGetLastError()))) return rc;
+    if (resident < 2) return int(cudaErrorCooperativeLaunchTooLarge);
+    cfg.numAttrs = 2;
+    // Every block of a launch must be resident (the consumers wait for the
+    // chain and the chain for ring slots): at most resident / 2 chunks a
+    // launch, each with its chain cluster and at least one of consumers.
+    long long want = (P.nb + kCluster - 1) / kCluster;
+    if (want > kMaxConsumerClusters) want = kMaxConsumerClusters;
+    for (long long g0 = 0; g0 < G; g0 += resident / 2) {
+      const long long gs = G - g0 < resident / 2 ? G - g0 : resident / 2;
+      const long long consumers = resident / gs - 1 < want ? resident / gs - 1 : want;
+      P.g0 = g0;
+      cfg.gridDim = dim3(unsigned(kCluster * (1 + consumers)), unsigned(gs));
+      cudaLaunchKernelEx(&cfg, pass_kernel, P);
+      if ((rc = check_launch(count))) return rc;
+    }
+  }
+  g_pass_launches = count;
+  return 0;
+}
+
+Pass common_pass(long long nb, long long batch, long long U, long long n_dual, long long n_sig,
+                 long long R, long long fast_w, long long slow_w, long long sig_w,
+                 long long alpha_on, long long alpha_off) {
+  Pass P{};
+  P.nb = nb;
+  P.batch = batch;
+  P.U = U;
+  P.n_dual = n_dual;
+  P.n_sig = n_sig;
+  P.R = R;
+  P.fast_w = int(fast_w);
+  P.slow_w = int(slow_w);
+  P.sig_w = int(sig_w);
+  P.alpha_on = int(alpha_on);
+  P.alpha_off = int(alpha_off);
+  return P;
 }
 
 Model common_model(long long n_dual, long long n_sig, long long batch, long long fast_w,
@@ -631,58 +1122,67 @@ ARTC_API int artc_model_pass_v2(const int* kind, const int* prior, const int* pr
 
 // bits/kinds/priors/bin_u int32[nb, batch], dict_keys [nb, U], dual_in
 // [n_dual, 4] and sig_in [n_sig, 2] (both ending in their scratch row).
-// Scratch: dual, sig (working tables), pre1, pret [nb * batch], tot
-// [nb * U * 4] (zeroed by the caller).
+// Scratch: dual, sig (working tables), pre [nb * batch], entries [nb * U * 4],
+// meta [nb * 2], stage [R * U * 8], sync [1 + R + 14]. phases: see run_pass.
 ARTC_API int artc_model_pass_dict(const int* bits, const int* kinds, const int* priors,
                                   const int* bin_u, const int* dict_keys, const int* dual_in,
-                                  const int* sig_in, int* dual, int* sig, int* pre1,
-                                  int* pret, int* tot, int* probs, long long nb,
-                                  long long batch, long long U, long long n_dual,
-                                  long long n_sig, long long fast_w, long long slow_w,
-                                  long long sig_w, long long alpha_on, long long alpha_off,
-                                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Model M = common_model(n_dual, n_sig, batch, fast_w, slow_w, sig_w, alpha_on, alpha_off);
-  M.U = U;
-  cudaMemcpyAsync(dual, dual_in, size_t(n_dual) * 4 * sizeof(int), cudaMemcpyDeviceToDevice,
-                  st);
-  cudaMemcpyAsync(sig, sig_in, size_t(n_sig) * 2 * sizeof(int), cudaMemcpyDeviceToDevice, st);
-  if (nb == 0) return int(cudaGetLastError());
-  const int rc = launch_prefix(bits, kinds, bin_u, pre1, pret, nb, batch, n_dual, 0, st);
-  if (rc != 0) return rc;
-  dict_totals_kernel<<<artc::grid_for(nb * batch, 256), 256, 0, st>>>(bits, kinds, bin_u, tot,
-                                                                     nb * batch, batch, U);
-  for (long long b = 0; b < nb; ++b) {
-    dict_prob_kernel<<<artc::grid_for(batch, 256), 256, 0, st>>>(
-        kinds, priors, bin_u, dict_keys, pre1, pret, dual, sig, probs, M, b);
-    dict_update_kernel<<<artc::grid_for(U, 128), 128, 0, st>>>(dict_keys, tot, dual, sig, M,
-                                                              b);
-  }
-  return int(cudaGetLastError());
+                                  const int* sig_in, int* dual, int* sig, int* pre,
+                                  int* entries, int* meta, int* stage, int* sync, int* probs,
+                                  long long nb, long long batch, long long U, long long n_dual,
+                                  long long n_sig, long long R, long long fast_w,
+                                  long long slow_w, long long sig_w, long long alpha_on,
+                                  long long alpha_off, long long phases, void* stream) {
+  Pass P = common_pass(nb, batch, U, n_dual, n_sig, R, fast_w, slow_w, sig_w, alpha_on,
+                       alpha_off);
+  P.bits = bits;
+  P.kinds = kinds;
+  P.priors = priors;
+  P.keys = bin_u;
+  P.bin_e = bin_u;
+  P.dict_keys = dict_keys;
+  P.dict = 1;
+  P.dual = dual;
+  P.sig = sig;
+  P.pre = pre;
+  P.entries = reinterpret_cast<int4*>(entries);
+  P.meta = reinterpret_cast<int2*>(meta);
+  P.stage = reinterpret_cast<int4*>(stage);
+  P.sync = sync;
+  P.probs = probs;
+  return run_pass(P, 1, dual_in, sig_in, int(phases), static_cast<cudaStream_t>(stream));
 }
 
-// bits/kinds/keys/priors int32[nb * batch], dual_in [n_dual, 4] (ending in
-// the scratch row), sig_in [n_sig, 2]. Scratch: dual, sig, pre1, pret.
+// G chunks of one shape: bits/kinds/keys/priors int32[G][nb * batch], dual_in
+// [G][n_dual, 4] (ending in the scratch row), sig_in [G][n_sig, 2]. Scratch
+// per chunk: dual, sig, pre and bin_e [nb * batch], entries [nb * batch * 4],
+// meta [nb * 2], stage [R * batch * 8], sync [1 + R + 14]. phases as above.
 ARTC_API int artc_model_pass(const int* bits, const int* kinds, const int* keys,
                              const int* priors, const int* dual_in, const int* sig_in,
-                             int* dual, int* sig, int* pre1, int* pret, int* probs,
+                             int* dual, int* sig, int* pre, int* bin_e, int* entries,
+                             int* meta, int* stage, int* sync, int* probs, long long G,
                              long long nb, long long batch, long long n_dual, long long n_sig,
-                             long long fast_w, long long slow_w, long long sig_w,
-                             long long alpha_on, long long alpha_off, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Model M = common_model(n_dual, n_sig, batch, fast_w, slow_w, sig_w, alpha_on, alpha_off);
-  cudaMemcpyAsync(dual, dual_in, size_t(n_dual) * 4 * sizeof(int), cudaMemcpyDeviceToDevice,
-                  st);
-  cudaMemcpyAsync(sig, sig_in, size_t(n_sig) * 2 * sizeof(int), cudaMemcpyDeviceToDevice, st);
-  if (nb == 0) return int(cudaGetLastError());
-  const int rc = launch_prefix(bits, kinds, keys, pre1, pret, nb, batch, n_dual, 1, st);
-  if (rc != 0) return rc;
-  for (long long b = 0; b < nb; ++b) {
-    sort_prob_kernel<<<artc::grid_for(batch, 256), 256, 0, st>>>(kinds, keys, priors, pre1,
-                                                                pret, dual, sig, probs, M, b);
-    sort_add_kernel<<<artc::grid_for(batch, 256), 256, 0, st>>>(bits, kinds, keys, dual, sig,
-                                                               M, b);
-    halve_tables_kernel<<<artc::grid_for(n_dual + n_sig, 256), 256, 0, st>>>(dual, sig, M);
-  }
-  return int(cudaGetLastError());
+                             long long R, long long fast_w, long long slow_w, long long sig_w,
+                             long long alpha_on, long long alpha_off, long long phases,
+                             void* stream) {
+  Pass P = common_pass(nb, batch, batch, n_dual, n_sig, R, fast_w, slow_w, sig_w, alpha_on,
+                       alpha_off);
+  P.bits = bits;
+  P.kinds = kinds;
+  P.priors = priors;
+  P.keys = keys;
+  P.bin_e = bin_e;
+  P.bin_e_out = bin_e;
+  P.dual = dual;
+  P.sig = sig;
+  P.pre = pre;
+  P.entries = reinterpret_cast<int4*>(entries);
+  P.meta = reinterpret_cast<int2*>(meta);
+  P.stage = reinterpret_cast<int4*>(stage);
+  P.sync = sync;
+  P.probs = probs;
+  return run_pass(P, G, dual_in, sig_in, int(phases), static_cast<cudaStream_t>(stream));
 }
+
+// Device-side launches (kernels, copies, clears) the calling thread's last
+// model_pass_dict / model_pass call made.
+ARTC_API int artc_pass_launches(void) { return g_pass_launches; }

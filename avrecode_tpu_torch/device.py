@@ -210,9 +210,10 @@ def _run_v4(an: Analysis, c: SlimChunk, device, cache: dict | None = None):
     return _exec_v4(to_torch_staged(an, c, device, cache))
 
 
-def device_probs(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device,
+def device_probs(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device="cuda",
                  impl: str | None = None) -> np.ndarray:
-    """One chunk's model pass on `device`; returns uint16 probs[n]. A slim
+    """One chunk's model pass on `device` (the card unless the caller asks
+    for "cpu"); returns uint16 probs[n]. A slim
     chunk runs the frozen-batch pass; a profile-0 chunk runs the pass that
     `impl` (default ops.model_pass.default_impl()) names: "v2" on the native
     export's tables, or "dict", "sort" or "mm"."""
@@ -237,7 +238,7 @@ def device_probs(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device,
                         sig0=sig0, device=device)
 
 
-def device_blob(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device,
+def device_blob(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device="cuda",
                 probs: np.ndarray | None = None, force_lanes: int | None = None) -> bytes:
     """One chunk's rANS blob on `device`, byte-identical to the C++
     RansInterleaved format. A slim chunk's model pass feeds (probs, bits) to
@@ -264,9 +265,9 @@ def _fetch(rc: int, out, out_len) -> bytes:
 def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
              batch_size: int = 4096, model_profile: int = 2,
              force_lanes: int | None = None, info: dict | None = None, *,
-             device, keep_probs: bool = False) -> tuple[bytes, host.Stats]:
-    """Full device-path compression on `device` ("cuda" runs the kernels,
-    "cpu" their plain versions); writes the container
+             device="cuda", keep_probs: bool = False) -> tuple[bytes, host.Stats]:
+    """Full device-path compression on `device` ("cuda", the default, runs
+    the kernels, "cpu" their plain versions); writes the container
     avrecode_tpu.device.compress writes for the same parameters.
 
     `info`, if given, receives n_chunks, the per-chunk lane blobs, pack_s

@@ -52,8 +52,9 @@ def default_impl() -> str:
     return os.environ.get("ARTC_MODEL_IMPL", "v2")
 
 
-# Largest batch of the dict/sort prefix kernel (csrc/model_pass.cu
-# kMaxPrefixBatch: one int32 per bin in 48 KB of shared memory).
+# Largest batch (and dict width) of the dict and sort/mm kernels
+# (csrc/model_pass.cu kMaxPrefixBatch: the pre-pass's hash table and the
+# chain's entry ring live in shared memory, and counts pack into 15 bits).
 _PREFIX_MAX_BATCH = 12288
 _HALVE_DEFAULT = 16  # _halve_while's default count (dict and sort/mm passes)
 
@@ -681,12 +682,54 @@ def _model_pass_dict_plain(bits, kinds, priors, bin_u, dict_keys, dual0, sig0, b
 
 def _check_batch(name: str, batch: int) -> None:
     if not 1 <= batch <= _PREFIX_MAX_BATCH:
-        raise ValueError(f"{name}: batch={batch} outside the prefix kernel's "
+        raise ValueError(f"{name}: batch={batch} outside the kernels' "
                          f"[1, {_PREFIX_MAX_BATCH}]")
 
 
+# Batches whose staged rows may wait for their probabilities at once (the
+# persistent kernels' ring in device memory).
+_STAGE_RING = 128
+# Cycle counters the kernels leave behind the ring's flags (csrc/model_pass.cu
+# PassProf), in units of 16 cycles: the chain held up by a full ring; its
+# block 0's thread 0 at the batch barrier, waiting for the entries' copies,
+# in its own loads to stores, and the rest; the first consumer's thread 0
+# waiting and working.
+_PASS_PROF = 8
+_PASS_CTL = 6  # and the chain cluster's own words
+PASS_PROF_NAMES = ("ring", "barrier", "copies", "body", "rest", "consumer_wait",
+                   "consumer_work")
+
+
+def pass_profile(scratch: dict) -> dict:
+    """Chunk 0's cycle counters of the last chain run on `scratch`, in
+    cycles."""
+    words = scratch["sync"][0, 1 + scratch["R"]:1 + scratch["R"] + _PASS_PROF].tolist()
+    return {k: 16 * v for k, v in zip(PASS_PROF_NAMES, words)}
+
+
+def _pass_scratch(dev, G: int, nb: int, batch: int, U: int, n_dual: int, n_sig: int) -> dict:
+    """The persistent passes' working memory for G chunks of nb batches with
+    up to U entries a batch: the working tables, each bin's packed prefix
+    counts and entry, the entries (int4 each) and per-batch meta words of the
+    pre-pass, the ring of staged rows (2 x int4 an entry), the ring's flags
+    and the output. Nothing needs initialising: the C entry clears what it
+    counts in."""
+    R = max(1, min(_STAGE_RING, nb))
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    return dict(R=R, dual=empty(G, n_dual * 4), sig=empty(G, n_sig * 2),
+                pre=empty(G, nb * batch), bin_e=empty(G, nb * batch),
+                entries=empty(G, nb * U * 4), meta=empty(G, nb * 2),
+                stage=empty(G, R * U * 8), sync=empty(G, 1 + R + _PASS_PROF + _PASS_CTL), probs=empty(G, nb * batch))
+
+
 def _model_pass_dict_cuda(bits, kinds, priors, bin_u, dict_keys, dual0, sig0, batch, fast_w,
-                          slow_w, sig_w, sig_alpha):
+                          slow_w, sig_w, sig_alpha, phases: int = 7, scratch: dict | None = None):
+    """`phases` is a sum of 1 (the pre-pass's ordered walk), 4 (its totals)
+    and 2 (the chain), each on the `scratch` of the phases before it, for
+    timing them apart; 7 is the pass."""
     _native.check_cuda("model_pass_dict", bits, kinds, priors, bin_u, dict_keys, dual0, sig0)
     _check_batch("model_pass_dict", batch)
     nb, U = dict_keys.shape
@@ -694,18 +737,16 @@ def _model_pass_dict_cuda(bits, kinds, priors, bin_u, dict_keys, dual0, sig0, ba
         raise ValueError(f"model_pass_dict: bin planes must hold {nb} x {batch} bins")
     if dual0.dim() != 2 or dual0.shape[1] != 4 or sig0.dim() != 2 or sig0.shape[1] != 2:
         raise ValueError("model_pass_dict: tables must be [n, 4] / [n, 2]")
-    dev = bits.device
+    if not 1 <= U <= _PREFIX_MAX_BATCH:
+        raise ValueError(f"model_pass_dict: dict width {U} outside [1, {_PREFIX_MAX_BATCH}]")
     alpha_on, alpha_off = _alphas(sig_alpha)
-    i32 = torch.int32
-    pre1 = torch.empty(nb * batch, dtype=i32, device=dev)
-    pret = torch.empty(nb * batch, dtype=i32, device=dev)
-    tot = torch.zeros(nb * U * 4, dtype=i32, device=dev)
-    probs = torch.empty(nb * batch, dtype=i32, device=dev)
-    _native.launch("model_pass_dict", "artc_model_pass_dict", dev, bits, kinds, priors, bin_u,
-                   dict_keys, dual0, sig0, torch.empty_like(dual0), torch.empty_like(sig0),
-                   pre1, pret, tot, probs, nb, batch, U, dual0.shape[0], sig0.shape[0],
-                   fast_w, slow_w, sig_w, alpha_on, alpha_off)
-    return probs
+    n_dual, n_sig = dual0.shape[0], sig0.shape[0]
+    w = scratch or _pass_scratch(bits.device, 1, nb, batch, U, n_dual, n_sig)
+    _native.launch("model_pass_dict", "artc_model_pass_dict", bits.device, bits, kinds, priors,
+                   bin_u, dict_keys, dual0, sig0, w["dual"], w["sig"], w["pre"], w["entries"],
+                   w["meta"], w["stage"], w["sync"], w["probs"], nb, batch, U, n_dual, n_sig,
+                   w["R"], fast_w, slow_w, sig_w, alpha_on, alpha_off, phases)
+    return w["probs"][0]
 
 
 _IMPLS = ("sort", "mm")
@@ -722,19 +763,30 @@ def model_pass(bits, kinds, keys, priors, dual0, sig0, *, batch: int, fast_w: in
       key n_dual - 1, bit 0, prior 0).
     dual0: int32[n_dual, 4] start table ending in its scratch row; sig0:
       int32[n_sig, 2] (neither is modified).
+    A leading chunk axis on all six ([G, nb * batch], [G, n_dual, 4], [G,
+    n_sig, 2]) runs G independent chunks, each on its own tables (the mesh's
+    vmap over a device's chunks), in one launch sequence.
 
     Batch by batch: kind-3 bins are retargeted at the dual scratch row and
     sig bins read the sig table (key) and the dual scratch row; each bin's
     state is its rows as of the batch start plus its within-batch per-key
     prefix counts; then every bin adds its count to its row and both whole
-    tables are halved (16 iterations). Returns probs int32[nb * batch]."""
+    tables are halved (16 iterations). Returns probs int32[nb * batch], or
+    [G, nb * batch]."""
     if impl not in _IMPLS:
         raise ValueError(f"model_pass impl must be 'sort' or 'mm', got {impl!r}")
+    one = bits.dim() == 1
+    if one:
+        bits, kinds, keys, priors, dual0, sig0 = (x[None] for x in (bits, kinds, keys, priors,
+                                                                    dual0, sig0))
     if _native.on_cpu("model_pass", bits):
-        return _model_pass_plain(bits, kinds, keys, priors, dual0, sig0, batch, fast_w,
-                                 slow_w, sig_w, sig_alpha)
-    return _model_pass_cuda(bits, kinds, keys, priors, dual0, sig0, batch, fast_w, slow_w,
-                            sig_w, sig_alpha)
+        probs = torch.stack([_model_pass_plain(bits[g], kinds[g], keys[g], priors[g], dual0[g],
+                                               sig0[g], batch, fast_w, slow_w, sig_w, sig_alpha)
+                             for g in range(bits.shape[0])])
+    else:
+        probs = _model_pass_cuda(bits, kinds, keys, priors, dual0, sig0, batch, fast_w, slow_w,
+                                 sig_w, sig_alpha)
+    return probs[0] if one else probs
 
 
 def _model_pass_plain(bits, kinds, keys, priors, dual0, sig0, batch, fast_w, slow_w, sig_w,
@@ -781,26 +833,162 @@ def _model_pass_plain(bits, kinds, keys, priors, dual0, sig0, batch, fast_w, slo
 
 
 def _model_pass_cuda(bits, kinds, keys, priors, dual0, sig0, batch, fast_w, slow_w, sig_w,
-                     sig_alpha):
+                     sig_alpha, phases: int = 7, scratch: dict | None = None):
+    """G chunks ([G, n] planes, [G, n_dual, 4] and [G, n_sig, 2] tables);
+    `phases` and `scratch` as in _model_pass_dict_cuda. Returns [G, n]."""
     _native.check_cuda("model_pass", bits, kinds, keys, priors, dual0, sig0)
     _check_batch("model_pass", batch)
-    n = bits.numel()
+    G, n = bits.shape
     nb = n // batch
-    if n != nb * batch or any(x.numel() != n for x in (kinds, keys, priors)):
+    if n != nb * batch or any(x.shape != bits.shape for x in (kinds, keys, priors)):
         raise ValueError(f"model_pass: bin planes must hold whole batches of {batch} bins")
-    if dual0.dim() != 2 or dual0.shape[1] != 4 or sig0.dim() != 2 or sig0.shape[1] != 2:
-        raise ValueError("model_pass: tables must be [n, 4] / [n, 2]")
-    dev = bits.device
+    if dual0.dim() != 3 or dual0.shape[0] != G or dual0.shape[2] != 4 or sig0.dim() != 3 \
+            or sig0.shape[0] != G or sig0.shape[2] != 2:
+        raise ValueError("model_pass: tables must be [n, 4] / [n, 2] per chunk")
     alpha_on, alpha_off = _alphas(sig_alpha)
-    i32 = torch.int32
-    pre1 = torch.empty(n, dtype=i32, device=dev)
-    pret = torch.empty(n, dtype=i32, device=dev)
-    probs = torch.empty(n, dtype=i32, device=dev)
-    _native.launch("model_pass", "artc_model_pass", dev, bits, kinds, keys, priors, dual0, sig0,
-                   torch.empty_like(dual0), torch.empty_like(sig0), pre1, pret, probs, nb,
-                   batch, dual0.shape[0], sig0.shape[0], fast_w, slow_w, sig_w, alpha_on,
-                   alpha_off)
-    return probs
+    n_dual, n_sig = dual0.shape[1], sig0.shape[1]
+    w = scratch or _pass_scratch(bits.device, G, nb, batch, batch, n_dual, n_sig)
+    _native.launch("model_pass", "artc_model_pass", bits.device, bits, kinds, keys, priors,
+                   dual0, sig0, w["dual"], w["sig"], w["pre"], w["bin_e"], w["entries"],
+                   w["meta"], w["stage"], w["sync"], w["probs"], G, nb, batch, n_dual, n_sig,
+                   w["R"], fast_w, slow_w, sig_w, alpha_on, alpha_off, phases)
+    return w["probs"]
+
+
+# ---- numpy mirrors of the persistent kernels' arithmetic (csrc/model_pass.cu)
+#
+# The CUDA kernels cannot run without a card; these mirrors follow their
+# pre-pass (prefix_walk_kernel, dict_entries_kernel, entry_totals_kernel) and
+# their chain (chain_role, consumer_role) step by step, so the CPU tests can
+# hold the kernels' formulation (entries, packed totals, the whole-table
+# halving rule) against the plain versions and JAX.
+
+_TOT_SHIFT = 15
+_COUNT_MASK = (1 << _TOT_SHIFT) - 1
+_LOAD_BIT = 1 << 31
+_LIVE_BIT = 1 << 30
+
+
+def _walk_mirror(keys, bits, kinds, n_dual: int, n_sig: int, dict_keys=None):
+    """One batch's pre-pass. keys/bits/kinds: int arrays [B] (dict: keys is
+    bin_u and dict_keys the batch's int[U] dictionary). Returns (pre int64[B]
+    = pre_ones | pre_tot << 16, bin_e int64[B], entries int64[n_u, 4] = (dual
+    row, sig row, dual totals, sig totals), hazard)."""
+    B = len(keys)
+    is_dict = dict_keys is not None
+    ukey = np.asarray(keys, np.int64)
+    if not is_dict:
+        ukey = np.where(kinds == 3, n_dual - 1, np.where(kinds == 2, ukey + n_dual, ukey))
+    table = {}  # key -> [entry, running ones, running total]
+    pre = np.zeros(B, np.int64)
+    bin_e = np.zeros(B, np.int64)
+    rows = []
+    for i0 in range(0, B, 32):  # one warp step: 32 bins, equal keys grouped
+        lanes = range(i0, min(i0 + 32, B))
+        groups = {}
+        for i in lanes:
+            groups.setdefault(int(ukey[i]), []).append(i)
+        for k, members in groups.items():  # in order of each group's leader (lowest lane)
+            if k not in table:
+                table[k] = [len(table), 0, 0]
+                sk = k - n_dual
+                rows.append([min(max(k, 0), n_dual - 1), min(max(sk, 0), n_sig - 1),
+                             _LIVE_BIT if 0 <= k < n_dual else 0,
+                             _LIVE_BIT if 0 <= sk < n_sig else 0])
+            e, ones, tot = table[k]
+            for i in members:
+                pre[i] = ones | tot << 16
+                bin_e[i] = e
+                ones += int(bits[i]) & 1
+                tot += 1
+            table[k][1:] = [ones, tot]
+    if is_dict:
+        U = len(dict_keys)
+        dk = np.asarray(dict_keys, np.int64)
+        sig_key = dk >= n_dual
+        d = np.clip(np.where(sig_key, n_dual - 1, dk), 0, n_dual - 1)
+        s = np.clip(np.where(sig_key, dk - n_dual, n_sig - 1), 0, n_sig - 1)
+        entries = np.stack([d, s, _LOAD_BIT | np.where(d != n_dual - 1, _LIVE_BIT, 0),
+                            _LOAD_BIT | np.where(s != n_sig - 1, _LIVE_BIT, 0)], 1)
+        bin_e = np.clip(np.asarray(keys, np.int64), 0, U - 1)
+    else:
+        entries = np.array(rows, np.int64).reshape(-1, 4)
+    hazard = False
+    for i in range(B):
+        k = int(kinds[i])
+        if k == 3:
+            continue
+        entries[bin_e[i], 3 if k == 2 else 2] += (int(bits[i]) & 1) | 1 << _TOT_SHIFT
+        if not is_dict and not 0 <= int(keys[i]) < (n_sig if k == 2 else n_dual):
+            hazard = True
+    return pre, bin_e, entries, hazard
+
+
+def _halve16(p, n, window):
+    p, n = im._halve_while(torch.from_numpy(p), torch.from_numpy(n), window, _HALVE_DEFAULT)
+    return p.numpy(), n.numpy()
+
+
+def _entry_pass_mirror(bits, kinds, keys, priors, dual0, sig0, batch, fast_w, slow_w, sig_w,
+                       sig_alpha, dict_keys=None):
+    """The chain and the consumers over numpy int arrays: per batch the
+    entries' rows are staged (all loads before any store), the bins' probs
+    come from the staged rows, the entries add and halve, and model_pass
+    halves whole tables only while a row is over its window. Returns probs
+    int32[nb * batch] and the number of whole-table halvings."""
+    n_dual, n_sig = dual0.shape[0], sig0.shape[0]
+    nb = len(bits) // batch
+    alpha_on, alpha_off = _alphas(sig_alpha)
+    dual = dual0.astype(np.int64)
+    sig = sig0.astype(np.int64)
+    is_dict = dict_keys is not None
+    whole, more, n_whole = not is_dict, False, 0
+    out = []
+    for b in range(nb):
+        sl = slice(b * batch, (b + 1) * batch)
+        pre, bin_e, ent, _ = _walk_mirror(keys[sl], bits[sl], kinds[sl], n_dual, n_sig,
+                                          dict_keys[b] if is_dict else None)
+        whole, more = whole or more, False
+        tot = ent[:, 2:] >> _TOT_SHIFT & _COUNT_MASK
+        ones = ent[:, 2:] & _COUNT_MASK
+        load = (ent[:, 2:] & _LOAD_BIT != 0) | (tot > 0)
+        write = load & (ent[:, 2:] & _LIVE_BIT != 0)
+        d = np.where(load[:, :1], dual[ent[:, 0]], 0)  # the staged rows
+        s = np.where(load[:, 1:], sig[ent[:, 1]], 0)
+        k = kinds[sl].astype(np.int64)
+        dsel = (k == 0) | (k == 1)
+        ssel = ~dsel & (k != 3)
+        db = np.where(dsel[:, None], d[bin_e], 0)
+        sb = np.where(ssel[:, None], s[bin_e], 0)
+        p1 = pre & 0xFFFF
+        p0 = (pre >> 16) - p1
+        t = torch.from_numpy
+        out.append(im._prob_by_kind(
+            t(k), t(priors[sl].astype(np.int64)), t(db[:, 0] + p1), t(db[:, 1] + p0),
+            t(db[:, 2] + p1), t(db[:, 3] + p0), t(sb[:, 0] + p1), t(sb[:, 1] + p0), alpha_on,
+            alpha_off).numpy())
+        z = tot - ones
+        new_d = d + np.stack([ones[:, 0], z[:, 0], ones[:, 0], z[:, 0]], 1)
+        new_s = s + np.stack([ones[:, 1], z[:, 1]], 1)
+        if not whole:
+            new_d[:, 0], new_d[:, 1] = _halve16(new_d[:, 0].copy(), new_d[:, 1].copy(), fast_w)
+            new_d[:, 2], new_d[:, 3] = _halve16(new_d[:, 2].copy(), new_d[:, 3].copy(), slow_w)
+            new_s[:, 0], new_s[:, 1] = _halve16(new_s[:, 0].copy(), new_s[:, 1].copy(), sig_w)
+            wd, ws = write[:, 0], write[:, 1]
+            more = bool(((new_d[wd, 0] + new_d[wd, 1] > fast_w)
+                         | (new_d[wd, 2] + new_d[wd, 3] > slow_w)).any()
+                        or (new_s[ws, 0] + new_s[ws, 1] > sig_w).any()) and not is_dict
+        dual[ent[write[:, 0], 0]] = new_d[write[:, 0]]
+        sig[ent[write[:, 1], 1]] = new_s[write[:, 1]]
+        if whole:
+            n_whole += 1
+            dt, st = torch.from_numpy(dual), torch.from_numpy(sig)  # views: halved in place
+            _halve_table_plain(dt, 0, fast_w)
+            _halve_table_plain(dt, 2, slow_w)
+            _halve_table_plain(st, 0, sig_w)
+            whole = bool(((dual[:, 0] + dual[:, 1] > fast_w) | (dual[:, 2] + dual[:, 3] > slow_w))
+                         .any() or (sig[:, 0] + sig[:, 1] > sig_w).any())
+    return np.concatenate(out).astype(np.int32), n_whole
 
 
 def _bucket(n_batches: int) -> int:

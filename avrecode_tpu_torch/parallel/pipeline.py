@@ -175,8 +175,9 @@ def sharded_recompress_step(mesh: Mesh, batch: int, fast_w: int = 48, slow_w: in
                             sig_w: int = 80, sig_alpha: int = 1):
     """Builds the pre-ANL5 mesh step: build(K_total) returns step(bits,
     kinds, keys, priors, dual0, sig0), which runs the per-batch model pass
-    (model_pass, impl "sort") on each of a cell's row's chunks, then the
-    unmasked lane scan on the cell's lane slice.
+    (model_pass, impl "sort") over the chunk axis of a cell's row's chunks
+    (one launch sequence for all of them), then the unmasked lane scan on the
+    cell's lane slice.
 
     Inputs (G = chunk rows, a multiple of the mesh's 'gop' size; N = padded
     pairs per chunk, a multiple of batch and K):
@@ -193,8 +194,7 @@ def sharded_recompress_step(mesh: Mesh, batch: int, fast_w: int = 48, slow_w: in
             b, k, y, p, d, s = (t[rows].to(dev) for t in (bits, kinds, keys, priors, dual0,
                                                           sig0))
             G_l, N = b.shape
-            probs = torch.stack([mp.model_pass(b[i], k[i], y[i], p[i], d[i], s[i], **kw)
-                                 for i in range(G_l)])
+            probs = mp.model_pass(*(t.contiguous() for t in (b, k, y, p, d, s)), **kw)
             valid = torch.ones((G_l, N), dtype=torch.bool, device=dev)
             planes = _lane_slices((b, probs, valid), G_l, N // K_total, K_total, cols)
             return (probs, *lx.lane_scan(*planes))

@@ -15,7 +15,9 @@ Phases; any failure ends the script with a nonzero exit code:
    the longest lane's valid steps x the 5 dependent instructions of the
    recurrence's step (fewer if the consumer's block in the built kernel's
    SASS, read with cuobjdump, has a shorter chain) x 4 cycles at the card's
-   max SM clock): at the full shapes of benchdata/bench.mp4's chunks
+   max SM clock; for the two per-batch passes the batch chain: the batches
+   x an L2 round trip and four dependent instructions): at the full shapes
+   of benchdata/bench.mp4's chunks
    (profile 2: every chunk; profile 0: chunk 0 at batch 4096, sup 128), on
    random lane streams (K in {16, 128}, the probability extremes, valid
    masks that are not a prefix; K in {1, 7, 33}, whose 32-lane groups are
@@ -26,6 +28,11 @@ Phases; any failure ends the script with a nonzero exit code:
    mesh steps, each against the same step on a grid of CPU devices (the
    plain versions), and the product step's device time on a 1x1 and a 2x2
    grid of this one card (cells on their own streams), with their ratio.
+   The two per-batch passes (model_pass_dict, model_pass) are also held
+   against their plain versions on rows far over their windows, kind-3 and
+   pad bins on the scratch key, 1, 3 and 70 batches, batches of 512, 4096
+   and 12288 and a chunk axis of 3, with their pre-pass and their chain
+   timed apart and the launches a call makes printed.
    All values are integers, so the tolerance is 0;
 3. main paths, each with the launch counters set to 0 just before it and
    read just after:
@@ -86,6 +93,18 @@ SCALAR_OPS_S = 67e12
 # bound takes fewer only where the built kernel's SASS shows a shorter chain.
 CYCLES_PER_DEP = 4
 DEP_PER_STEP = 5
+# The two per-batch passes' third bound, their batch chain: batch b + 1 reads
+# rows as batch b left them, so no implementation avoids, per batch, a row
+# load, the update's dependent instructions (add the totals, add the pair,
+# compare with the window, select) and a store the next load can see. The
+# tables (over 1 MB at bench size) do not fit one SM's shared memory, so the
+# round trip goes through L2: taken as 200 cycles, a round figure under the
+# 260-270 cycles that published microbenchmarks of the H100 give for an L2
+# hit, and the store as free, so that the figure stays a lower bound. The
+# probabilities' divisions are not on this chain (the next batch does not
+# read them). Nothing here is read from the built kernels.
+L2_HIT_CYCLES = 200
+PASS_STEP_CYCLES = L2_HIT_CYCLES + 4 * CYCLES_PER_DEP
 
 
 def fail(msg: str) -> None:
@@ -227,6 +246,7 @@ class Kernels:
         self.work = {}  # name -> (bytes moved, operations)
         self.steps = {}  # serial kernels: name -> the longest lane's valid steps when timed
         self.chain = {}  # serial kernels: name -> dependent instructions per step
+        self.chain_cycles = {}  # kernels with a fixed chain: name -> its cycles
         self.sm_clock_hz = 0.0  # the card's max SM clock
         self.mesh_ms = {}  # kernel times at the mesh shapes (printed, not in the JSON)
 
@@ -247,6 +267,8 @@ class Kernels:
         times = {"bytes": nb / HBM_BYTES_S * 1e3, "operations": ops / SCALAR_OPS_S * 1e3}
         if name in self.steps:
             times["chain"] = self.chain_ms(name, self.steps[name])
+        if name in self.chain_cycles:
+            times["chain"] = self.chain_cycles[name] / self.sm_clock_hz * 1e3
         by = max(times, key=times.get)
         return times[by], by
 
@@ -254,6 +276,9 @@ class Kernels:
         bound_ms, bound_by = self.bound(name, work)
         if name in self.steps:
             extra.update(chain_steps=self.steps[name], chain_dep_per_step=self.chain[name],
+                         sm_clock_mhz=self.sm_clock_hz / 1e6)
+        if name in self.chain_cycles:
+            extra.update(chain_cycles=self.chain_cycles[name],
                          sm_clock_mhz=self.sm_clock_hz / 1e6)
         return {"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": int(launches), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -473,12 +498,113 @@ def ragged_lane_groups(K: Kernels, dev, rng) -> None:
               f"lane slice 2..{2 + lanes} of {wide}, ragged mask)", flush=True)
 
 
+def pass_stream(rng, nb: int, batch: int, n_dual: int, n_sig: int, scratch_mix: bool):
+    """A padded pair stream of nb batches for the per-batch passes: kinds
+    0-3, live dual keys below the scratch row n_dual - 1, tagged and zero
+    priors, padding (kind 0, the scratch key, bit 0, prior 0) beside kind-3
+    bins inside the first batch and at the stream's end."""
+    import numpy as np
+    n = nb * batch
+    p = (0.3, 0.2, 0.2, 0.3) if scratch_mix else (0.45, 0.2, 0.3, 0.05)
+    kinds = rng.choice(4, n, p=p).astype(np.int32)
+    keys = np.where(kinds == 2, rng.integers(0, n_sig, n),
+                    rng.integers(0, n_dual - 1, n)).astype(np.int32)
+    bits = rng.integers(0, 2, n).astype(np.int32)
+    priors = rng.integers(1, 65536, n).astype(np.int32)
+    priors[rng.random(n) < 0.2] = 0
+    pad = np.zeros(n, bool)
+    pad[n - batch // 3:] = True
+    pad[batch // 2: batch // 2 + 40] = True
+    kinds[batch // 2 + 40: batch // 2 + 60] = 3
+    for a, v in ((kinds, 0), (keys, n_dual - 1), (bits, 0), (priors, 0)):
+        a[pad] = v
+    return bits, kinds, keys, priors
+
+
+def pass_tables(rng, n_dual: int, n_sig: int, far=()):
+    """Start tables within their windows (the dual one ending in its scratch
+    row of ones); the `far` rows, which no bin may read (their products
+    would pass 2^31), start with sums about 2^28."""
+    import numpy as np
+    dual = rng.integers(1, 20, (n_dual, 4)).astype(np.int32)
+    sig = rng.integers(0, 20, (n_sig, 2)).astype(np.int32)
+    dual[-1] = 1
+    for r in far:
+        dual[r] = 1 << 27
+        sig[r] = 1 << 27
+    return dual, sig
+
+
+def pass_cases(K: Kernels, dev) -> None:
+    """model_pass_dict and model_pass against their plain versions on the
+    inputs that have broken them before: rows far over their windows (sums
+    about 2^28: whole-table halving must go on for several batches), kind-3
+    and pad bins on the scratch key inside one batch, 1 and 3 batches,
+    batches of 512, 4096 and 12288, more batches than the staging ring
+    holds, and model_pass over a chunk axis of 3 with its own tables per
+    chunk. The launches a call makes must not depend on the batches."""
+    import numpy as np
+    import torch
+    from avrecode_tpu_torch import _native
+    from avrecode_tpu_torch.ops import model_pass as mp
+    kw = dict(fast_w=48, slow_w=640, sig_w=80, sig_alpha=(24 << 16) | 12)
+    rng = np.random.default_rng(5)
+    made = {"model_pass_dict": set(), "model_pass": set()}
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    cases = [("rows far over their windows", 5, 256, 96, 160, False, (7, 50)),
+             ("the scratch-key mix, 1 batch", 1, 512, 96, 160, True, ()),
+             ("the scratch-key mix, 3 batches", 3, 512, 96, 160, True, ()),
+             ("batch 4096", 3, 4096, 3000, 5000, False, ()),
+             ("batch 12288", 2, 12288, 3000, 5000, False, ()),
+             ("70 batches of 64", 70, 64, 96, 160, False, ())]
+    for label, nb, batch, n_dual, n_sig, mix, far in cases:
+        bits, kinds, keys, priors = pass_stream(rng, nb, batch, n_dual, n_sig, mix)
+        for r in far:
+            keys[(keys == r) & (kinds != 3)] = 3
+        dual, sig = pass_tables(rng, n_dual, n_sig, far)
+        bin_u, dict_keys = mp.build_dicts(kinds, keys, n_dual, batch)
+        dargs = [up(a.reshape(nb, batch)) for a in (bits, kinds, priors)] + [
+            up(bin_u), up(dict_keys), up(dual),
+            up(np.concatenate([sig, np.zeros((1, 2), np.int32)]))]
+        sargs = [up(a) for a in (bits, kinds, keys, priors, dual, sig)]
+        for name, kern, plain_fn, args in (
+                ("model_pass_dict", mp.model_pass_dict, mp._model_pass_dict_plain, dargs),
+                ("model_pass", mp.model_pass, mp._model_pass_plain, sargs)):
+            got = kern(*args, batch=batch, **kw)
+            made[name].add(_native.pass_launches())
+            K.check(name, got, plain_fn(*args, batch, *kw.values()), label)
+    G, nb, batch = 3, 5, 512
+    streams = [pass_stream(rng, nb, batch, 96, 160, g == 2) for g in range(G)]
+    tables = [pass_tables(rng, 96, 160, (7, 50) if g == 1 else ()) for g in range(G)]
+    for g in range(G):
+        keys, kinds = streams[g][2], streams[g][1]
+        for r in (7, 50):
+            keys[(keys == r) & (kinds != 3)] = 3
+    stacked = [up(np.stack([s[i] for s in streams])) for i in range(4)] + [
+        up(np.stack([t[i] for t in tables])) for i in range(2)]
+    got = mp.model_pass(*stacked, batch=batch, **kw)
+    made["model_pass"].add(_native.pass_launches())
+    for g in range(G):
+        K.check("model_pass", got[g], mp._model_pass_plain(*(a[g] for a in stacked), batch,
+                                                           *kw.values()),
+                f"chunk {g} of a chunk axis of {G}")
+    if any(len(v) != 1 for v in made.values()):
+        raise AssertionError(f"launches a call vary with the input: {made}")
+    print(f"model_pass_dict and model_pass == plain on {[c[0] for c in cases]} and model_pass "
+          f"over a chunk axis of {G} (own tables per chunk); launches a call, whatever the "
+          f"batches: {({k: v.pop() for k, v in made.items()})}", flush=True)
+
+
 def profile0_kernel_phase(K: Kernels, an, dev) -> None:
     """The profile-0 kernels against their plain versions at the shapes of
     the analysis's chunk 0 (bench.mp4 at batch 4096, sup 128), timed there;
     every kernel's probs also equal the host model's."""
     import numpy as np
     import torch
+    from avrecode_tpu_torch import _native
     from avrecode_tpu_torch import device as td
     from avrecode_tpu_torch.ops import lanes as lx
     from avrecode_tpu_torch.ops import model_pass as mp
@@ -543,26 +669,55 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
         up(np.zeros((an.n_sig + 1, 2), np.int32))]
     sargs = [up(a) for a in (bit_p, kind_p, key_p, prior_p, dual_ext,
                              np.zeros((an.n_sig, 2), np.int32))]
-    # Both count earlier equal keys in each batch (B^2 / 2 compares per
-    # batch) and compute each bin's probability (20); dict updates and
-    # halves its U entries per batch (40 each), sort/mm adds each bin into
-    # its row (4) and halves the whole tables per batch (16 iterations: 8
-    # operations per dual row, 4 per sig row).
-    prefix = nb * an.batch * (an.batch - 1) // 2
-    ops = {"model_pass_dict": prefix + 20 * m + 40 * nb * U,
-           "model_pass": prefix + 24 * m + nb * 16 * (8 * (n_dual + 1) + 4 * an.n_sig)}
+    # The least work of the function, whatever the implementation: a
+    # sort-sized count of earlier equal keys per batch (log2(batch)
+    # compare-exchanges of 2 operations a bin), one probability a bin (20),
+    # and one update with its halving per touched row of each batch (40):
+    # dict's live entries, or the batch's distinct unified keys.
+    touched = {"model_pass_dict": int((dict_keys != n_dual).sum()) + nb,
+               "model_pass": int(sum(len(np.unique(u)) for u in np.where(
+                   kind_p == 3, n_dual, np.where(kind_p == 2, key_p.astype(np.int64)
+                                                 + n_dual + 1, key_p)).reshape(nb, an.batch)))}
+    sort_ops = 2 * (an.batch - 1).bit_length() * m
+    raw = {"model_pass_dict": (mp._model_pass_dict_cuda, dargs),
+           "model_pass": (mp._model_pass_cuda, [a[None] for a in sargs])}
     for name, kern, plain_fn, args, extra in (
             ("model_pass_dict", mp.model_pass_dict, mp._model_pass_dict_plain, dargs, {}),
             ("model_pass", mp.model_pass, mp._model_pass_plain, sargs, {"impl": "mm"})):
         got = kern(*args, **pkw, **extra)
+        made = _native.pass_launches()
         plain, plain_s = host_timed(lambda: plain_fn(*args, *pstatics))
         K.check(name, got, plain, f"{what}, {nb} batches of {an.batch}")
         host_equal(name, got)
-        K.ms[name] = cuda_ms(lambda: kern(*args, **pkw, **extra), 3)
+        K.ms[name] = cuda_ms(lambda: kern(*args, **pkw, **extra), 5)
         K.plain_ms[name] = plain_s * 1e3
-        K.work[name] = (nbytes(*args, got), ops[name])
-        print(f"{name} == plain == host on {what} ({nb} batches, U={U}); "
-              f"plain version timed once on the host clock: {plain_s:.3f} s", flush=True)
+        K.work[name] = (nbytes(*args, got), sort_ops + 20 * m + 40 * touched[name])
+        K.chain_cycles[name] = nb * PASS_STEP_CYCLES
+        # The pre-pass and the chain apart, on one set of working buffers.
+        fn, rargs = raw[name]
+        w = mp._pass_scratch(dev, 1, nb, an.batch, U if name == "model_pass_dict" else an.batch,
+                             rargs[-2].shape[-2], rargs[-1].shape[-2])
+        def part(ph):
+            return cuda_ms(lambda: fn(*rargs, *pstatics, phases=ph, scratch=w), 5)
+
+        parts = [part(1), part(4)]
+        fn(*rargs, *pstatics, phases=5, scratch=w)  # repeated totals had piled up
+        parts.append(part(2))
+        prof = mp.pass_profile(w)  # of the last chain run
+        K.check(name, w["probs"][0], plain, f"{what}: the chain on an earlier pre-pass")
+        print(f"{name} == plain == host on {what} ({nb} batches, U={U}, {touched[name]} "
+              f"touched rows); {made} launches a call (kernels, copies and clears; they do "
+              f"not grow with the batches); pre-pass: the ordered walk {parts[0]:.3f} ms, the "
+              f"totals {parts[1]:.3f} ms; chain with the probabilities {parts[2]:.3f} ms = "
+              f"{parts[2] * 1e3 / nb:.3f} us a batch; cycles a batch (clock64) of the chain "
+              f"cluster's block 0, thread 0: {prof['barrier'] // nb} at the cluster barrier "
+              f"(the barrier and the slowest warp), {prof['copies'] // nb} waiting for the "
+              f"entries' copies, {prof['body'] // nb} from its row loads to its stores, "
+              f"{prof['rest'] // nb} the rest, and {prof['ring'] // nb} held up by a full "
+              f"ring; the first consumer block worked {prof['consumer_work']} and waited "
+              f"{prof['consumer_wait']} cycles; plain "
+              f"version timed once on the host clock: {plain_s:.3f} s", flush=True)
+    pass_cases(K, dev)
 
     # lane_scan at this chunk's K and T, the encode_interleaved layout
     lanes = td.pick_lanes(n)
@@ -719,6 +874,7 @@ def recompress_kernel_phase(K: Kernels, dev):
     a 2 x 2 grid of CPU devices, and its probs against the single-device
     model_pass of each chunk (test_parallel.py:48-53). Returns the step and
     its staged inputs for the main path."""
+    import numpy as np
     import torch
     from avrecode_tpu_torch.ops import model_pass as mp
     from avrecode_tpu_torch.parallel import pipeline
@@ -744,9 +900,17 @@ def recompress_kernel_phase(K: Kernels, dev):
     K.plain_ms[name] = plain_s * 1e3
     nb = N // BATCH
     n_dual, n_sig = staged[4].shape[1], staged[5].shape[1]
-    per_chunk = (nb * BATCH * (BATCH - 1) // 2 + 24 * N
-                 + nb * 16 * (8 * n_dual + 4 * n_sig) + RANS_STEP_OPS * N)
-    K.work[name] = (nbytes(*staged, *got), G * per_chunk)
+    # Per chunk the least work of model_pass (a sort-sized prefix count, a
+    # probability a bin, an update a touched row) and the scan's steps; the
+    # chain is a chunk's batches and then its lane's steps (chunks and lanes
+    # run side by side).
+    bits_h, kinds_h, keys_h = (a.numpy() for a in host_in[:3])
+    ukey = np.where(kinds_h == 2, keys_h.astype(np.int64) + n_dual, keys_h)
+    touched = sum(len(np.unique(u)) for u in ukey.reshape(G * nb, BATCH))
+    K.work[name] = (nbytes(*staged, *got),
+                    G * N * (2 * (BATCH - 1).bit_length() + 20 + RANS_STEP_OPS) + 40 * touched)
+    K.chain_cycles[name] = (nb * PASS_STEP_CYCLES
+                            + N // 16 * DEP_PER_STEP * CYCLES_PER_DEP)
     print(f"{name} (2x2) == the step on a 2x2 CPU grid and == model_pass per chunk on "
           f"{what}: card {K.ms[name]:.3f} ms, plain (CPU, host clock, one run) "
           f"{plain_s:.3f} s", flush=True)
@@ -1167,6 +1331,8 @@ def main() -> int:
         bound_ms, bound_by = K.bound(name, K.work[name])
         chain = (f", chain of {K.steps[name]} steps x {K.chain[name]:.3f} dependent "
                  f"instructions x {CYCLES_PER_DEP} cycles" if name in K.steps else "")
+        if name in K.chain_cycles:
+            chain = f", chain of {K.chain_cycles[name]} cycles"
         print(f"kernel {name}: {ms:.3f} ms on the card; plain version "
               f"{K.plain_ms[name]:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
               f"{K.work[name][0]} bytes, {K.work[name][1]} operations{chain})", flush=True)

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 from test_coder import _c_encode, _random_biased_stream
+from test_torch_batch_passes import KW as PASS_KW
+from test_torch_batch_passes import N_DUAL, N_SIG, _dict_inputs, _stream, _tables
 
 from avrecode_tpu import pipeline
 from avrecode_tpu_torch import _native
@@ -195,6 +197,74 @@ def test_per_batch_kernels_match_plain(cuda, profile0_analysis, impl):
     assert _native.launches[PROFILE0_KERNELS[impl]] == 1
     assert np.array_equal(got, tmp.run_chunk(*args, impl=impl, device="cpu"))
     assert np.array_equal(got, c.host_probs[:n])
+
+
+def _pass_case(case: str, wide: bool):
+    """(bits, kinds, keys, priors, dual, sig, batch) of one of the inputs
+    that have broken ports of the per-batch passes (the CPU tests of
+    test_torch_batch_passes.py hold the same against JAX). `wide` gives the
+    largest batch tables wide enough for about 10,000 distinct keys a batch."""
+    rng = np.random.default_rng(len(case))
+    n_dual, n_sig = (20000, 30000) if wide and case == "batch_12288" else (N_DUAL, N_SIG)
+    nb, batch, over, far = {"over_window": (5, 256, True, (7, 50)),
+                            "scratch_mix_nb1": (1, 512, False, ()),
+                            "scratch_mix_nb3": (3, 512, False, ()),
+                            "keys_past_tables": (3, 256, False, ()),
+                            "batch_12288": (2, 12288, False, ()),
+                            "many_batches": (70, 64, False, ())}[case]
+    p = (0.3, 0.2, 0.2, 0.3) if case.startswith("scratch") else (0.45, 0.2, 0.3, 0.05)
+    bits, kinds, keys, priors = _stream(rng, nb, batch, kinds_p=p, n_dual=n_dual, n_sig=n_sig)
+    for r in far:  # rows with sums about 2^28 that no bin reads
+        keys[(keys == r) & (kinds != 3)] = 3
+    if case == "keys_past_tables":
+        odd = rng.choice(np.flatnonzero(kinds != 3), 60, replace=False)
+        keys[odd] = np.where(kinds[odd] == 2, N_SIG, N_DUAL) + rng.integers(0, 5, 60)
+    dual, sig = _tables(rng, over, n_dual=n_dual, n_sig=n_sig, untouched=far)
+    return bits, kinds, keys, priors, dual, sig, batch
+
+
+PASS_CASES = ["over_window", "scratch_mix_nb1", "scratch_mix_nb3", "keys_past_tables",
+              "batch_12288", "many_batches"]
+
+
+# The dict pass takes its keys from the dictionary: no keys past the tables.
+@pytest.mark.parametrize("impl,case", [(i, c) for i in ("dict", "sort") for c in PASS_CASES
+                                       if (i, c) != ("dict", "keys_past_tables")])
+def test_persistent_passes_match_plain(cuda, impl, case):
+    """The persistent kernels on tables over their windows, the scratch-key
+    mix, batch counts 1, 3 and past the staging ring, keys past the tables
+    and the largest batch: kernel == plain (on CPU copies), with a launch
+    count that does not depend on the number of batches."""
+    bits, kinds, keys, priors, dual, sig, batch = _pass_case(case, impl == "sort")
+    nb = len(bits) // batch
+    if impl == "dict":
+        bin_u, dict_keys, sig_ext = _dict_inputs(kinds, keys, sig, batch, len(dual))
+        args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            bits.reshape(nb, batch), kinds.reshape(nb, batch), priors.reshape(nb, batch), bin_u,
+            dict_keys, dual, sig_ext)]
+        fn, launches = tmp.model_pass_dict, 8
+    else:
+        args = [torch.from_numpy(a) for a in (bits, kinds, keys, priors, dual, sig)]
+        fn, launches = tmp.model_pass, 7
+    got = fn(*(a.to(cuda) for a in args), batch=batch, **PASS_KW)
+    torch.cuda.synchronize()
+    assert _native.pass_launches() == launches
+    _equal(got.cpu(), fn(*args, batch=batch, **PASS_KW))
+
+
+def test_model_pass_chunk_axis_matches_plain(cuda):
+    """model_pass over a chunk axis of 3 with different tables per chunk:
+    one call, one launch sequence, kernel == plain per chunk."""
+    rng = np.random.default_rng(9)
+    G, nb, batch = 3, 5, 512
+    streams = [_stream(rng, nb, batch) for _ in range(G)]
+    tables = [_tables(rng, g == 1) for g in range(G)]
+    stacked = [torch.from_numpy(np.stack([s[i] for s in streams])) for i in range(4)] + [
+        torch.from_numpy(np.stack([t[i] for t in tables])) for i in range(2)]
+    _native.reset_launches()
+    got = tmp.model_pass(*(a.to(cuda) for a in stacked), batch=batch, **PASS_KW)
+    assert _native.launches["model_pass"] == 1 and _native.pass_launches() == 7
+    _equal(got.cpu(), tmp.model_pass(*stacked, batch=batch, **PASS_KW))
 
 
 @pytest.mark.parametrize("impl", ["v2", "dict", "sort", "mm"])
