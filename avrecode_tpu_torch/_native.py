@@ -51,10 +51,10 @@ launches = {"wire_expand": 0, "dual0_expand": 0, "model_pass_v4": 0,
 _SIGNATURES = {
     "artc_wire_expand": "p" * 11 + "i" * 13,
     "artc_dual0_expand": "p" * 5 + "i" * 3,
-    "artc_model_pass_v4": "p" * 13 + "i" * 19,
+    "artc_model_pass_v4": "p" * 14 + "i" * 20,
     "artc_lane_scan_dev": "p" * 7 + "i" * 3,
     "artc_lane_compact": "p" * 4 + "i" * 3,
-    "artc_model_pass_v2": "p" * 15 + "i" * 15,
+    "artc_model_pass_v2": "p" * 16 + "i" * 16,
     "artc_lane_scan": "p" * 8 + "i" * 5,
     "artc_model_pass_dict": "p" * 15 + "i" * 12,
     "artc_model_pass": "p" * 15 + "i" * 12,
@@ -193,7 +193,8 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
 
 def pass_launches() -> int:
     """Device-side launches (kernels, copies, clears) that the calling
-    thread's last model_pass_dict / model_pass call made."""
+    thread's last model pass call made (v3_core, model_pass_v2,
+    model_pass_dict or model_pass)."""
     return int(load().artc_pass_launches())
 
 

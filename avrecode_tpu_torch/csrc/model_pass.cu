@@ -15,22 +15,17 @@
 // are independent, and so are the bins. One stream carries every launch, so
 // launch order is the step order.
 //
-// v3_core and model_pass_v2 run two launches per super-step. v3_core takes a
-// leading chunk axis (the mesh's vmap over a device's chunks, written out):
-// chunk g is blockIdx.y of both launches and owns its planes, key tables,
-// deltas, start tables and staging scratch, so G chunks of one shape cost
-// 2 x ns launches, not 2 x ns x G; a single chunk is G = 1. The stage
-// kernel runs one thread per dictionary slot r < U: it loads its table row,
-// walks the sup sub-batches in order (record the start state, add the
-// deltas, halve per window with the bounded count of _halve_iters) and
-// stores the row back; the rows of a step are unique (sorted-unique keys),
-// so this is race-free. The staged state is kept as [sup][4][U] int32, so
-// the stage stores coalesce across slots; the constant ones columns of the
-// JAX (U, 6) layout are not stored (dual slots read sig columns as 1 and vice
-// versa). The probability kernel runs one thread per bin. The two passes
-// differ only in where the deltas come from (one packed u32 per slot, or
-// separate dual and sig (ones, total) planes) and in v2's per-bin prefix
-// adders.
+// v3_core and model_pass_v2 are one persistent cooperative pass each
+// (scan_kernel; its section below says how): per chunk, stage blocks walk
+// the super-steps' sub-batches slot by slot while probability blocks work one
+// super-step behind them, with one barrier of the chunk's blocks a
+// super-step. v3_core takes a leading chunk axis (the mesh's vmap over a
+// device's chunks, written out): chunk g is blockIdx.y and owns its planes,
+// key tables, deltas, start tables and staging scratch, so G chunks of one
+// shape are one launch (more only where they do not fit the card at once).
+// The two passes differ only in where the deltas come from (one packed u32
+// per slot, or separate dual and sig (ones, total) planes) and in v2's
+// per-bin prefix adders.
 //
 // model_pass_dict and model_pass run as a pre-pass over every batch at once
 // (the within-batch per-key exclusive prefix counts and update totals depend
@@ -54,8 +49,7 @@ constexpr int kHalveDefault = 16; // _halve_while's default iteration count
 struct Model {
   long long n_dual, n_sig, ns, sup, batch, ud, us, U;
   // Chunk strides (ints) of the chunk axis (blockIdx.y); unused with one chunk.
-  long long plane_stride, dkd_stride, dks_stride, delta_stride, dual_stride, sig_stride,
-      cst_stride;
+  long long plane_stride, dkd_stride, dks_stride, delta_stride, dual_stride, sig_stride;
   int fast_w, slow_w, sig_w, it_f, it_s, it_g, alpha_on, alpha_off;
 };
 
@@ -67,10 +61,29 @@ __device__ inline int clamp_prob(int p) {
 // whose bin kind discards it; it is read as 1, as the plain version does.
 __device__ inline int div_floor(int num, int den) { return num / (den > 0 ? den : 1); }
 
-// while (p + n > window) { p = (p+1)>>1; n = (n+1)>>1; }, bounded as in JAX.
-__device__ inline void halve(int& p, int& n, int window, int iters) {
-  for (int k = 0; k < iters; ++k) {
-    if (p + n > window) {
+// while (p + n > window) { p = (p+1)>>1; n = (n+1)>>1; }, at most `iters`
+// times, as JAX's _halve_while unrolls it. JAX runs every iteration masked;
+// a pair within its window is a fixed point of the masked step, so stopping
+// at the first iteration that finds it there gives the same pair.
+__device__ __forceinline__ void halve(int& p, int& n, int window, int iters) {
+  for (int k = 0; k < iters && p + n > window; ++k) {
+    p = (p + 1) >> 1;
+    n = (n + 1) >> 1;
+  }
+}
+
+// halve() with its first two iterations as selects, off the branch: (x + 1)
+// >> 1 is ceil(x / 2) and ceilings compose, so two steps give (x + 3) >> 2,
+// and both candidates are computed beside the window tests. The loop runs
+// only for a pair still over its window after two steps.
+__device__ __forceinline__ void halve_fast(int& p, int& n, int window, int iters) {
+  const int p1 = (p + 1) >> 1, n1 = (n + 1) >> 1, p2 = (p + 3) >> 2, n2 = (n + 3) >> 2;
+  const bool h1 = iters >= 1 && p + n > window;
+  const bool h2 = h1 && iters >= 2 && p1 + n1 > window;
+  p = h2 ? p2 : (h1 ? p1 : p);
+  n = h2 ? n2 : (h1 ? n1 : n);
+  if (h2 && iters > 2 && p + n > window) {
+    for (int k = 2; k < iters && p + n > window; ++k) {
       p = (p + 1) >> 1;
       n = (n + 1) >> 1;
     }
@@ -154,141 +167,6 @@ __global__ void sig0_scatter_kernel(const int* __restrict__ idx, const int* __re
   if (r >= n_sig) return;
   sig[r * 2] = val[e * 2];
   sig[r * 2 + 1] = val[e * 2 + 1];
-}
-
-// Update deltas of v3_core: one u32 (ones | total << 16) per (sub-batch, slot).
-struct PackedDeltas {
-  const int* d;  // [G][ns * sup][U]
-  __device__ void get(const Model& M, long long g, long long t, long long s, long long r,
-                      int& one, int& tot) const {
-    const uint32_t v = uint32_t(d[g * M.delta_stride + (t * M.sup + s) * M.U + r]);
-    one = int(v & 0xffffu);
-    tot = int(v >> 16);
-  }
-};
-
-// Update deltas of model_pass_v2 (one chunk, g = 0): dd int32[ns, sup, ud, 2],
-// ds [ns, sup, us, 2].
-struct SplitDeltas {
-  const int* dd;
-  const int* ds;
-  __device__ void get(const Model& M, long long, long long t, long long s, long long r,
-                      int& one, int& tot) const {
-    const int* p = r < M.ud ? dd + ((t * M.sup + s) * M.ud + r) * 2
-                            : ds + ((t * M.sup + s) * M.us + (r - M.ud)) * 2;
-    one = p[0];
-    tot = p[1];
-  }
-};
-
-// Super-step t of chunk blockIdx.y, one thread per dictionary slot r: stage
-// every sub-batch's start state into cst[s][c][r] and write the final row back.
-template <class Deltas>
-__global__ void stage_kernel(const int* __restrict__ dk_d, const int* __restrict__ dk_s,
-                             Deltas D, int* __restrict__ dual, int* __restrict__ sig,
-                             int* __restrict__ cst, Model M, long long t) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= M.U) return;
-  const long long g = blockIdx.y;
-  dk_d += g * M.dkd_stride;
-  dk_s += g * M.dks_stride;
-  dual += g * M.dual_stride;
-  sig += g * M.sig_stride;
-  cst += g * M.cst_stride;
-  int* out = cst + r;  // column c of sub-batch s at out[(4s + c) U]
-  const long long U = M.U;
-  int one, tot;
-  if (r < M.ud) {
-    int* row = dual + (long long)dk_d[t * M.ud + r] * 4;
-    int fp = row[0], fn = row[1], sp = row[2], sn = row[3];
-    for (long long s = 0; s < M.sup; ++s) {
-      int* o = out + s * 4 * U;
-      o[0] = fp;
-      o[U] = fn;
-      o[2 * U] = sp;
-      o[3 * U] = sn;
-      D.get(M, g, t, s, r, one, tot);
-      fp += one;
-      fn += tot - one;
-      sp += one;
-      sn += tot - one;
-      halve(fp, fn, M.fast_w, M.it_f);
-      halve(sp, sn, M.slow_w, M.it_s);
-    }
-    row[0] = fp;
-    row[1] = fn;
-    row[2] = sp;
-    row[3] = sn;
-  } else {
-    int* row = sig + (long long)dk_s[t * M.us + (r - M.ud)] * 2;
-    int gp = row[0], gn = row[1];
-    for (long long s = 0; s < M.sup; ++s) {
-      int* o = out + s * 4 * U;
-      o[0] = gp;
-      o[U] = gn;
-      D.get(M, g, t, s, r, one, tot);
-      gp += one;
-      gn += tot - one;
-      halve(gp, gn, M.sig_w, M.it_g);
-    }
-    row[0] = gp;
-    row[1] = gn;
-  }
-}
-
-// Super-step t of chunk blockIdx.y, one thread per bin: probability by kind
-// from the bin's sub-batch's staged state at its slot, plus (model_pass_v2
-// only, pre1 != nullptr) the bin's within-batch prefix counts on every column.
-__global__ void scan_prob_kernel(const int* __restrict__ kind, const int* __restrict__ slot,
-                                 const int* __restrict__ prior, const int* __restrict__ pre1,
-                                 const int* __restrict__ pret, const int* __restrict__ cst,
-                                 int* __restrict__ probs, Model M, long long t) {
-  const long long span = M.sup * M.batch;
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= span) return;
-  const long long i = blockIdx.y * M.plane_stride + t * span + j;
-  cst += blockIdx.y * M.cst_stride;
-  const int k = kind[i];
-  int c[6] = {1, 1, 1, 1, 1, 1};
-  if (k != 3) {
-    // A JAX gather clamps an out-of-range row; slots are < U by
-    // construction, so the clamp only mirrors that.
-    long long flat = (j / M.batch) * M.U + slot[i];
-    flat = flat < 0 ? 0 : (flat > M.sup * M.U - 1 ? M.sup * M.U - 1 : flat);
-    const long long s = flat / M.U, sl = flat - s * M.U;
-    const int* o = cst + s * 4 * M.U + sl;
-    const int base = sl < M.ud ? 0 : 4;
-    c[base] = o[0];
-    c[base + 1] = o[M.U];
-    if (base == 0) {
-      c[2] = o[2 * M.U];
-      c[3] = o[3 * M.U];
-    }
-    if (pre1 != nullptr) {
-      const int ones = pre1[i], zeros = pret[i] - pre1[i];
-#pragma unroll
-      for (int q = 0; q < 6; q += 2) {
-        c[q] += ones;
-        c[q + 1] += zeros;
-      }
-    }
-  }
-  probs[i] = bin_prob(k, prior[i], c[0], c[1], c[2], c[3], c[4], c[5], M.alpha_on,
-                      M.alpha_off);
-}
-
-template <class Deltas>
-void launch_scan(const int* kind, const int* slot, const int* prior, const int* pre1,
-                 const int* pret, const int* dk_d, const int* dk_s, Deltas D, int* dual,
-                 int* sig, int* cst, int* probs, const Model& M, long long G,
-                 cudaStream_t st) {
-  const dim3 stage_grid(artc::grid_for(M.U, 128), unsigned(G));
-  const dim3 prob_grid(artc::grid_for(M.sup * M.batch, 256), unsigned(G));
-  for (long long t = 0; t < M.ns; ++t) {
-    stage_kernel<<<stage_grid, 128, 0, st>>>(dk_d, dk_s, D, dual, sig, cst, M, t);
-    scan_prob_kernel<<<prob_grid, 256, 0, st>>>(kind, slot, prior, pre1, pret, cst, probs, M,
-                                                t);
-  }
 }
 
 // ------------------------------------------------- model_pass_dict / model_pass
@@ -551,14 +429,9 @@ __global__ void entry_totals_kernel(Pass P, long long n) {
   }
 }
 
-// halve() with the same result in fewer instructions where few iterations
-// are needed: it stops at the first iteration that finds the pair within
-// its window (every later one would find the same).
+// _halve_while's default count (the dict and sort/mm passes).
 __device__ __forceinline__ void halve_until(int& p, int& n, int window) {
-  for (int k = 0; k < kHalveDefault && p + n > window; ++k) {
-    p = (p + 1) >> 1;
-    n = (n + 1) >> 1;
-  }
+  halve(p, n, window, kHalveDefault);
 }
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
@@ -903,8 +776,8 @@ __global__ void __launch_bounds__(kPassThreads) pass_kernel(Pass P) {
   else consumer_role(P, g, blockIdx.x - kCluster, gridDim.x - kCluster);
 }
 
-// Launches of the last model_pass_dict / model_pass call of this thread
-// (copies and clears included).
+// Launches of the last model pass call of this thread (copies and clears
+// included).
 thread_local int g_pass_launches = 0;
 
 int check_launch(int& count) {
@@ -1029,6 +902,408 @@ Model common_model(long long n_dual, long long n_sig, long long batch, long long
   return M;
 }
 
+// ------------------------------------------------------ v3_core / model_pass_v2
+//
+// Both passes are one persistent cooperative kernel, scan_kernel, whatever
+// ns and G (launches are split only where G chunks do not fit the card at
+// once). A chunk (blockIdx.y) has S stage blocks, which own its U dictionary
+// slots (one thread a slot), and P probability blocks; nothing is shared
+// between chunks.
+//
+// Iteration t of a chunk stages super-step t and, side by side, turns the
+// staged state of super-step t - 1 into probabilities; then the chunk's
+// blocks meet at a barrier (an arrival counter in device memory). Step t's
+// stage reads the rows that step t - 1 stored, whose owner may be another
+// slot, so one barrier a super-step is the chain; the probabilities are not
+// on it. The staged state is double-buffered (step t writes buffer t & 1,
+// while the probabilities of t - 1 read the other): ns + 1 iterations and ns
+// barriers. A ring of more staged steps with consumers further behind (as
+// the per-batch passes below have) would not help: the barrier paces stage
+// and probabilities alike, and two buffers already let them overlap.
+//
+//   - The stage's chain is per slot: sup sub-batches of (store the start
+//     state, add the deltas, halve). A slot's deltas do not depend on the
+//     chain, so they come from a shared-memory ring kRing sub-batches
+//     ahead, and each step first asks L2 for the next step's delta lines
+//     (prefetch.global.L2): no sub-batch waits for device memory.
+//   - The halving stops at the first iteration that finds the pair within
+//     its window; its first two iterations are selects in closed form
+//     (halve_fast), so a sub-batch branches only for a pair still over its
+//     window after two halvings.
+//   - The staged state of a (sub-batch, slot) is one int4 (dual slots,
+//     [sup][ud]) or one int2 (sig slots, [sup][us]) in L2-cached stores, so a
+//     bin's gather is one load.
+//   - The probabilities of a super-step are tiles of kTile bins that the
+//     chunk's blocks take from a counter: probability blocks from the start
+//     of the iteration, stage blocks once their stage is done, so no block
+//     idles while the other role has work. A thread has kUnroll bins in
+//     flight, their plane loads first, then the gathers.
+//
+// The launch is cooperative: every block is resident, so the barrier cannot
+// deadlock, and a launch the card cannot hold is returned as an error. The
+// grid is sized from the pass (P blocks give each probability thread about
+// kBinsPerThread bins a super-step) and from the occupancy query, at most
+// half the card beyond the stage blocks, so that mesh cells on one card run
+// side by side: a cooperative pass that fills the card waits for every
+// other kernel on it, and they for it.
+// Table rows and staged state are read past L1 (ld.global.cg): another SM
+// wrote them one barrier earlier.
+
+constexpr int kScanThreads = 256;  // threads of a stage or probability block
+constexpr int kRing = 16;          // sub-batches whose deltas are copied ahead (a power of 2)
+constexpr int kBinsPerThread = 8;  // bins a probability thread takes a super-step
+constexpr int kUnroll = 4;         // bins a probability thread has in flight
+constexpr int kTile = kUnroll * kScanThreads;  // bins a block takes at a time
+constexpr int kSyncStride = 32;    // ints of a chunk's barrier line (128 bytes)
+// A chunk's barrier line: the arrival count; cycle counters (clock64, in
+// units of 16 cycles) that say what paced the pass: stage block 0's thread 0
+// staging, on probability tiles and at the barrier, and the first
+// probability block's thread 0 on tiles and at the barrier; then the two
+// tile counters.
+enum ScanProf { kScanStage = 1, kScanStageWait, kScanProb, kScanProbWait, kScanStageProb,
+                kScanProf, kScanNext = 8 };
+
+struct Scan {
+  Model M;
+  const int *kind, *slot, *prior;  // [G][m]
+  const int *pre1, *pret;          // model_pass_v2's prefix counts, or null
+  const int *dk_d, *dk_s;          // [G] at chunk strides dkd_stride / dks_stride
+  const uint32_t* deltas;          // v3_core: [G][ns * sup][U] (ones | total << 16)
+  const int *dd, *ds;              // model_pass_v2: [ns * sup][ud | us][2]
+  int *dual, *sig;                 // [G] working tables
+  int* cst;                        // [G][2] staged state: [sup][ud] int4, then [sup][us] int2
+  int* probs;                      // [G][m]
+  int* sync;                       // [G][kSyncStride]
+  long long buf_words;             // ints of one staged-state buffer
+  long long g0;                    // first chunk of this launch
+  int S;                           // stage blocks a chunk
+};
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// The 128-byte lines of [lo, hi] into L2.
+__device__ __forceinline__ void prefetch_span(const void* lo, const void* hi) {
+  for (uintptr_t a = uintptr_t(lo) & ~uintptr_t(127); a <= uintptr_t(hi); a += 128)
+    prefetch_l2(reinterpret_cast<const void*>(a));
+}
+
+// Where slot r's (ones, total) of sub-batch ts lies.
+__device__ __forceinline__ const uint32_t* delta_ptr(const Scan& Q, long long g, long long ts,
+                                                     long long r, uint32_t*) {
+  return Q.deltas + g * Q.M.delta_stride + ts * Q.M.U + r;
+}
+
+__device__ __forceinline__ const int2* delta_ptr(const Scan& Q, long long, long long ts,
+                                                 long long r, int2*) {
+  const Model& M = Q.M;
+  return reinterpret_cast<const int2*>(r < M.ud ? Q.dd + (ts * M.ud + r) * 2
+                                                : Q.ds + (ts * M.us + r - M.ud) * 2);
+}
+
+__device__ __forceinline__ void unpack(uint32_t w, int& one, int& tot) {
+  one = int(w & 0xffffu);
+  tot = int(w >> 16);
+}
+
+__device__ __forceinline__ void unpack(int2 w, int& one, int& tot) {
+  one = w.x;
+  tot = w.y;
+}
+
+// One word into shared memory, asynchronously (cp.async, 4 or 8 bytes).
+__device__ __forceinline__ void cp_async_word(uint32_t* dst, const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               ::"r"(uint32_t(__cvta_generic_to_shared(dst))), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_word(int2* dst, const int2* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
+               ::"r"(uint32_t(__cvta_generic_to_shared(dst))), "l"(src) : "memory");
+}
+
+// Waits until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Super-step t's delta lines of this thread's warp into L2: lane l takes the
+// sub-batches l, l + 32, ...
+template <class Word>
+__device__ void prefetch_deltas(const Scan& Q, long long g, long long t, long long r) {
+  const Model& M = Q.M;
+  const int lane = threadIdx.x & 31;
+  const long long r0 = r - lane, r1 = r0 + 31 < M.U - 1 ? r0 + 31 : M.U - 1;
+  if (r0 >= M.U) return;
+  for (long long s = lane; s < M.sup; s += 32) {
+    const long long ts = t * M.sup + s;
+    if constexpr (sizeof(Word) == 4) {
+      const uint32_t* row = Q.deltas + g * M.delta_stride + ts * M.U;
+      prefetch_span(row + r0, row + r1);
+    } else {
+      if (r0 < M.ud) {
+        const int* row = Q.dd + ts * M.ud * 2;
+        prefetch_span(row + r0 * 2, row + (r1 < M.ud ? r1 : M.ud - 1) * 2 + 1);
+      }
+      if (r1 >= M.ud) {
+        const int* row = Q.ds + (ts * M.us - M.ud) * 2;  // indexed by slot
+        prefetch_span(row + (r0 > M.ud ? r0 : M.ud) * 2, row + r1 * 2 + 1);
+      }
+    }
+  }
+}
+
+// Slot r's walk over super-step t's sub-batches: f(ones, total) in order.
+// The deltas come through a ring of kRing sub-batches in shared memory that
+// each thread fills with its own cp.async copies (one group a sub-batch) and
+// reads itself, so the ring needs no barrier, and the chain waits only for
+// the copy issued kRing sub-batches earlier. (A ring in registers is undone
+// by the compiler: it copies the ring's registers at the top of each
+// unrolled block, and the copies wait for the loads just issued.)
+template <class Word, class F>
+__device__ __forceinline__ void walk_deltas(const Scan& Q, long long g, long long t,
+                                            long long r, Word* ring, F&& f) {
+  const int sup = int(Q.M.sup);
+  Word* mine = ring + threadIdx.x;
+  const Word* src = delta_ptr(Q, g, t * Q.M.sup, r, mine);  // sub-batch 0's, then +step
+  const long long step = delta_ptr(Q, g, t * Q.M.sup + 1, r, mine) - src;
+#pragma unroll
+  for (int q = 0; q < kRing; ++q) {
+    if (q < sup) cp_async_word(mine + q * kScanThreads, src + q * step);
+    cp_async_commit();
+  }
+  src += kRing * step;
+  for (int s = 0; s < sup; ++s) {
+    cp_async_wait_n<kRing - 1>();  // sub-batch s's copy has landed
+    Word* slot = mine + (s & (kRing - 1)) * kScanThreads;
+    const Word cur = *slot;
+    if (s + kRing < sup) cp_async_word(slot, src);
+    cp_async_commit();
+    src += step;
+    int one, tot;
+    unpack(cur, one, tot);
+    f(one, tot);
+  }
+}
+
+// Super-step t of chunk g for slot r: stage every sub-batch's start state
+// into buffer t & 1 and store the final row. The rows of a step are unique
+// (sorted-unique keys), so each has one writer.
+template <class Word>
+__device__ void stage_step(const Scan& Q, long long g, long long t, long long r) {
+  __shared__ Word ring[kRing * kScanThreads];
+  const Model& M = Q.M;
+  if (t + 1 < M.ns) prefetch_deltas<Word>(Q, g, t + 1, r);
+  if (r >= M.U) return;
+  // The windows and counts in registers: the chain must not wait on them.
+  const int fast_w = M.fast_w, slow_w = M.slow_w, sig_w = M.sig_w;
+  const int it_f = M.it_f, it_s = M.it_s, it_g = M.it_g;
+  int* buf = Q.cst + (g * 2 + (t & 1)) * Q.buf_words;
+  if (r < M.ud) {
+    int4* out = reinterpret_cast<int4*>(buf) + r;
+    int4* row = reinterpret_cast<int4*>(Q.dual + g * M.dual_stride) +
+                __ldg(Q.dk_d + g * M.dkd_stride + t * M.ud + r);
+    int4 v = __ldcg(row);
+    walk_deltas<Word>(Q, g, t, r, ring, [&](int one, int tot) {
+      __stcg(out, v);
+      out += M.ud;
+      v.x += one;
+      v.y += tot - one;
+      v.z += one;
+      v.w += tot - one;
+      halve_fast(v.x, v.y, fast_w, it_f);
+      halve_fast(v.z, v.w, slow_w, it_s);
+    });
+    __stcg(row, v);
+  } else {
+    int2* out = reinterpret_cast<int2*>(buf + M.sup * M.ud * 4) + (r - M.ud);
+    int2* row = reinterpret_cast<int2*>(Q.sig + g * M.sig_stride) +
+                __ldg(Q.dk_s + g * M.dks_stride + t * M.us + (r - M.ud));
+    int2 v = __ldcg(row);
+    walk_deltas<Word>(Q, g, t, r, ring, [&](int one, int tot) {
+      __stcg(out, v);
+      out += M.us;
+      v.x += one;
+      v.y += tot - one;
+      halve_fast(v.x, v.y, sig_w, it_g);
+    });
+    __stcg(row, v);
+  }
+}
+
+// Super-step t of chunk g: each bin's probability by kind from its
+// sub-batch's staged state at its slot, plus (model_pass_v2) its within-batch
+// prefix counts on every column. Columns a slot does not stage read 1, as in
+// JAX's (U, 6) layout. The block takes tiles of kTile bins from the chunk's
+// counter `next` until none is left: probability blocks from the start of
+// the iteration, stage blocks once their stage is done.
+__device__ void prob_step(const Scan& Q, long long g, long long t, int* next) {
+  __shared__ int tile_s;
+  const Model& M = Q.M;
+  const long long span = M.sup * M.batch, last = M.sup * M.U - 1;
+  const long long base = g * M.plane_stride + t * span;
+  const int* buf = Q.cst + (g * 2 + (t & 1)) * Q.buf_words;
+  const int4* st_d = reinterpret_cast<const int4*>(buf);
+  const int2* st_s = reinterpret_cast<const int2*>(buf + M.sup * M.ud * 4);
+  const unsigned batch = unsigned(M.batch);
+  const int tiles = int((span + kTile - 1) / kTile);
+  for (;;) {
+    if (threadIdx.x == 0) tile_s = atomicAdd(next, 1);
+    __syncthreads();
+    const int tile = tile_s;
+    __syncthreads();  // tile_s is read before the next grab
+    if (tile >= tiles) return;
+    const long long j0 = (long long)tile * kTile + threadIdx.x;
+    int k[kUnroll], pr[kUnroll], sl[kUnroll], ones[kUnroll], zeros[kUnroll];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      const long long j = j0 + q * kScanThreads;
+      k[q] = 3;
+      pr[q] = sl[q] = ones[q] = zeros[q] = 0;
+      if (j < span) {
+        k[q] = __ldg(Q.kind + base + j);
+        pr[q] = __ldg(Q.prior + base + j);
+        sl[q] = __ldg(Q.slot + base + j);
+        if (Q.pre1 != nullptr) {
+          ones[q] = __ldg(Q.pre1 + base + j);
+          zeros[q] = __ldg(Q.pret + base + j) - ones[q];
+        }
+      }
+    }
+    int4 d[kUnroll];
+    int2 s[kUnroll];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      d[q] = make_int4(1, 1, 1, 1);
+      s[q] = make_int2(1, 1);
+      if (k[q] != 3) {
+        // A JAX gather clamps an out-of-range row; slots are < U by
+        // construction, so the clamp only mirrors that.
+        const unsigned j = unsigned(j0 + q * kScanThreads);
+        long long flat = (long long)(j / batch) * M.U + sl[q];
+        flat = flat < 0 ? 0 : (flat > last ? last : flat);
+        const long long sub = sl[q] >= 0 && sl[q] < M.U ? j / batch : flat / M.U;
+        const long long r = flat - sub * M.U;
+        if (r < M.ud) d[q] = __ldcg(st_d + sub * M.ud + r);
+        else s[q] = __ldcg(st_s + sub * M.us + (r - M.ud));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      const long long j = j0 + q * kScanThreads;
+      if (j < span) {
+        const int a = ones[q], b = zeros[q];
+        Q.probs[base + j] = bin_prob(k[q], pr[q], d[q].x + a, d[q].y + b, d[q].z + a,
+                                     d[q].w + b, s[q].x + a, s[q].y + b, M.alpha_on,
+                                     M.alpha_off);
+      }
+    }
+  }
+}
+
+// The blocks of one chunk meet: what each stored before its arrival is
+// visible to all after it. `count` only grows; the b-th barrier waits for b
+// arrivals of every block.
+__device__ __forceinline__ void chunk_barrier(int* count, int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1);
+    while (ld_acquire(count) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+template <class Word>
+__global__ void __launch_bounds__(kScanThreads) scan_kernel(Scan Q) {
+  const long long g = Q.g0 + blockIdx.y;
+  const long long ns = Q.M.ns;
+  int* sync = Q.sync + g * kSyncStride;
+  const int nblk = int(gridDim.x);
+  const bool stage = int(blockIdx.x) < Q.S;
+  const long long r = (long long)blockIdx.x * kScanThreads + threadIdx.x;  // stage: its slot
+  const bool timed = threadIdx.x == 0 && (blockIdx.x == 0 || int(blockIdx.x) == Q.S);
+  long long prof[kScanProf] = {}, t0 = clock64(), t1;
+  auto lap = [&](int what) {
+    if (timed) {
+      t1 = clock64();
+      prof[what] += t1 - t0;
+      t0 = t1;
+    }
+  };
+  if (stage) prefetch_deltas<Word>(Q, g, 0, r);
+  for (long long t = 0; t <= ns; ++t) {
+    // Iteration t takes super-step t - 1's tiles from counter (t - 1) & 1;
+    // the other one, last used in iteration t - 1, is cleared for t + 1.
+    if (blockIdx.x == 0 && threadIdx.x == 0) sync[kScanNext + (t & 1)] = 0;
+    if (stage && t < ns) {
+      stage_step<Word>(Q, g, t, r);
+      lap(kScanStage);
+    }
+    if (t > 0) prob_step(Q, g, t - 1, sync + kScanNext + ((t - 1) & 1));
+    lap(stage ? kScanStageProb : kScanProb);
+    if (t < ns) chunk_barrier(sync, int(t + 1) * nblk);
+    lap(stage ? kScanStageWait : kScanProbWait);
+  }
+  if (timed)
+    for (int q = 1; q < kScanProf; ++q)
+      if (stage == (q == kScanStage || q == kScanStageProb || q == kScanStageWait))
+        sync[q] = int(prof[q] >> 4);
+}
+
+// Launches the pass over G chunks: clears their barrier lines, then one
+// cooperative launch, or more where the card cannot hold every chunk's
+// stage blocks and one probability block each at once.
+template <class Word>
+int run_scan(Scan Q, long long G, int& count, cudaStream_t st) {
+  const Model& M = Q.M;
+  const long long span = M.sup * M.batch;
+  Q.S = int((M.U + kScanThreads - 1) / kScanThreads);
+  int dev = 0, sms = 0, per_sm = 0, rc = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_kernel<Word>, kScanThreads, 0);
+  if ((rc = int(cudaGetLastError()))) return rc;
+  const long long resident = (long long)sms * per_sm;  // blocks the card holds at once
+  if (resident < Q.S + 1) return int(cudaErrorCooperativeLaunchTooLarge);
+  long long want = (span + kScanThreads * kBinsPerThread - 1) / (kScanThreads * kBinsPerThread);
+  if (want < 1) want = 1;
+  const long long per_launch = resident / (Q.S + 1);  // chunks a launch
+  cudaMemsetAsync(Q.sync, 0, size_t(G * kSyncStride) * sizeof(int), st);
+  if ((rc = check_launch(count))) return rc;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  for (long long g0 = 0; g0 < G; g0 += per_launch) {
+    const long long gs = G - g0 < per_launch ? G - g0 : per_launch;
+    // Probability blocks up to half the card, so that a mesh cell's pass
+    // leaves room beside it for its neighbours' kernels (the stage blocks
+    // take tiles too once their stage is done); at least one a chunk.
+    long long P = resident / (2 * gs) - Q.S < want ? resident / (2 * gs) - Q.S : want;
+    if (P < 1) P = 1;
+    Q.g0 = g0;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(unsigned(Q.S + P), unsigned(gs));
+    cfg.blockDim = dim3(kScanThreads);
+    cfg.stream = st;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    cudaLaunchKernelEx(&cfg, scan_kernel<Word>, Q);
+    if ((rc = check_launch(count))) return rc;
+  }
+  return 0;
+}
+
+// Ints of one staged-state buffer: [sup][ud] int4, then [sup][us] int2 padded
+// to 16 bytes.
+long long scan_buf_words(const Model& M) {
+  return M.sup * M.ud * 4 + ((M.sup * M.us * 2 + 3) & ~3ll);
+}
+
 }  // namespace
 
 ARTC_API int artc_dual0_expand(const int* rows, const int* idx, const int* esc_idx,
@@ -1046,19 +1321,23 @@ ARTC_API int artc_dual0_expand(const int* rows, const int* idx, const int* esc_i
 
 // G chunks of one shape: kind/slot/prior/probs [G][m], dk_d/dk_s [G] rows at
 // chunk strides dkd_stride/dks_stride (ints: views into the chunks' blobs),
-// deltas [G][ns*sup][U], dual0 [G][n_dual][4], sig0_idx/val [G][k_sig0](x2);
-// scratch dual/sig/cst [G][...] (tables and staging per chunk).
+// deltas [G][ns*sup][U], dual0 [G][n_dual][4], sig0_idx/val [G][k_sig0](x2).
+// Scratch per chunk: dual, sig (tables), cst (cst_words ints: two staged-state
+// buffers) and sync (kSyncStride ints: the barrier line and its counters).
 ARTC_API int artc_model_pass_v4(const int* kind, const int* slot, const int* prior,
                                 const int* dk_d, const int* dk_s, const int* deltas,
                                 const int* dual0, const int* sig0_idx, const int* sig0_val,
-                                int* dual, int* sig, int* cst, int* probs, long long G,
-                                long long dkd_stride, long long dks_stride, long long k_sig0,
-                                long long n_dual, long long n_sig, long long ns, long long sup,
-                                long long batch, long long ud, long long us, long long fast_w,
-                                long long slow_w, long long sig_w, long long it_f,
-                                long long it_s, long long it_g, long long alpha_on,
-                                long long alpha_off, void* stream) {
+                                int* dual, int* sig, int* cst, int* sync, int* probs,
+                                long long G, long long dkd_stride, long long dks_stride,
+                                long long k_sig0, long long n_dual, long long n_sig,
+                                long long ns, long long sup, long long batch, long long ud,
+                                long long us, long long fast_w, long long slow_w,
+                                long long sig_w, long long it_f, long long it_s, long long it_g,
+                                long long alpha_on, long long alpha_off, long long cst_words,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int count = 0, rc = 0;
+  g_pass_launches = 0;
   Model M = common_model(n_dual, n_sig, batch, fast_w, slow_w, sig_w, alpha_on, alpha_off);
   M.ns = ns;
   M.sup = sup;
@@ -1074,33 +1353,54 @@ ARTC_API int artc_model_pass_v4(const int* kind, const int* slot, const int* pri
   M.delta_stride = ns * sup * M.U;
   M.dual_stride = (n_dual + 1 + ud) * 4;
   M.sig_stride = (n_sig + us) * 2;
-  M.cst_stride = sup * 4 * M.U;
-  if (G <= 0) return int(cudaGetLastError());
+  Scan Q{};
+  Q.buf_words = scan_buf_words(M);
+  if (cst_words < 2 * Q.buf_words || sup * batch >= (1ll << 31))
+    return int(cudaErrorInvalidValue);
+  if (G <= 0 || ns <= 0) return int(cudaGetLastError());
   const long long init = M.dual_stride > M.sig_stride ? M.dual_stride : M.sig_stride;
   tables_init_kernel<<<dim3(artc::grid_for(init, 256), unsigned(G)), 256, 0, st>>>(dual0, dual,
                                                                                    sig, M);
-  if (k_sig0 > 0)
+  if ((rc = check_launch(count))) return rc;
+  if (k_sig0 > 0) {
     sig0_scatter_kernel<<<dim3(artc::grid_for(k_sig0, 256), unsigned(G)), 256, 0, st>>>(
         sig0_idx, sig0_val, sig, k_sig0, n_sig, M.sig_stride);
-  launch_scan(kind, slot, prior, nullptr, nullptr, dk_d, dk_s, PackedDeltas{deltas}, dual,
-              sig, cst, probs, M, G, st);
-  return int(cudaGetLastError());
+    if ((rc = check_launch(count))) return rc;
+  }
+  Q.M = M;
+  Q.kind = kind;
+  Q.slot = slot;
+  Q.prior = prior;
+  Q.dk_d = dk_d;
+  Q.dk_s = dk_s;
+  Q.deltas = reinterpret_cast<const uint32_t*>(deltas);
+  Q.dual = dual;
+  Q.sig = sig;
+  Q.cst = cst;
+  Q.sync = sync;
+  Q.probs = probs;
+  if ((rc = run_scan<uint32_t>(Q, G, count, st))) return rc;
+  g_pass_launches = count;
+  return 0;
 }
 
 // dual_in int32[n_dual_rows, 4] and sig_in [n_sig_rows, 2] are the extended
 // start tables (model_pass_v2's dual0 / sig0); they are copied into the
-// working tables dual / sig, and the inputs stay unchanged.
+// working tables dual / sig, and the inputs stay unchanged. cst and sync as
+// for artc_model_pass_v4 (one chunk).
 ARTC_API int artc_model_pass_v2(const int* kind, const int* prior, const int* pre1,
                                 const int* pret, const int* bin_u, const int* dk_d,
                                 const int* dk_s, const int* dd, const int* ds,
                                 const int* dual_in, const int* sig_in, int* dual, int* sig,
-                                int* cst, int* probs, long long n_dual_rows,
+                                int* cst, int* sync, int* probs, long long n_dual_rows,
                                 long long n_sig_rows, long long ns, long long sup,
                                 long long batch, long long ud, long long us, long long fast_w,
                                 long long slow_w, long long sig_w, long long it_f,
                                 long long it_s, long long it_g, long long alpha_on,
-                                long long alpha_off, void* stream) {
+                                long long alpha_off, long long cst_words, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int count = 0, rc = 0;
+  g_pass_launches = 0;
   Model M = common_model(n_dual_rows, n_sig_rows, batch, fast_w, slow_w, sig_w, alpha_on,
                          alpha_off);
   M.ns = ns;
@@ -1111,13 +1411,35 @@ ARTC_API int artc_model_pass_v2(const int* kind, const int* prior, const int* pr
   M.it_f = int(it_f);
   M.it_s = int(it_s);
   M.it_g = int(it_g);
+  Scan Q{};
+  Q.buf_words = scan_buf_words(M);
+  if (cst_words < 2 * Q.buf_words || sup * batch >= (1ll << 31))
+    return int(cudaErrorInvalidValue);
+  if (ns <= 0) return int(cudaGetLastError());
   cudaMemcpyAsync(dual, dual_in, size_t(n_dual_rows) * 4 * sizeof(int),
                   cudaMemcpyDeviceToDevice, st);
+  if ((rc = check_launch(count))) return rc;
   cudaMemcpyAsync(sig, sig_in, size_t(n_sig_rows) * 2 * sizeof(int), cudaMemcpyDeviceToDevice,
                   st);
-  launch_scan(kind, bin_u, prior, pre1, pret, dk_d, dk_s, SplitDeltas{dd, ds}, dual, sig,
-              cst, probs, M, 1, st);
-  return int(cudaGetLastError());
+  if ((rc = check_launch(count))) return rc;
+  Q.M = M;
+  Q.kind = kind;
+  Q.slot = bin_u;
+  Q.prior = prior;
+  Q.pre1 = pre1;
+  Q.pret = pret;
+  Q.dk_d = dk_d;
+  Q.dk_s = dk_s;
+  Q.dd = dd;
+  Q.ds = ds;
+  Q.dual = dual;
+  Q.sig = sig;
+  Q.cst = cst;
+  Q.sync = sync;
+  Q.probs = probs;
+  if ((rc = run_scan<int2>(Q, 1, count, st))) return rc;
+  g_pass_launches = count;
+  return 0;
 }
 
 // bits/kinds/priors/bin_u int32[nb, batch], dict_keys [nb, U], dual_in
@@ -1184,5 +1506,5 @@ ARTC_API int artc_model_pass(const int* bits, const int* kinds, const int* keys,
 }
 
 // Device-side launches (kernels, copies, clears) the calling thread's last
-// model_pass_dict / model_pass call made.
+// model pass call made (v3_core, model_pass_v2, model_pass_dict, model_pass).
 ARTC_API int artc_pass_launches(void) { return g_pass_launches; }

@@ -390,7 +390,8 @@ def encode_interleaved_dev(bits_dev: torch.Tensor, probs_dev: torch.Tensor,
     return encode_interleaved_finish(encode_interleaved_start(bits_dev, probs_dev, n, K))
 
 
-def encode_interleaved(bits: np.ndarray, probs: np.ndarray, K: int, *, device) -> bytes:
+def encode_interleaved(bits: np.ndarray, probs: np.ndarray, K: int, *,
+                       device="cuda") -> bytes:
     """Full chunk encode of host arrays (bits[n], probs[n] in [1, 32767]) on
     `device`: the stream is padded to T = pow2(ceil(n / K)) steps with
     invalid steps, uploaded as [T, K] planes, scanned by `lane_scan`,

@@ -280,6 +280,39 @@ def _wire_expand_cuda(blob, sc, m, nsub, U, ud, us, ns, batch, layout, mesh):
 
 # ------------------------------------------------------ model_pass_v4 / v3_core
 
+# The frozen-batch scans' persistent pass (csrc/model_pass.cu scan_kernel):
+# a chunk's barrier line of _SCAN_SYNC ints holds its arrival count and then
+# cycle counters, in units of 16 cycles, of what paced the last pass: stage
+# block 0's thread 0 staging and at the barrier, the first probability
+# block's thread 0 on probability tiles and at the barrier, and stage block
+# 0's thread 0 on probability tiles.
+_SCAN_SYNC = 32
+SCAN_PROF_NAMES = ("stage", "stage_wait", "prob", "prob_wait", "stage_prob")
+_LAST_SCAN: dict = {}  # "sync": the barrier lines of the last v3_core / v2 pass
+
+
+def _scan_words(sup: int, ud: int, us: int) -> int:
+    """Ints of one staged-state buffer: a (sub-batch, dual slot)'s int4
+    [sup, ud], then a (sub-batch, sig slot)'s int2 [sup, us], padded to 16
+    bytes (csrc/model_pass.cu scan_buf_words)."""
+    return sup * ud * 4 + -(-sup * us * 2 // 4) * 4
+
+
+def _scan_scratch(dev, G: int, sup: int, ud: int, us: int) -> dict:
+    """Two staged-state buffers and a barrier line per chunk; the C entry
+    clears the lines."""
+    words = 2 * _scan_words(sup, ud, us)
+    return dict(cst=torch.empty((G, words), dtype=torch.int32, device=dev),
+                sync=torch.empty((G, _SCAN_SYNC), dtype=torch.int32, device=dev))
+
+
+def scan_profile(chunk: int = 0) -> dict:
+    """A chunk's cycle counters of the last v3_core / model_pass_v2 pass,
+    in cycles."""
+    words = _LAST_SCAN["sync"][chunk, 1:1 + len(SCAN_PROF_NAMES)].tolist()
+    return {k: 16 * v for k, v in zip(SCAN_PROF_NAMES, words)}
+
+
 def model_pass_v4(bit_all, kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0,
                   *, batch: int, sup: int, fast_w: int, slow_w: int, sig_w: int,
                   sig_alpha: int, ud: int, us: int, n_sig: int = 1 << 17,
@@ -318,7 +351,8 @@ def v3_core(bit_all, kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, *
     us] (rows contiguous; the chunk stride is free, so they may be views of
     the chunks' blobs), deltas [G, ns*sup, U, 2], dual0 [G, n_dual, 4],
     sig0_idx [G, k] / sig0_val [G, k, 2]; probs [G, m]. The kernel puts the
-    chunk on a grid dimension (2 x ns launches for all G)."""
+    chunk on a grid dimension: one persistent pass for all G chunks and ns
+    super-steps (more only where the chunks do not fit the card at once)."""
     if _native.on_cpu("v3_core", kind_all):
         return _v3_core_plain(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0,
                               batch, sup, fast_w, slow_w, sig_w, sig_alpha, ud, us,
@@ -460,14 +494,15 @@ def _v3_core_cuda(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, batc
     alpha_on, alpha_off = _alphas(sig_alpha)
     dual_tbl = torch.empty((G, (n_dual + 1 + ud) * 4), dtype=torch.int32, device=dev)
     sig_tbl = torch.empty((G, (n_sig + us) * 2), dtype=torch.int32, device=dev)
-    cst = torch.empty((G, sup * 4 * U), dtype=torch.int32, device=dev)
+    w = _scan_scratch(dev, G, sup, ud, us)
     probs = torch.empty((G, m), dtype=torch.int32, device=dev)
     _native.launch("model_pass_v4", "artc_model_pass_v4", dev, kind_all, slot_all, prior_all,
-                   dk_d, dk_s, d32, dual0, s_idx, s_val, dual_tbl, sig_tbl, cst, probs, G,
-                   dk_d.stride(0), dk_s.stride(0), k_sig0, n_dual, n_sig, ns, sup, batch, ud,
-                   us, fast_w, slow_w, sig_w, im._halve_iters(fast_w, batch),
+                   dk_d, dk_s, d32, dual0, s_idx, s_val, dual_tbl, sig_tbl, w["cst"], w["sync"],
+                   probs, G, dk_d.stride(0), dk_s.stride(0), k_sig0, n_dual, n_sig, ns, sup,
+                   batch, ud, us, fast_w, slow_w, sig_w, im._halve_iters(fast_w, batch),
                    im._halve_iters(slow_w, batch), im._halve_iters(sig_w, batch), alpha_on,
-                   alpha_off)
+                   alpha_off, w["cst"].shape[1])
+    _LAST_SCAN["sync"] = w["sync"]
     return probs[0] if one else probs
 
 
@@ -516,7 +551,6 @@ def _model_pass_v2_cuda(kinds, priors, pre1, pret, bin_u, dk_d, dk_s, dd, ds, du
                        dual0, sig0)
     ns, ud = dk_d.shape
     us = dk_s.shape[1]
-    U = ud + us
     planes = (ns, sup, batch)
     if any(tuple(x.shape) != planes for x in (kinds, priors, pre1, pret, bin_u)):
         raise ValueError(f"model_pass_v2: bin planes must be int32{list(planes)}")
@@ -524,17 +558,20 @@ def _model_pass_v2_cuda(kinds, priors, pre1, pret, bin_u, dk_d, dk_s, dd, ds, du
         raise ValueError("model_pass_v2: dd/ds must be [ns, sup, ud|us, 2]")
     if dual0.dim() != 2 or dual0.shape[1] != 4 or sig0.dim() != 2 or sig0.shape[1] != 2:
         raise ValueError("model_pass_v2: tables must be [n, 4] / [n, 2]")
+    if dd.data_ptr() % 8 or ds.data_ptr() % 8:  # the kernel copies (ones, total) as 8 bytes
+        raise ValueError("model_pass_v2: dd/ds must start on an 8-byte boundary")
     dev = kinds.device
     alpha_on, alpha_off = _alphas(sig_alpha)
     dual = torch.empty_like(dual0)
     sig = torch.empty_like(sig0)
-    cst = torch.empty(sup * 4 * U, dtype=torch.int32, device=dev)
+    w = _scan_scratch(dev, 1, sup, ud, us)
     probs = torch.empty(ns * sup * batch, dtype=torch.int32, device=dev)
     _native.launch("model_pass_v2", "artc_model_pass_v2", dev, kinds, priors, pre1, pret,
-                   bin_u, dk_d, dk_s, dd, ds, dual0, sig0, dual, sig, cst, probs,
+                   bin_u, dk_d, dk_s, dd, ds, dual0, sig0, dual, sig, w["cst"], w["sync"], probs,
                    dual0.shape[0], sig0.shape[0], ns, sup, batch, ud, us, fast_w, slow_w,
                    sig_w, im._halve_iters(fast_w, batch), im._halve_iters(slow_w, batch),
-                   im._halve_iters(sig_w, batch), alpha_on, alpha_off)
+                   im._halve_iters(sig_w, batch), alpha_on, alpha_off, w["cst"].shape[1])
+    _LAST_SCAN["sync"] = w["sync"]
     return probs
 
 
@@ -989,6 +1026,131 @@ def _entry_pass_mirror(bits, kinds, keys, priors, dual0, sig0, batch, fast_w, sl
             whole = bool(((dual[:, 0] + dual[:, 1] > fast_w) | (dual[:, 2] + dual[:, 3] > slow_w))
                          .any() or (sig[:, 0] + sig[:, 1] > sig_w).any())
     return np.concatenate(out).astype(np.int32), n_whole
+
+
+# ---- numpy mirror of the frozen-batch scans' persistent pass (scan_kernel)
+#
+# The same sequence as the kernel over numpy int64 arrays: iteration t
+# stages super-step t into buffer t & 1 (a dual slot's int4 [sup, ud], a sig
+# slot's int2 [sup, us]) with the early-exit halving, beside the
+# probabilities of super-step t - 1 from the other buffer, each bin's state
+# one gather at its clamped flat index. The CPU tests hold it against JAX.
+
+def _halve_until(p, n, window: int, iters: int):
+    """The kernels' halving (csrc/model_pass.cu halve_fast): the first two
+    iterations in closed form ((x + 1) >> 1 is ceil(x / 2), and two of them
+    (x + 3) >> 2), then each pair stops at the first iteration that finds it
+    within its window, after at most `iters` in all."""
+    p1, n1 = (p + 1) >> 1, (n + 1) >> 1
+    h1 = (iters >= 1) & (p + n > window)
+    h2 = h1 & (iters >= 2) & (p1 + n1 > window)
+    p = np.where(h2, (p + 3) >> 2, np.where(h1, p1, p))
+    n = np.where(h2, (n + 3) >> 2, np.where(h1, n1, n))
+    live = h2
+    for _ in range(2, iters):
+        live &= p + n > window
+        if not live.any():
+            break
+        p = np.where(live, (p + 1) >> 1, p)
+        n = np.where(live, (n + 1) >> 1, n)
+    return p, n
+
+
+def _scan_mirror(kind, slot, prior, pre1, pret, dk_d, dk_s, d_one, d_tot, dual, sig, batch,
+                 sup, fast_w, slow_w, sig_w, sig_alpha):
+    """scan_kernel on one chunk. kind/slot/prior (pre1/pret or None): int64
+    [ns * sup * batch]; d_one/d_tot: int64 [ns, sup, U]; dual/sig: the int64
+    start tables, updated in place. Returns probs int32."""
+    ns, ud = dk_d.shape
+    us = dk_s.shape[1]
+    U = ud + us
+    span = sup * batch
+    its = [im._halve_iters(w, batch) for w in (fast_w, slow_w, sig_w)]
+    alpha_on, alpha_off = _alphas(sig_alpha)
+    cst_d = np.zeros((2, sup * ud, 4), np.int64)
+    cst_s = np.zeros((2, sup * us, 2), np.int64)
+    probs = np.zeros(ns * span, np.int32)
+    for it in range(ns + 1):
+        if it < ns:  # the stage blocks: super-step it
+            t, b = it, it & 1
+            v = dual[dk_d[t]]
+            g = sig[dk_s[t]]
+            for s in range(sup):
+                cst_d[b, s * ud:(s + 1) * ud] = v
+                cst_s[b, s * us:(s + 1) * us] = g
+                one, tot = d_one[t, s], d_tot[t, s]
+                fp, fn = _halve_until(v[:, 0] + one[:ud], v[:, 1] + tot[:ud] - one[:ud],
+                                      fast_w, its[0])
+                sp, sn = _halve_until(v[:, 2] + one[:ud], v[:, 3] + tot[:ud] - one[:ud],
+                                      slow_w, its[1])
+                gp, gn = _halve_until(g[:, 0] + one[ud:], g[:, 1] + tot[ud:] - one[ud:],
+                                      sig_w, its[2])
+                v = np.stack([fp, fn, sp, sn], 1)
+                g = np.stack([gp, gn], 1)
+            dual[dk_d[t]] = v
+            sig[dk_s[t]] = g
+        if it > 0:  # the probability blocks: super-step it - 1
+            t, b = it - 1, (it - 1) & 1
+            lo = t * span
+            k = kind[lo:lo + span]
+            sl = slot[lo:lo + span]
+            j = np.arange(span)
+            flat = np.clip(j // batch * U + sl, 0, sup * U - 1)
+            sub = np.where((sl >= 0) & (sl < U), j // batch, flat // U)
+            r = flat - sub * U
+            live = k != 3
+            is_d = live & (r < ud)
+            is_s = live & (r >= ud)
+            d = np.where(is_d[:, None], cst_d[b, np.where(is_d, sub * ud + r, 0)], 1)
+            g = np.where(is_s[:, None], cst_s[b, np.where(is_s, sub * us + r - ud, 0)], 1)
+            c = np.concatenate([d, g], 1)
+            if pre1 is not None:
+                ones = np.where(live, pre1[lo:lo + span], 0)
+                zeros = np.where(live, pret[lo:lo + span], 0) - ones
+                c = c + np.stack([ones, zeros] * 3, 1)
+            tc = torch.from_numpy
+            probs[lo:lo + span] = im._prob_by_kind(
+                tc(k), tc(prior[lo:lo + span]), *(tc(c[:, q].copy()) for q in range(6)),
+                alpha_on, alpha_off).numpy()
+    return probs
+
+
+def _v3_core_mirror(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, batch, sup,
+                    fast_w, slow_w, sig_w, sig_alpha, ud, us, n_sig, sig0_idx, sig0_val):
+    """v3_core by the kernel's formulation: the arguments of _v3_core_plain
+    (torch CPU tensors), probs as a torch int32 tensor."""
+    if kind_all.dim() == 2:
+        return torch.stack([_v3_core_mirror(
+            kind_all[g], slot_all[g], prior_all[g], dk_d[g], dk_s[g], deltas[g], dual0[g],
+            batch, sup, fast_w, slow_w, sig_w, sig_alpha, ud, us, n_sig,
+            None if sig0_idx is None else sig0_idx[g],
+            None if sig0_val is None else sig0_val[g]) for g in range(kind_all.shape[0])])
+    ns = kind_all.shape[0] // (sup * batch)
+    d = deltas.view(torch.int32).numpy().astype(np.int64).reshape(ns, sup, ud + us) & 0xFFFFFFFF
+    dual = np.concatenate([dual0.numpy().astype(np.int64), np.ones((1 + ud, 4), np.int64)])
+    sig = np.zeros((n_sig + us, 2), np.int64)
+    sig[n_sig:] = 1
+    if sig0_idx is not None:
+        si = sig0_idx.numpy().astype(np.int64)
+        keep = (si >= 0) & (si < n_sig)
+        sig[si[keep]] = sig0_val.numpy()[keep]
+    i64 = [x.numpy().astype(np.int64) for x in (kind_all, slot_all, prior_all, dk_d, dk_s)]
+    return torch.from_numpy(_scan_mirror(*i64[:3], None, None, *i64[3:], d & 0xFFFF, d >> 16,
+                                         dual, sig, batch, sup, fast_w, slow_w, sig_w,
+                                         sig_alpha))
+
+
+def _model_pass_v2_mirror(kinds, priors, pre1, pret, bin_u, dk_d, dk_s, dd, ds, dual0, sig0,
+                          batch, sup, fast_w, slow_w, sig_w, sig_alpha):
+    """model_pass_v2 by the kernel's formulation: the arguments of
+    _model_pass_v2_plain (torch CPU tensors), probs as a torch int32 tensor."""
+    def a(x):
+        return x.numpy().astype(np.int64)
+
+    d = np.concatenate([a(dd), a(ds)], 2)
+    return torch.from_numpy(_scan_mirror(
+        *(a(x).reshape(-1) for x in (kinds, bin_u, priors, pre1, pret)), a(dk_d), a(dk_s),
+        d[..., 0], d[..., 1], a(dual0), a(sig0), batch, sup, fast_w, slow_w, sig_w, sig_alpha))
 
 
 def _bucket(n_batches: int) -> int:

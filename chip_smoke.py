@@ -26,8 +26,9 @@ Phases; any failure ends the script with a nonzero exit code:
    mesh-mode expand on every chunk, the model pass over the chunk axis on
    all chunks at once, the lane-sliced masked scan on one chunk; then both
    mesh steps, each against the same step on a grid of CPU devices (the
-   plain versions), and the product step's device time on a 1x1 and a 2x2
-   grid of this one card (cells on their own streams), with their ratio.
+   plain versions), and the product step's device time on a 1x1, a 2x2 and
+   a 4x2 grid of this one card (cells on their own streams), the 4x2 grid
+   of both steps held exact too.
    The two per-batch passes (model_pass_dict, model_pass) are also held
    against their plain versions on rows far over their windows, kind-3 and
    pad bins on the scratch key, 1, 3 and 70 batches, batches of 512, 4096
@@ -43,9 +44,10 @@ Phases; any failure ends the script with a nonzero exit code:
      warm-up, best of 3), dict, sort and mm once each on bench.mp4: the same
      checks, and the containers identical across impls;
    - compress_mesh on multigop720.mp4 (chunk mode 1, batch 4096, sup 128,
-     16 lanes) on a 1x1 and a 2x2 grid (four cells on cuda:0, or four
-     cards where there are four; one warm-up, best of 3): each container ==
-     the single-device container, exact roundtrip;
+     16 lanes) on a 1x1, a 2x2 (four cells on cuda:0, or four cards where
+     there are four) and a 4x2 grid (eight cells on cuda:0; one warm-up,
+     best of 3): each container == the single-device container, exact
+     roundtrip;
    - sharded_recompress_step (the pre-ANL5 mesh step) on a 2x2 grid: probs
      == the single-device model_pass of each chunk;
    - the corpus: two processes joined over gloo, each `cli corpus --device
@@ -249,6 +251,7 @@ class Kernels:
         self.chain_cycles = {}  # kernels with a fixed chain: name -> its cycles
         self.sm_clock_hz = 0.0  # the card's max SM clock
         self.mesh_ms = {}  # kernel times at the mesh shapes (printed, not in the JSON)
+        self.extra = {}  # name -> further fields of its JSON row
 
     def check(self, name: str, got, want, what: str) -> None:
         e = max_abs_err(got, want)
@@ -290,11 +293,12 @@ class Kernels:
         from 0; step_launched: per step, the kernel counters of its own
         main path; collective: the corpus run's measurements of row 12."""
         rows = [self._row(k, "cuda", src, rep, launches[k], self.err[k], self.ms[k],
-                          self.plain_ms[k], self.work[k])
+                          self.plain_ms[k], self.work[k], **self.extra.get(k, {}))
                 for k, (src, rep) in self.SOURCES.items()]
         rows += [self._row(k, "cuda", src, rep, launches[k], self.err[k], self.ms[k],
                            self.plain_ms[k], self.work[k],
-                           launched={c: step_launched[k][c] for c in kernels})
+                           launched={c: step_launched[k][c] for c in kernels},
+                           **self.extra.get(k, {}))
                  for k, (src, rep, kernels) in self.STEPS.items()]
         name, src, rep = self.COLLECTIVE
         coll = self._row(name, "torch.distributed (gloo)", src, rep, collective["calls"],
@@ -304,9 +308,25 @@ class Kernels:
         return json.dumps({"kernels": rows, "collectives": [coll]})
 
 
+def scan_launches(K: Kernels, name: str, what: str, key: str = "launches_in_call") -> None:
+    """Records the device-side launches of the last v3_core / model_pass_v2
+    call and prints them beside the pass's cycle counters (chunk 0)."""
+    from avrecode_tpu_torch import _native
+    from avrecode_tpu_torch.ops import model_pass as mp
+    n = _native.pass_launches()
+    prof = mp.scan_profile()
+    K.extra.setdefault(name, {})[key] = n
+    K.extra[name][key.replace("launches_in_call", "cycles")] = prof
+    print(f"{name} on {what}: {n} launches in a call (kernels, copies and clears); cycles "
+          f"(clock64) of stage block 0's thread 0 at work {prof['stage']} and at the barriers "
+          f"{prof['stage_wait']}, of the first probability block's thread 0 at work "
+          f"{prof['prob']} and at the barriers {prof['prob_wait']}", flush=True)
+
+
 def kernel_phase(K: Kernels, an, chunks, dev) -> None:
     """Each kernel against its plain version at the chunks' full shapes on
     `dev`; the first chunk also gives the timings and the work."""
+    import numpy as np
     import torch
     from avrecode_tpu_torch import device as td
     from avrecode_tpu_torch.ops import lanes as lx
@@ -352,7 +372,10 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
 
         probs = kernel_probs()
         K.check("model_pass_v4", probs, mp._v3_core_plain(*margs), what)
+        if not np.array_equal(probs[:c.n].cpu().numpy(), c.host_probs.astype(np.int32)):
+            raise AssertionError(f"model_pass_v4: probs != host probs on {what}")
         if timed:
+            scan_launches(K, "model_pass_v4", what)
             K.ms["model_pass_v4"] = cuda_ms(kernel_probs, 5)
             K.plain_ms["model_pass_v4"] = cuda_ms(lambda: mp._v3_core_plain(*margs), 1)
             K.work["model_pass_v4"] = (
@@ -593,9 +616,111 @@ def pass_cases(K: Kernels, dev) -> None:
                 f"chunk {g} of a chunk axis of {G}")
     if any(len(v) != 1 for v in made.values()):
         raise AssertionError(f"launches a call vary with the input: {made}")
+    # 20 chunks: more than one launch of the chain clusters holds (resident /
+    # 2 chunks a launch), so the launches split and every trip runs.
+    G, nb, batch = 20, 2, 512
+    streams = [pass_stream(rng, nb, batch, 96, 160, g % 2 == 0) for g in range(G)]
+    tables = [pass_tables(rng, 96, 160) for g in range(G)]
+    stacked = [up(np.stack([s[i] for s in streams])) for i in range(4)] + [
+        up(np.stack([t[i] for t in tables])) for i in range(2)]
+    got = mp.model_pass(*stacked, batch=batch, **kw)
+    split = _native.pass_launches()
+    for g in range(G):
+        K.check("model_pass", got[g], mp._model_pass_plain(*(a[g] for a in stacked), batch,
+                                                           *kw.values()),
+                f"chunk {g} of a chunk axis of {G}")
+    made = {k: v.pop() for k, v in made.items()}
+    if split <= made["model_pass"]:
+        raise AssertionError(f"model_pass over {G} chunks did not split its launch: {split}")
     print(f"model_pass_dict and model_pass == plain on {[c[0] for c in cases]} and model_pass "
-          f"over a chunk axis of {G} (own tables per chunk); launches a call, whatever the "
-          f"batches: {({k: v.pop() for k, v in made.items()})}", flush=True)
+          f"over chunk axes of 3 and {G} (own tables per chunk); launches a call, whatever the "
+          f"batches: {made}; {split} over {G} chunks (the launch split)", flush=True)
+
+
+def scan_inputs(rng, G: int, ns: int, sup: int, batch: int, ud: int, us: int, cap: bool,
+                n_dual: int = 200, n_sig: int = 300):
+    """Random v3_core inputs of G chunks, each with its own tables: kinds
+    0-3, sorted-unique key rows per super-step (scratch rows included), warm
+    sig rows (some past the table: they drop), and (ones, total) deltas of up
+    to 19 a slot and sub-batch, or with `cap` of batch to 4 x batch, so that
+    the halving runs its whole bounded count and stops over the window."""
+    import numpy as np
+    U, m = ud + us, ns * sup * batch
+    tot = rng.integers(batch, 4 * batch + 1, (G, ns * sup, U)) if cap else rng.integers(
+        0, 20, (G, ns * sup, U))
+    tot = np.where(rng.random(tot.shape) < 0.5, 0, tot)
+    one = np.minimum((rng.random(tot.shape) * (tot + 1)).astype(np.int64), tot)
+
+    def keys(n, width):
+        return np.stack([np.stack([np.sort(rng.choice(n, width, replace=False))
+                                   for _ in range(ns)]) for _ in range(G)]).astype(np.int32)
+
+    return dict(
+        planes=[rng.integers(0, 4, (G, m)), rng.integers(0, U, (G, m)),
+                rng.integers(0, 65536, (G, m))],
+        dk_d=keys(n_dual + 1 + ud, ud), dk_s=keys(n_sig + us, us),
+        deltas=np.stack([one, tot], -1).astype(np.uint16),
+        dual0=rng.integers(1, 30, (G, n_dual, 4)),
+        si=rng.integers(0, n_sig + 3, (G, 7)), sv=rng.integers(0, 40, (G, 7, 2)),
+        kw=dict(batch=batch, sup=sup, fast_w=48, slow_w=640, sig_w=80,
+                sig_alpha=(24 << 16) | 12, ud=ud, us=us, n_sig=n_sig))
+
+
+def scan_cases(K: Kernels, dev) -> None:
+    """v3_core and model_pass_v2 against their plain versions on synthetic
+    inputs: a chunk axis of 3 with different tables per chunk, ns = 1,
+    deltas that make the halving run its whole bounded count, and 40
+    chunks of 8192 slots, more than one launch can hold (the pass splits
+    its launches); model_pass_v2 on the first chunk of each. The launches
+    a call makes grow only with the split."""
+    import numpy as np
+    import torch
+    from avrecode_tpu_torch import _native
+    from avrecode_tpu_torch.ops import model_pass as mp
+    rng = np.random.default_rng(6)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    made = {}
+    for label, G, ns, sup, batch, ud, us, cap in (
+            ("a chunk axis of 3", 3, 3, 9, 256, 300, 200, False),
+            ("ns = 1", 1, 1, 16, 512, 400, 100, False),
+            ("the whole halving count", 2, 3, 17, 64, 200, 120, True),
+            ("40 chunks of 8192 slots", 40, 1, 2, 64, 4096, 4096, False)):
+        x = scan_inputs(rng, G, ns, sup, batch, ud, us, cap)
+        args = [up(a) for a in (*x["planes"], x["dk_d"], x["dk_s"])] + [
+            torch.from_numpy(x["deltas"].view(np.int16)).to(dev).view(torch.uint16),
+            up(x["dual0"])]
+        si, sv = up(x["si"]), up(x["sv"])
+        got = mp.v3_core(args[0], *args, sig0_idx=si, sig0_val=sv, **x["kw"])
+        made[label] = _native.pass_launches()
+        K.check("model_pass_v4", got, mp._v3_core_plain(*args, *x["kw"].values(), si, sv),
+                f"synthetic v3_core, {label}")
+        if G == 40:
+            continue
+        # model_pass_v2 on chunk 0: split deltas, extended tables, prefix adders
+        sh = (ns, sup, batch)
+        pret = rng.integers(0, 10, sh)
+        pre1 = np.minimum((rng.random(sh) * (pret + 1)).astype(np.int64), pret)
+        d = x["deltas"][0].astype(np.int32).reshape(ns, sup, ud + us, 2)
+        kw = {k: x["kw"][k] for k in ("batch", "sup", "fast_w", "slow_w", "sig_w", "sig_alpha")}
+        v2_args = [up(x["planes"][0][0].reshape(sh)), up(x["planes"][2][0].reshape(sh)),
+                   up(pre1), up(pret), up(x["planes"][1][0].reshape(sh)), up(x["dk_d"][0]),
+                   up(x["dk_s"][0]), up(d[:, :, :ud]), up(d[:, :, ud:]),
+                   up(np.concatenate([x["dual0"][0], np.ones((1 + ud, 4))])),
+                   up(np.concatenate([rng.integers(0, 30, (300, 2)), np.ones((us, 2))]))]
+        got = mp.model_pass_v2(*v2_args, **kw)
+        made[f"model_pass_v2, {label}"] = _native.pass_launches()
+        K.check("model_pass_v2", got, mp._model_pass_v2_plain(*v2_args, *kw.values()),
+                f"synthetic model_pass_v2, {label}")
+    # a barrier clear, the table init, the sig0 scatter and one pass; two
+    # table copies, a clear and one pass
+    split = made.pop("40 chunks of 8192 slots")
+    if split <= 4 or any(v != 4 for v in made.values()):
+        raise AssertionError(f"launches a call: {made}, 40 chunks of 8192 slots {split}")
+    print(f"v3_core and model_pass_v2 == plain on synthetic inputs; launches a call: {made}, "
+          f"40 chunks of 8192 slots (split): {split}", flush=True)
 
 
 def profile0_kernel_phase(K: Kernels, an, dev) -> None:
@@ -646,6 +771,7 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
     got, plain = v2(), v2_plain()
     K.check("model_pass_v2", got, plain, what)
     host_equal("model_pass_v2", got)
+    scan_launches(K, "model_pass_v2", what)
     K.ms["model_pass_v2"] = cuda_ms(v2, 5)
     K.plain_ms["model_pass_v2"] = cuda_ms(v2_plain, 1)
     # v4's work plus the per-bin prefix adders on six columns
@@ -738,14 +864,18 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
           f"its Python step loop, timed once on the host clock: {plain_s:.3f} s", flush=True)
 
 
-def mesh_grids(dev):
+def mesh_grids(dev, wide: bool = False):
     """The 1x1 grid on `dev` and the 2x2 grid: four cards where the machine
-    has four, else four cells on `dev`."""
+    has four, else four cells on `dev`; with `wide` also a 4x2 grid of eight
+    cells on `dev`."""
     import torch
     from avrecode_tpu_torch.parallel.mesh import make_mesh
     n = torch.cuda.device_count()
     cards = [torch.device("cuda", i) for i in range(4)] if n >= 4 else [dev] * 4
-    return {"1x1": make_mesh(1, 1, [dev]), "2x2": make_mesh(2, 2, cards)}
+    grids = {"1x1": make_mesh(1, 1, [dev]), "2x2": make_mesh(2, 2, cards)}
+    if wide:
+        grids["4x2"] = make_mesh(4, 2, [dev] * 8)
+    return grids
 
 
 def step_outputs_equal(K: Kernels, name: str, got, want, what: str) -> None:
@@ -798,6 +928,7 @@ def mesh_kernel_phase(K: Kernels, an, dev) -> None:
                           sig0_val=sv, **mkw)
 
     probs = v3()
+    scan_launches(K, "model_pass_v4", what, "mesh_launches_in_call")
     plain = mp._v3_core_plain(kind, slot, prior, dk_d, dk_s, deltas, dual0,
                               *(mkw[k] for k in ("batch", "sup", "fast_w", "slow_w", "sig_w",
                                                  "sig_alpha", "ud", "us", "n_sig")), si, sv)
@@ -806,6 +937,7 @@ def mesh_kernel_phase(K: Kernels, an, dev) -> None:
         if not np.array_equal(probs[g, :c.n].cpu().numpy(), c.host_probs.astype(np.int32)):
             raise AssertionError(f"{what}: chunk {g} probs != host probs")
     K.mesh_ms["model_pass_v4"] = cuda_ms(v3, 3)
+    K.extra["model_pass_v4"]["mesh_ms"] = K.mesh_ms["model_pass_v4"]
     valid = torch.arange(M, device=dev) < n_arr[:, None]
     lane_planes = [x.view(G, T, MESH_LANES)[:, :, MESH_LANES // 2:]
                    for x in (bit, probs.clamp_min(1), valid)]  # lane cell 1 of 2
@@ -839,17 +971,30 @@ def mesh_kernel_phase(K: Kernels, an, dev) -> None:
                                                 + RANS_STEP_OPS * M))
     print(f"{name} (2x2 on {grid.devices[1][1]}) == the step on a 2x2 CPU grid: card "
           f"{K.ms[name]:.3f} ms, plain (CPU, host clock, one run) {plain_s:.3f} s", flush=True)
-    # The 1x1 and the 2x2 step on this one card: the 2x2 grid's four cells
-    # run on four streams of the card.
+    # The 1x1, 2x2 and 4x2 step on this one card: the cells run on streams
+    # of their own, eight v3_core passes at once on the 4x2 grid. Its four
+    # gop rows pad the chunks to 12: its real chunks equal the CPU grid's,
+    # and all of it the 1x1 step's on the same padded inputs.
     one_card = {"1x1": make_mesh(1, 1, [dev]), "2x2": make_mesh(2, 2, [dev] * 4)}
     for label, g in one_card.items():
         one_step = pipeline.sharded_v4_compress_step(g, **st)
         step_outputs_equal(K, name, one_step(*staged), want, f"{what} ({label} on {dev})")
         K.mesh_ms[f"step_{label}"] = cuda_ms_median(lambda: one_step(*staged), 15)
+    inp4 = td.mesh_inputs(an, an.chunks, 4, SUP, MESH_LANES)
+    staged4 = tuple(t.to(dev) for t in inp4.tensors())
+    want4 = pipeline.sharded_v4_compress_step(make_mesh(1, 1, [dev]), **inp4.statics)(*staged4)
+    step4 = pipeline.sharded_v4_compress_step(make_mesh(4, 2, [dev] * 8), **inp4.statics)
+    got4 = step4(*staged4)
+    step_outputs_equal(K, name, got4, want4, f"{what} (4x2 on {dev} vs 1x1, 12 chunks)")
+    step_outputs_equal(K, name, [x[:G] for x in got4[:4]], want[:4],
+                       f"{what} (4x2 on {dev}, its {G} real chunks vs the 2x2 CPU grid)")
+    K.mesh_ms["step_4x2"] = cuda_ms_median(lambda: step4(*staged4), 15)
     ratio = K.mesh_ms["step_2x2"] / K.mesh_ms["step_1x1"]
     print(f"{name} on one card ({torch.cuda.get_device_name(dev)}), median of 15 calls: 1x1 "
-          f"{K.mesh_ms['step_1x1']:.3f} ms, 2x2 {K.mesh_ms['step_2x2']:.3f} ms (cells on their "
-          f"own streams), 2x2 / 1x1 = {ratio:.3f}", flush=True)
+          f"{K.mesh_ms['step_1x1']:.3f} ms, 2x2 {K.mesh_ms['step_2x2']:.3f} ms, 4x2 (12 "
+          f"chunks) {K.mesh_ms['step_4x2']:.3f} ms (cells on their own streams), 2x2 / 1x1 = "
+          f"{ratio:.3f}", flush=True)
+    K.extra[name] = {f"step_{k}_ms": K.mesh_ms[f"step_{k}"] for k in ("1x1", "2x2", "4x2")}
 
 
 def recompress_inputs():
@@ -876,6 +1021,7 @@ def recompress_kernel_phase(K: Kernels, dev):
     its staged inputs for the main path."""
     import numpy as np
     import torch
+    from avrecode_tpu_torch import _native
     from avrecode_tpu_torch.ops import model_pass as mp
     from avrecode_tpu_torch.parallel import pipeline
     from avrecode_tpu_torch.parallel.mesh import make_mesh
@@ -898,6 +1044,19 @@ def recompress_kernel_phase(K: Kernels, dev):
         K.check(name, got[0][g], one, f"{what}: chunk {g} probs vs single-device model_pass")
     K.ms[name] = cuda_ms(lambda: step(*staged), 3)
     K.plain_ms[name] = plain_s * 1e3
+    # The same step with its four chunks on a 4x2 grid of this one card:
+    # eight cells, eight cooperative model_pass launches on eight streams.
+    step4 = pipeline.sharded_recompress_step(make_mesh(4, 2, [dev] * 8), **kw)(K_total=16)
+    for label, g, w in zip(("probs", "x_final", "words", "emits", "total_words"),
+                           step4(*staged), want):
+        K.check(name, g, w, f"{what} (4x2 on {dev}): {label}")
+    cell_launches = _native.pass_launches()
+    K.extra[name] = {"step_2x2_ms": K.ms[name],
+                     "step_4x2_ms": cuda_ms_median(lambda: step4(*staged), 15),
+                     "model_pass_launches_in_call": cell_launches}
+    print(f"{name} on a 4x2 grid of {dev} == the 2x2 CPU grid: median of 15 calls "
+          f"{K.extra[name]['step_4x2_ms']:.3f} ms (2x2: {K.ms[name]:.3f} ms); a cell's "
+          f"model_pass call makes {cell_launches} launches", flush=True)
     nb = N // BATCH
     n_dual, n_sig = staged[4].shape[1], staged[5].shape[1]
     # Per chunk the least work of model_pass (a sort-sized prefix count, a
@@ -1016,12 +1175,13 @@ def profile0_main_path_phase(clips: dict, refs0: dict, dev) -> dict:
 
 
 def mesh_main_path_phase(data: bytes, single: bytes, dev) -> dict:
-    """compress_mesh on the 1x1 and the 2x2 grid: one warm-up, best of 3;
+    """compress_mesh on the 1x1, the 2x2 and a 4x2 grid of eight cells on
+    `dev`: one warm-up, best of 3;
     each container == the single-device container (computed before the
     counters were reset), and the host decoder returns the input."""
     from avrecode_tpu_torch import device as td
     report = {}
-    for name, grid in mesh_grids(dev).items():
+    for name, grid in mesh_grids(dev, wide=True).items():
         def run():
             return td.compress_mesh(data, grid, chunk_mode=1, batch_size=BATCH, sup=SUP,
                                     force_lanes=MESH_LANES)
@@ -1324,6 +1484,7 @@ def main() -> int:
     K = Kernels()
     K.chain, K.sm_clock_hz = scan_chains(), max_sm_clock_hz()
     kernel_phase(K, refs[CLIPS[0]], refs[CLIPS[0]].chunks, dev)
+    scan_cases(K, dev)
     profile0_kernel_phase(K, refs0[CLIPS[0]], dev)
     mesh_kernel_phase(K, mesh_an, dev)
     recompress_step, recompress_in = recompress_kernel_phase(K, dev)

@@ -163,6 +163,7 @@ def test_model_pass_v2_kernel_matches_plain(cuda, profile0_analysis):
     _native.reset_launches()
     got = tmp.run_chunk_v2_tables(*args, device=cuda)
     assert _native.launches["model_pass_v2"] == 1
+    assert _native.pass_launches() == 4  # two table copies, a barrier clear, one pass
     assert np.array_equal(got, c.host_probs)
     planes = [torch.from_numpy(np.concatenate([a.astype(np.int32), np.full(
         c.v2_m - len(c.bit), v, np.int32)])).to(cuda) for a, v in (
@@ -312,6 +313,7 @@ def test_mesh_expand_and_chunk_axis_kernels_match_plain(cuda, mesh_inputs):
     probs = tmp.v3_core(bit, kind, slot, prior, dk_d, dk_s, deltas, dual0, sig0_idx=si,
                         sig0_val=sv, **mkw)
     assert _native.launches["model_pass_v4"] == 1
+    assert _native.pass_launches() == 4  # a barrier clear, table init, sig0 scatter, one pass
     _equal(probs, tmp._v3_core_plain(kind, slot, prior, dk_d, dk_s, deltas, dual0,
                                      *mkw.values(), si, sv))
     for g, c in enumerate(an.chunks):
@@ -351,3 +353,66 @@ def test_compress_mesh_on_cuda(cuda, mesh_inputs):
     assert comp == single
     dec, _ = pipeline.decompress(comp)
     assert dec == data
+
+
+def _scan_inputs(rng, G, ns, sup, batch, ud, us, cap, n_dual=200, n_sig=300):
+    """Random v3_core arguments (CPU tensors) of G chunks with their own
+    tables; `cap` gives deltas of batch to 4 x batch a slot and sub-batch, so
+    that the halving runs its whole bounded count."""
+    U, m = ud + us, ns * sup * batch
+    tot = rng.integers(batch, 4 * batch + 1, (G, ns * sup, U)) if cap else rng.integers(
+        0, 20, (G, ns * sup, U))
+    tot = np.where(rng.random(tot.shape) < 0.5, 0, tot)
+    one = np.minimum((rng.random(tot.shape) * (tot + 1)).astype(np.int64), tot)
+
+    def keys(n, width):
+        return np.stack([np.stack([np.sort(rng.choice(n, width, replace=False))
+                                   for _ in range(ns)]) for _ in range(G)])
+
+    t = [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in (
+        rng.integers(0, 4, (G, m)), rng.integers(0, U, (G, m)), rng.integers(0, 65536, (G, m)),
+        keys(n_dual + 1 + ud, ud), keys(n_sig + us, us))]
+    deltas = torch.from_numpy(np.stack([one, tot], -1).astype(np.int16)).view(torch.uint16)
+    dual0, si, sv = (torch.from_numpy(a.astype(np.int32)) for a in (
+        rng.integers(1, 30, (G, n_dual, 4)), rng.integers(0, n_sig + 3, (G, 7)),
+        rng.integers(0, 40, (G, 7, 2))))
+    kw = dict(batch=batch, sup=sup, fast_w=48, slow_w=640, sig_w=80, sig_alpha=(24 << 16) | 12,
+              ud=ud, us=us, n_sig=n_sig)
+    return [*t, deltas, dual0], si, sv, kw
+
+
+SCAN_CASES = {"chunk_axis_3": (3, 3, 9, 256, 300, 200, False),
+              "ns_1": (1, 1, 16, 512, 400, 100, False),
+              "halving_cap": (2, 3, 17, 64, 200, 120, True),
+              "split_launches": (40, 1, 2, 64, 4096, 4096, False)}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_scan_pass_matches_plain(cuda, case):
+    """The persistent v3_core pass on a chunk axis with different tables per
+    chunk, ns = 1, deltas that make the halving run its whole bounded count,
+    and 40 chunks of 8192 slots (more than one launch holds): kernel ==
+    plain, with 4 launches a call unless the chunks split the launch."""
+    args, si, sv, kw = _scan_inputs(np.random.default_rng(len(case)), *SCAN_CASES[case])
+    got = tmp.v3_core(args[0].to(cuda), *(a.to(cuda) for a in args), sig0_idx=si.to(cuda),
+                      sig0_val=sv.to(cuda), **kw)
+    torch.cuda.synchronize()
+    launches = _native.pass_launches()
+    assert launches > 4 if case == "split_launches" else launches == 4
+    _equal(got.cpu(), tmp.v3_core(args[0], *args, sig0_idx=si, sig0_val=sv, **kw))
+
+
+def test_model_pass_over_more_chunks_than_a_launch_holds(cuda):
+    """model_pass over 20 chunks: more than one launch of chain clusters
+    holds (resident / 2 chunks a launch), so the launch loop runs more than
+    one trip; kernel == plain per chunk."""
+    rng = np.random.default_rng(20)
+    G, nb, batch = 20, 2, 512
+    streams = [_stream(rng, nb, batch) for _ in range(G)]
+    tables = [_tables(rng, g % 3 == 1) for g in range(G)]
+    stacked = [torch.from_numpy(np.stack([s[i] for s in streams])) for i in range(4)] + [
+        torch.from_numpy(np.stack([t[i] for t in tables])) for i in range(2)]
+    got = tmp.model_pass(*(a.to(cuda) for a in stacked), batch=batch, **PASS_KW)
+    torch.cuda.synchronize()
+    assert _native.pass_launches() > 7
+    _equal(got.cpu(), tmp.model_pass(*stacked, batch=batch, **PASS_KW))

@@ -16,6 +16,7 @@ from avrecode_tpu import device as jd
 from avrecode_tpu import pipeline
 from avrecode_tpu_torch import _native, cli
 from avrecode_tpu_torch import device as td
+from avrecode_tpu_torch.ops import lanes as tl
 
 # Built here, under the port's lock, before any test of any module can reach
 # the host library's unlocked build (see _native.ensure_host_lib).
@@ -196,7 +197,8 @@ def test_port_never_imports_jax(corpus_dir, tmp_path):
 
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "profile_torch_compress.py")]
+             os.path.join(REPO, "tools", "profile_torch_compress.py"),
+             os.path.join(REPO, "tools", "profile_model_scan.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "avrecode_tpu_torch")):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return files
@@ -224,7 +226,7 @@ def _jax_side_imports(path):
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_port_sources_import_nothing_of_jax(path):
     """No module of the port, nor chip_smoke.py or the port's profiling
-    tool, imports jax or anything of the JAX package, at any depth."""
+    tools, imports jax or anything of the JAX package, at any depth."""
     assert _jax_side_imports(path) == []
 
 
@@ -254,3 +256,23 @@ def test_cuda_request_never_runs_on_cpu(corpus_dir):
         an = jd.analyze(data, batch_size=1024, model_profile=profile)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             td.device_probs(an, an.chunks[0], "cuda")
+    # encode_interleaved defaults to the card, as compress does
+    with pytest.raises((RuntimeError, AssertionError)):
+        tl.encode_interleaved(np.ones(8, np.uint8), np.full(8, 100, np.uint16), 4)
+
+
+def test_multigop_chunk_mode_0_fails_as_in_jax():
+    """benchdata/multigop.mp4 as one chunk (chunk mode 0) overflows the slim
+    wire's 8192-slot dictionary: the JAX package and the port raise the same
+    error class and message (or, should that change, write the same
+    container)."""
+    with open(os.path.join(REPO, "benchdata", "multigop.mp4"), "rb") as f:
+        data = f.read()
+    outcomes = []
+    for compress in (jd.compress, lambda d, **kw: td.compress(d, device="cpu", **kw)):
+        try:
+            outcomes.append(("container", compress(data, chunk_mode=0)[0]))
+        except Exception as e:  # noqa: BLE001 - the outcome itself is compared
+            outcomes.append((type(e).__name__, str(e)))
+    assert outcomes[0] == outcomes[1]
+    assert outcomes[0][0] == "NativeError" and "dict width > 8192" in outcomes[0][1]

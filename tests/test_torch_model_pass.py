@@ -112,6 +112,27 @@ def test_dual0_expand_matches_jax(analyses, clip):
         assert np.array_equal(got, c.dual0.astype(np.int32))
 
 
+def _v3_case(an, c):
+    """JAX's model_pass_v4 probs of chunk c on the JAX expand's planes, and
+    the port's arguments for the same call (torch CPU tensors, keywords)."""
+    layout = jd._chunk_layout(c)
+    blob, sc = td._build_blob4(an, c, layout)
+    planes = jmp.wire_expand4_blob(jnp.asarray(blob), jnp.asarray(sc),
+                                   **_expand_kw(an, c, layout))
+    d0 = td._dual0_dict(c)
+    j_si, j_sv, t_si, t_sv = _sig0(an, c)
+    mkw = dict(batch=an.batch, sup=an.sup, fast_w=an.fast_w, slow_w=an.slow_w,
+               sig_w=an.sig_w, sig_alpha=an.sig_alpha, ud=c.ud, us=c.us, n_sig=an.n_sig)
+    want, _ = jmp.model_pass_v4(*planes[:4], *planes[5:], planes[4],
+                                jmp.dual0_expand(*(jnp.asarray(a) for a in d0)),
+                                sig0_idx=j_si, sig0_val=j_sv, **mkw)
+    tp = [torch.from_numpy(np.asarray(x).astype(np.int32)) for x in planes[:4]]
+    deltas = torch.from_numpy(np.asarray(planes[4]).copy())
+    dk = [torch.from_numpy(np.asarray(x).view(np.int32).copy()) for x in planes[5:]]
+    args = (*tp, *dk, deltas, tmp.dual0_expand(*(td._i32(a) for a in d0)))
+    return np.asarray(want).astype(np.int32), args, dict(sig0_idx=t_si, sig0_val=t_sv, **mkw)
+
+
 @pytest.mark.parametrize("clip", list(CLIPS))
 def test_v3_core_matches_jax_and_host(analyses, clip, monkeypatch):
     """model_pass_v4 / v3_core on the JAX expand's planes: the port's probs
@@ -130,27 +151,45 @@ def test_v3_core_matches_jax_and_host(analyses, clip, monkeypatch):
     if clip == "multislice.264":
         assert any(c.sig0_idx is not None and len(c.sig0_idx) for c in an.chunks[1:])
     for c in an.chunks:
-        layout = jd._chunk_layout(c)
-        blob, sc = td._build_blob4(an, c, layout)
-        planes = jmp.wire_expand4_blob(jnp.asarray(blob), jnp.asarray(sc),
-                                       **_expand_kw(an, c, layout))
-        d0 = td._dual0_dict(c)
-        j_si, j_sv, t_si, t_sv = _sig0(an, c)
-        mkw = dict(batch=an.batch, sup=an.sup, fast_w=an.fast_w, slow_w=an.slow_w,
-                   sig_w=an.sig_w, sig_alpha=an.sig_alpha, ud=c.ud, us=c.us, n_sig=an.n_sig)
-        want, _ = jmp.model_pass_v4(*planes[:4], *planes[5:], planes[4],
-                                    jmp.dual0_expand(*(jnp.asarray(a) for a in d0)),
-                                    sig0_idx=j_si, sig0_val=j_sv, **mkw)
-        want = np.asarray(want)
-        tp = [torch.from_numpy(np.asarray(x).astype(np.int32)) for x in planes[:4]]
-        deltas = torch.from_numpy(np.asarray(planes[4]).copy())
-        dk = [torch.from_numpy(np.asarray(x).view(np.int32).copy()) for x in planes[5:]]
-        got, bits = tmp.model_pass_v4(*tp, *dk, deltas, tmp.dual0_expand(
-            *(td._i32(a) for a in d0)), sig0_idx=t_si, sig0_val=t_sv, **mkw)
-        assert bits is tp[0]
-        assert np.array_equal(got.numpy(), want.astype(np.int32))
+        want, args, kw = _v3_case(an, c)
+        got, bits = tmp.model_pass_v4(*args, **kw)
+        assert bits is args[0]
+        assert np.array_equal(got.numpy(), want)
         assert np.array_equal(got.numpy()[:c.n], c.host_probs.astype(np.int32))
     assert seen and max(seen) < 1 << 31
+
+
+@pytest.mark.parametrize("clip", list(CLIPS))
+def test_scan_mirror_matches_jax_v3_core(analyses, clip, monkeypatch):
+    """The CUDA pass's formulation of v3_core (the numpy mirror of
+    csrc/model_pass.cu scan_kernel: double-buffered staging, the early-exit
+    halving, one gather a bin at its clamped flat index) equals JAX's
+    model_pass_v4 on every chunk, taken through model_pass_v4's CPU route."""
+    monkeypatch.setattr(tmp, "_v3_core_plain", tmp._v3_core_mirror)
+    an = analyses(clip)
+    for c in an.chunks:
+        want, args, kw = _v3_case(an, c)
+        got, _ = tmp.model_pass_v4(*args, **kw)
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_halve_until_matches_jax_halve_while():
+    """The kernels' halving (two closed-form steps, then an early exit)
+    equals JAX's masked _halve_while on operands within and far over the
+    windows, with the bound of _halve_iters and with smaller counts at which
+    the cap binds (pairs are still over their window when JAX stops)."""
+    rng = np.random.default_rng(17)
+    pos = np.concatenate([rng.integers(0, 64, 2000), rng.integers(0, 1 << 20, 2000)])
+    neg = np.concatenate([rng.integers(0, 64, 2000), rng.integers(0, 1 << 20, 2000)])
+    capped = 0
+    for window in (48, 80, 640):
+        for iters in (0, 1, 2, 3, im._halve_iters(window, 4096), 16):
+            jp, jn = (np.asarray(x) for x in jmp._halve_while(jnp.asarray(pos),
+                                                              jnp.asarray(neg), window, iters))
+            tp, tn = tmp._halve_until(pos, neg, window, iters)
+            assert np.array_equal(tp, jp) and np.array_equal(tn, jn), (window, iters)
+            capped += int((tp + tn > window).sum())
+    assert capped > 0
 
 
 def test_intmath_matches_jax():

@@ -103,6 +103,23 @@ def test_model_pass_v2_matches_jax_and_host(analyses, clip, monkeypatch):
     assert seen and max(seen) < 1 << 31
 
 
+@pytest.mark.parametrize("clip", list(CLIPS))
+def test_scan_mirror_matches_jax_model_pass_v2(analyses, clip, monkeypatch):
+    """The CUDA pass's formulation of model_pass_v2 (the numpy mirror of
+    csrc/model_pass.cu scan_kernel, with the prefix adders) equals JAX's
+    run_chunk_v2_tables on every chunk, taken through the port's CPU route."""
+    monkeypatch.setattr(tmp, "_model_pass_v2_plain", tmp._model_pass_v2_mirror)
+    an = analyses(clip)
+    for c in an.chunks:
+        sig0 = jd._sig0_dense(c, an.n_sig)
+        args = (c.kind, c.prior, c.pre_ones, c.pre_tot, c.v2_m, c.v2_bin_u, c.v2_dk_d,
+                c.v2_dk_s, c.v2_dd, c.v2_ds, c.dual0, an.batch, an.sup, an.fast_w,
+                an.slow_w, an.sig_w, an.sig_alpha, an.n_sig)
+        want = jmp.run_chunk_v2_tables(*args, sig0=sig0)
+        got = tmp.run_chunk_v2_tables(*args, sig0=sig0, device="cpu")
+        assert np.array_equal(got, want), f"{clip} n={c.n}"
+
+
 def _run_chunk_args(an, c):
     return (c.bit, c.kind, c.key, c.prior, c.dual0, an.batch, an.fast_w, an.slow_w, an.sig_w,
             an.sig_alpha, an.n_sig)
