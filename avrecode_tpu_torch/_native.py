@@ -49,7 +49,7 @@ launches = {"wire_expand": 0, "dual0_expand": 0, "model_pass_v4": 0,
 
 # C entry -> argument kinds ('p' pointer, 'i' 64-bit int); the stream follows.
 _SIGNATURES = {
-    "artc_wire_expand": "p" * 11 + "i" * 13,
+    "artc_wire_expand": "p" * 6 + "i" * 16,
     "artc_dual0_expand": "p" * 5 + "i" * 3,
     "artc_model_pass_v4": "p" * 14 + "i" * 20,
     "artc_lane_scan_dev": "p" * 7 + "i" * 3,
@@ -164,8 +164,10 @@ def load() -> ctypes.CDLL:
                 fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
             lib.artc_cuda_error_string.restype = ctypes.c_char_p
             lib.artc_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.artc_pass_launches.restype = ctypes.c_int
-            lib.artc_pass_launches.argtypes = []
+            for name in ("artc_pass_launches", "artc_expand_launches",
+                         "artc_compact_launches"):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = []
             _lib = lib
     return _lib
 
@@ -180,11 +182,17 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     """Calls C entry `entry` on `device`'s current stream with `args`
     (tensors pass their data pointer), raises on a CUDA error, and counts
     one launch of `kernel`."""
-    lib = load()
+    lib = _lib or load()
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*cargs, stream)
+    # The raw stream handle and no device switch where the device is the
+    # current one: launching a call is host time the card may wait on.
+    current = torch.cuda.current_device()
+    idx = current if device.index is None else device.index
+    if idx == current:
+        rc = getattr(lib, entry)(*cargs, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            rc = getattr(lib, entry)(*cargs, torch._C._cuda_getCurrentRawStream(idx))
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc} "
                            f"({lib.artc_cuda_error_string(rc).decode()})")
@@ -196,6 +204,18 @@ def pass_launches() -> int:
     thread's last model pass call made (v3_core, model_pass_v2,
     model_pass_dict or model_pass)."""
     return int(load().artc_pass_launches())
+
+
+def expand_launches() -> int:
+    """Device-side launches that the calling thread's last wire expand call
+    made (all of its chunks)."""
+    return int(load().artc_expand_launches())
+
+
+def compact_launches() -> int:
+    """Device-side launches that the calling thread's last lane compaction
+    call made."""
+    return int(load().artc_compact_launches())
 
 
 def check_cuda(name: str, *tensors: torch.Tensor, dtype=torch.int32) -> None:

@@ -49,20 +49,4 @@ __device__ T block_exclusive_scan(T v, T* total) {
   return before + x - v;
 }
 
-// Exclusive scan of `len` values load(i) into out[i] by ONE block walking
-// the array in blockDim.x tiles with a running carry. Used for short arrays
-// (per-block totals, per-sub-batch counts): at most a few tens of tiles.
-template <typename T, typename Load>
-__device__ void block_scan_array(Load load, T* out, long long len) {
-  T carry = T(0);
-  for (long long base = 0; base < len; base += blockDim.x) {
-    const long long i = base + threadIdx.x;
-    const T v = i < len ? load(i) : T(0);
-    T tile_total;
-    const T ex = block_exclusive_scan(v, &tile_total);
-    if (i < len) out[i] = carry + ex;
-    carry += tile_total;
-  }
-}
-
 }  // namespace artc

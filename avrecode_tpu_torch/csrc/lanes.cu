@@ -48,11 +48,18 @@
 // slower than a block alone (on an H100; most likely instruction fetch).
 //
 // The compaction only moves the [T, K] planes (about 64 MB at bench size),
-// so it is bound by how much of that traffic is in flight at once. It splits
-// T into tiles of kTile steps: one thread per (tile, lane) counts the tile's
-// emissions, one thread per lane scans its tile counts, and one thread per
-// (tile, lane) writes its emitted words in ascending-t order into [maxW, K]
-// from its tile's offset.
+// so it is bound by how much of that traffic is in flight at once. Two
+// launches over tiles of whole rows (steps), each thread keeping eight
+// 16-byte loads in flight. The count pass reads the emit plane, counts each
+// lane's emissions of the tile in shared memory, keeps them as lane masks
+// (bit r of mask (g, l) is lane l's emission at the tile's row 32 g + r; a
+// 32nd of the plane) and zeroes a slice of the int16 output. The write pass
+// sums, with all its threads, the counts of the tiles before its own (at
+// most 256 tiles, so at most 128 KB of counts a block at K = 128), turns
+// the masks into each (row group, lane)'s first position, then reads the
+// word plane four lanes at a time where a mask has an emission and stores
+// each word at its position: the group's first plus the popcount of the
+// lane's mask below its row. Positions >= maxW drop.
 #include <atomic>
 
 #include "common.cuh"
@@ -379,53 +386,217 @@ int launch_scan(Kernel kernel, std::atomic<uint64_t>& ready, ScanArgs a, long lo
   return int(cudaGetLastError());
 }
 
-// ops/lanes.py _COMPACT_TILE sizes the per-tile scratch from this.
-constexpr int kTile = 256;
+// The compaction's tiles (ops/lanes.py _compact_rows mirrors this): at
+// most kCompactTiles tiles and kCompactCounts counts (tiles x K), of whole
+// rows, a multiple of 32 rows each and at most kMaskWords lane masks.
+constexpr long long kCompactTiles = 256;
+constexpr long long kCompactCounts = 32768;
+constexpr long long kMaskWords = 8192;
+constexpr int kCountThreads = 256;
+constexpr int kWriteThreads = 512;
+constexpr int kInFlight = 8;  // 16-byte loads a thread of the count pass keeps in flight
+constexpr int kWriteInFlight = 4;  // and of the write pass
 
-// Thread (tile, lane): emissions of lane l in steps [tile*kTile, +kTile).
-__global__ void compact_count_kernel(const int* __restrict__ emits,
-                                     int* __restrict__ tile_cnt, long long T, long long K) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= K) return;
-  const long long t0 = (long long)blockIdx.y * kTile;
-  const long long t1 = t0 + kTile < T ? t0 + kTile : T;
-  int c = 0;
-  for (long long t = t0; t < t1; ++t) c += emits[t * K + l] != 0;
-  tile_cnt[blockIdx.y * K + l] = c;
+__host__ __device__ inline long long compact_rows(long long T, long long K) {
+  if (K < 1) K = 1;
+  long long tiles = kCompactCounts / K;
+  if (tiles > kCompactTiles) tiles = kCompactTiles;
+  if (tiles < 1) tiles = 1;
+  long long rows = (T + tiles - 1) / tiles;
+  rows = rows < 32 ? 32 : (rows + 31) / 32 * 32;
+  long long cap = kMaskWords * 32 / K / 32 * 32;
+  if (cap < 32) cap = 32;
+  return rows < cap ? rows : cap;
 }
 
-// Thread per lane: exclusive scan of its tile counts, in place.
-__global__ void compact_scan_kernel(int* __restrict__ tile_cnt, long long ntile,
-                                    long long K) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= K) return;
-  int run = 0;
-  for (long long i = 0; i < ntile; ++i) {
-    const int c = tile_cnt[i * K + l];
-    tile_cnt[i * K + l] = run;
-    run += c;
+struct Compact {
+  const int* words;    // [T, K]
+  const int* emits;    // [T, K]
+  int16_t* out;        // [maxW, K] u16 bit patterns
+  int* tile_cnt;       // [ntile, K]
+  uint32_t* masks;     // [ntile, rows / 32, K]
+  long long T, K, maxW, rows, ntile;
+  int vec;             // the planes and out take 16-byte accesses
+};
+
+// Launch 1: tile blockIdx.x's per-lane counts and lane masks, and its share
+// of the output's zeros. Dynamic shared memory: K + rows / 32 * K ints.
+__global__ void __launch_bounds__(kCountThreads) compact_count_kernel(const Compact C) {
+  extern __shared__ int cnt[];
+  uint32_t* mask = reinterpret_cast<uint32_t*>(cnt + C.K);
+  const long long tile = blockIdx.x;
+  const long long nmask = C.rows / 32 * C.K;
+  for (long long i = threadIdx.x; i < C.K + nmask; i += blockDim.x) cnt[i] = 0;
+  // The zeros: an equal share of the output's 16-byte units a tile.
+  const long long total = C.maxW * C.K;
+  if (C.vec) {
+    const long long units = total / 8, per = (units + C.ntile - 1) / C.ntile;
+    const long long u1 = (tile + 1) * per < units ? (tile + 1) * per : units;
+    for (long long u = tile * per + threadIdx.x; u < u1; u += blockDim.x)
+      reinterpret_cast<int4*>(C.out)[u] = make_int4(0, 0, 0, 0);
+    if (tile == C.ntile - 1)
+      for (long long i = units * 8 + threadIdx.x; i < total; i += blockDim.x) C.out[i] = 0;
+  } else {
+    const long long per = (total + C.ntile - 1) / C.ntile;
+    const long long i1 = (tile + 1) * per < total ? (tile + 1) * per : total;
+    for (long long i = tile * per + threadIdx.x; i < i1; i += blockDim.x) C.out[i] = 0;
   }
+  __syncthreads();
+  const long long f0 = tile * C.rows * C.K;
+  const long long f1 = (tile + 1) * C.rows < C.T ? (tile + 1) * C.rows * C.K : C.T * C.K;
+  const long long nq = (f1 - f0 + 3) / 4;  // quads of flat entries
+  const uint32_t K = uint32_t(C.K);
+  for (long long q0 = 0; q0 < nq; q0 += kInFlight * blockDim.x) {
+    int e[kInFlight][4];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const long long f = f0 + 4 * (q0 + u * blockDim.x + threadIdx.x);
+      if (C.vec && f + 4 <= f1) {
+        const int4 v = __ldcs(reinterpret_cast<const int4*>(C.emits + f));
+        e[u][0] = v.x;
+        e[u][1] = v.y;
+        e[u][2] = v.z;
+        e[u][3] = v.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) e[u][k] = f + k < f1 ? C.emits[f + k] : 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const uint32_t rel = uint32_t(4 * (q0 + u * blockDim.x + threadIdx.x));
+      // Where K % 4 == 0 a quad is four lanes of one row: one division.
+      uint32_t t = rel / K, l = rel - t * K;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k > 0 && ++l == K) {
+          l = 0;
+          ++t;
+        }
+        if (e[u][k] != 0) {
+          atomicAdd(&cnt[l], 1);
+          atomicOr(&mask[(t >> 5) * K + l], 1u << (t & 31));
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (long long l = threadIdx.x; l < C.K; l += blockDim.x) C.tile_cnt[tile * C.K + l] = cnt[l];
+  for (long long i = threadIdx.x; i < nmask; i += blockDim.x)
+    C.masks[tile * nmask + i] = mask[i];
 }
 
-// Thread (tile, lane): the tile's emitted words, in ascending t, from the
-// tile's offset in lane l's stream.
-__global__ void compact_write_kernel(const int* __restrict__ words,
-                                     const int* __restrict__ emits,
-                                     const int* __restrict__ tile_off, int* __restrict__ out,
-                                     long long T, long long K, long long maxW) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= K) return;
-  const long long t0 = (long long)blockIdx.y * kTile;
-  const long long t1 = t0 + kTile < T ? t0 + kTile : T;
-  long long pos = tile_off[blockIdx.y * K + l];
-  for (long long t = t0; t < t1; ++t) {
-    const long long idx = t * K + l;
-    if (emits[idx]) {
-      if (pos < maxW) out[pos * K + l] = words[idx];
-      ++pos;
+// Launch 2: tile blockIdx.x's emitted words at their positions. Dynamic
+// shared memory: K + rows / 32 * K ints (the lanes' offsets, each (row
+// group, lane)'s first position).
+__global__ void __launch_bounds__(kWriteThreads, 2) compact_write_kernel(const Compact C) {
+  extern __shared__ int pre[];
+  int* first = pre + C.K;
+  const long long tile = blockIdx.x;
+  const long long K = C.K;
+  const long long groups = C.rows / 32;
+  const uint32_t* mask = C.masks + tile * groups * K;
+  for (long long l = threadIdx.x; l < K; l += blockDim.x) pre[l] = 0;
+  __syncthreads();
+  // The lanes' offsets: the counts of tiles [0, tile), summed by columns of
+  // four lanes (one lane where K is not a multiple of 4), the tiles split
+  // between the threads of a column.
+  const bool v4 = K % 4 == 0;
+  const long long cols = v4 ? K / 4 : K;
+  const long long parts = cols < blockDim.x ? blockDim.x / cols : 1;
+  for (long long idx = threadIdx.x; idx < cols * parts; idx += blockDim.x) {
+    const long long c = idx % cols, p = idx / cols;
+    if (v4) {
+      int4 s = make_int4(0, 0, 0, 0);
+#pragma unroll 8
+      for (long long t = p; t < tile; t += parts) {
+        const int4 v = *reinterpret_cast<const int4*>(C.tile_cnt + t * K + 4 * c);
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      atomicAdd(&pre[4 * c], s.x);
+      atomicAdd(&pre[4 * c + 1], s.y);
+      atomicAdd(&pre[4 * c + 2], s.z);
+      atomicAdd(&pre[4 * c + 3], s.w);
+    } else {
+      int s = 0;
+#pragma unroll 8
+      for (long long t = p; t < tile; t += parts) s += C.tile_cnt[t * K + c];
+      atomicAdd(&pre[c], s);
+    }
+  }
+  __syncthreads();
+  for (long long l = threadIdx.x; l < K; l += blockDim.x) {
+    int run = pre[l];
+    for (long long g = 0; g < groups; ++g) {
+      first[g * K + l] = run;
+      run += __popc(mask[g * K + l]);
+    }
+  }
+  __syncthreads();
+  const long long f0 = tile * C.rows * K;
+  const long long f1 = (tile + 1) * C.rows < C.T ? (tile + 1) * C.rows * K : C.T * K;
+  const long long nq = (f1 - f0 + 3) / 4;
+  const uint32_t Ku = uint32_t(K);
+  for (long long q0 = 0; q0 < nq; q0 += kWriteInFlight * blockDim.x) {
+    // Per quad: its first entry's (row, lane), and per entry bit 31 for an
+    // emission over the lane's mask below the row.
+    uint32_t row[kWriteInFlight], lane0[kWriteInFlight], bits[kWriteInFlight][4];
+    int w[kWriteInFlight][4];
+#pragma unroll
+    for (int u = 0; u < kWriteInFlight; ++u) {
+      const uint32_t rel = uint32_t(4 * (q0 + u * blockDim.x + threadIdx.x));
+      uint32_t t = rel / Ku, l = rel - t * Ku;
+      row[u] = t;
+      lane0[u] = l;
+      bool any = false;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k > 0 && ++l == Ku) {
+          l = 0;
+          ++t;
+        }
+        bits[u][k] = 0;
+        if (f0 + rel + k < f1) {
+          const uint32_t m = __ldg(mask + (t >> 5) * Ku + l);
+          if ((m >> (t & 31)) & 1u) bits[u][k] = (m & ((1u << (t & 31)) - 1u)) | 0x80000000u;
+          any |= bits[u][k] != 0;
+        }
+      }
+      const long long f = f0 + rel;
+      if (any && C.vec && f + 4 <= f1) {
+        const int4 v = __ldcs(reinterpret_cast<const int4*>(C.words + f));
+        w[u][0] = v.x;
+        w[u][1] = v.y;
+        w[u][2] = v.z;
+        w[u][3] = v.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[u][k] = bits[u][k] ? C.words[f + k] : 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kWriteInFlight; ++u) {
+      uint32_t t = row[u], l = lane0[u];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k > 0 && ++l == Ku) {
+          l = 0;
+          ++t;
+        }
+        if (bits[u][k]) {
+          const long long pos = first[(t >> 5) * Ku + l] + __popc(bits[u][k] & 0x7fffffffu);
+          if (pos < C.maxW) C.out[pos * K + l] = int16_t(uint16_t(w[u][k]));
+        }
+      }
     }
   }
 }
+
+// Launches of the last compaction call of this thread.
+thread_local int g_compact_launches = 0;
 
 }  // namespace
 
@@ -454,14 +625,36 @@ ARTC_API int artc_lane_scan(const int* bits, const int* probs, const uint8_t* va
   return launch_scan(lane_scan_kernel, ring_ready[1], a, G, static_cast<cudaStream_t>(stream));
 }
 
-ARTC_API int artc_lane_compact(const int* words, const int* emits, int* out, int* tile_cnt,
+ARTC_API int artc_compact_launches(void) { return g_compact_launches; }
+
+// words, emits [T, K] int32; out [maxW, K] int16; scratch: the tile counts
+// (ntile * K ints) then the lane masks (ntile * rows / 32 * K words), with
+// rows = compact_rows(T, K) and ntile = ceil(T / rows).
+ARTC_API int artc_lane_compact(const int* words, const int* emits, void* out, int* scratch,
                                long long T, long long K, long long maxW, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long ntile = (T + kTile - 1) / kTile;
-  if (ntile == 0) return int(cudaGetLastError());
-  const dim3 grid(artc::grid_for(K, 128), unsigned(ntile));
-  compact_count_kernel<<<grid, 128, 0, st>>>(emits, tile_cnt, T, K);
-  compact_scan_kernel<<<artc::grid_for(K, 128), 128, 0, st>>>(tile_cnt, ntile, K);
-  compact_write_kernel<<<grid, 128, 0, st>>>(words, emits, tile_cnt, out, T, K, maxW);
+  g_compact_launches = 0;
+  if (T <= 0 || K <= 0 || maxW <= 0) return 0;
+  if (T * K >= (1ll << 31) || K > 4096) return int(cudaErrorInvalidValue);
+  Compact C;
+  C.words = words;
+  C.emits = emits;
+  C.out = static_cast<int16_t*>(out);
+  C.T = T;
+  C.K = K;
+  C.maxW = maxW;
+  C.rows = compact_rows(T, K);
+  C.ntile = (T + C.rows - 1) / C.rows;
+  C.tile_cnt = scratch;
+  C.masks = reinterpret_cast<uint32_t*>(scratch + C.ntile * K);
+  C.vec = aligned(words, 16) && aligned(emits, 16) && aligned(out, 16);
+  // K + at most kMaskWords ints: within the 48 KB a block has without opt-in.
+  const size_t smem = size_t(K + C.rows / 32 * K) * sizeof(int);
+  compact_count_kernel<<<unsigned(C.ntile), kCountThreads, smem, st>>>(C);
+  ++g_compact_launches;
+  int rc = int(cudaGetLastError());
+  if (rc) return rc;
+  compact_write_kernel<<<unsigned(C.ntile), kWriteThreads, smem, st>>>(C);
+  ++g_compact_launches;
   return int(cudaGetLastError());
 }

@@ -19,8 +19,8 @@ per-step records (csrc/lanes.cu's note). `_magic_table` proves the exact
 division magic of every frequency, and `_magic_words` lays it out for the
 kernels, which read it from device memory (`_magic_on`). `_pack_steps`,
 `_chain_step` and `_lane_scan_chain` mirror how the kernels pack the records
-and run the chain, in numpy, for the CPU tests (nothing on the main path
-calls those three).
+and run the chain, and `_compact_mirror` the compaction's tiles, in numpy,
+for the CPU tests (nothing on the main path calls those four).
 """
 from __future__ import annotations
 
@@ -34,8 +34,12 @@ from .. import _native
 PROB_BITS = 15
 PROB_SCALE = 1 << PROB_BITS
 RANS_L = 1 << 16
-# Steps per tile of csrc/lanes.cu's compaction (kTile): sizes its scratch.
-_COMPACT_TILE = 256
+# The tiles of csrc/lanes.cu's compaction (kCompactTiles, kCompactCounts,
+# kMaskWords): at most this many tiles of whole rows, this many counts
+# (tiles x K) and this many lane masks a tile.
+_COMPACT_TILES = 256
+_COMPACT_COUNTS = 32768
+_COMPACT_MASKS = 8192
 # The largest chain index q = x1 // f of a step: x1 < f << 17.
 _Q_MAX = (1 << 17) - 1
 _U32 = 0xFFFFFFFF
@@ -276,11 +280,19 @@ def _lane_scan_cuda(bits_tk, probs_tk, valid_tk):
 
 def lane_compact(words: torch.Tensor, emits: torch.Tensor, maxW: int) -> torch.Tensor:
     """Per-lane compaction of the emitted words in ascending-t order into
-    int32[maxW, K] (zeros past each lane's count): the download is then
-    about the compressed payload instead of the full [T, K] planes."""
+    int16[maxW, K] holding the u16 words' bit patterns (JAX's uint16),
+    zeros past each lane's count; emissions at positions >= maxW drop. The
+    download is then about the compressed payload instead of the full [T,
+    K] planes. words/emits: int32 [T, K] (u16 words, 0/1)."""
     if _native.on_cpu("lane_compact", words):
         return _lane_compact_plain(words, emits, maxW)
     return _lane_compact_cuda(words, emits, maxW)
+
+
+def _as_i16(x: torch.Tensor) -> torch.Tensor:
+    """u16 values (any integer dtype) -> int16 bit patterns."""
+    x = x.to(torch.int32) & 0xFFFF
+    return torch.where(x >= 1 << 15, x - (1 << 16), x).to(torch.int16)
 
 
 def _lane_compact_plain(words, emits, maxW: int):
@@ -289,9 +301,65 @@ def _lane_compact_plain(words, emits, maxW: int):
     pos = torch.cumsum(e, 0) - e
     lane = torch.arange(K, device=words.device).expand(T, K)
     keep = (e != 0) & (pos < maxW)
-    out = torch.zeros(maxW * K, dtype=torch.int32, device=words.device)
-    out[(pos * K + lane)[keep]] = words[keep]
+    out = torch.zeros(maxW * K, dtype=torch.int16, device=words.device)
+    out[(pos * K + lane)[keep]] = _as_i16(words[keep])
     return out.reshape(maxW, K)
+
+
+def _compact_rows(T: int, K: int) -> int:
+    """Rows (steps) of one compaction tile: at most _COMPACT_TILES tiles and
+    _COMPACT_COUNTS counts, a multiple of 32 rows, at most _COMPACT_MASKS
+    lane masks (csrc/lanes.cu compact_rows)."""
+    K = max(K, 1)
+    tiles = max(1, min(_COMPACT_TILES, _COMPACT_COUNTS // K))
+    rows = -(-T // tiles)  # a tile's share of T, up to a multiple of 32
+    rows = max(32, -(-rows // 32) * 32)
+    return min(rows, max(32, _COMPACT_MASKS * 32 // K // 32 * 32))
+
+
+def _compact_mirror(words, emits, maxW: int):
+    """csrc/lanes.cu's two compaction launches over numpy arrays, in their
+    decomposition: per tile of whole rows its lanes' counts, its lane masks
+    (bit r of mask (g, l): lane l emits at the tile's row 32 g + r) and its
+    share of the output's zeros (16-byte units); then per tile its lanes'
+    offsets summed from the tiles before it, each (row group, lane)'s first
+    position, and each emitted word at its group's first position plus the
+    popcount of its lane's mask below its row (positions >= maxW drop).
+    words/emits: int arrays [T, K]. Returns int16 [maxW, K]; raises if an
+    output entry was never written."""
+    words = np.asarray(words).astype(np.int64)
+    e = np.asarray(emits) != 0
+    T, K = e.shape
+    rows = _compact_rows(T, K)
+    ntile, groups = -(-T // rows), rows // 32
+    unset = -(1 << 20)
+    out = np.full(maxW * K, unset, np.int64)
+    units = maxW * K // 8
+    per = -(-units // ntile)
+    tile_cnt = np.zeros((ntile, K), np.int64)
+    masks = np.zeros((ntile, groups, K), np.int64)
+    for tile in range(ntile):  # launch 1
+        out[tile * per * 8:min((tile + 1) * per, units) * 8] = 0
+        if tile == ntile - 1:
+            out[units * 8:] = 0
+        t, lane = np.nonzero(e[tile * rows:(tile + 1) * rows])
+        tile_cnt[tile] = np.bincount(lane, minlength=K)
+        np.bitwise_or.at(masks[tile], (t >> 5, lane), 1 << (t & 31))
+    def popcount(x):
+        return np.unpackbits(x.astype("<u4").view(np.uint8).reshape(*x.shape, 4),
+                             axis=-1).sum(-1).astype(np.int64)
+
+    for tile in range(ntile):  # launch 2
+        pre = tile_cnt[:tile].sum(0)
+        pop = popcount(masks[tile])
+        first = pre + np.cumsum(pop, 0) - pop  # [groups, K]
+        t, lane = np.nonzero(e[tile * rows:(tile + 1) * rows])
+        pos = first[t >> 5, lane] + popcount(masks[tile][t >> 5, lane] & ((1 << (t & 31)) - 1))
+        keep = pos < maxW
+        out[pos[keep] * K + lane[keep]] = words[tile * rows + t[keep], lane[keep]] & 0xFFFF
+    if (out == unset).any():
+        raise AssertionError("_compact_mirror: an output entry was never written")
+    return out.astype(np.uint16).view(np.int16).reshape(maxW, K)
 
 
 def _lane_compact_cuda(words, emits, maxW: int):
@@ -299,13 +367,15 @@ def _lane_compact_cuda(words, emits, maxW: int):
     if words.dim() != 2 or emits.shape != words.shape:
         raise ValueError("lane_compact: words/emits must both be [T, K]")
     T, K = words.shape
-    ntile = -(-T // _COMPACT_TILE)
-    if ntile > 65535:  # the tiles ride the grid's y dimension
-        raise ValueError(f"lane_compact: T={T} exceeds {65535 * _COMPACT_TILE} steps")
-    out = torch.zeros((maxW, K), dtype=torch.int32, device=words.device)
-    tile_cnt = torch.empty((ntile, K), dtype=torch.int32, device=words.device)
-    _native.launch("lane_compact", "artc_lane_compact", words.device, words, emits,
-                   out, tile_cnt, T, K, maxW)
+    if T * K >= 1 << 31 or K > 4096:
+        raise ValueError(f"lane_compact: T={T} x K={K} beyond 2^31 entries or 4096 lanes")
+    out = torch.empty((maxW, K), dtype=torch.int16, device=words.device)
+    # The tile counts, then the lane masks (a bit a step and lane).
+    rows = _compact_rows(T, K)
+    scratch = torch.empty(-(-T // rows) * (K + rows // 32 * K), dtype=torch.int32,
+                          device=words.device)
+    _native.launch("lane_compact", "artc_lane_compact", words.device, words, emits, out,
+                   scratch, T, K, maxW)
     return out
 
 

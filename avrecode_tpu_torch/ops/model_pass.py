@@ -27,6 +27,7 @@ The run_* wrappers take and return numpy arrays and upload to an explicit
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import numpy as np
@@ -37,7 +38,10 @@ from .. import _native
 from . import intmath as im
 
 # Bins per block of csrc/wire_expand.cu (kBinsPerBlock): sizes its scratch.
-_EXPAND_BINS = 1024
+_EXPAND_BINS = 2048
+# Largest U (dictionary slots) whose delta row fits the shared memory an
+# H100 block may opt into (227 KB) beside the kernel's own.
+_EXPAND_MAX_U = 56 * 1024
 
 
 def default_sup() -> int:
@@ -146,16 +150,16 @@ def wire_expand4_blob(blob: torch.Tensor, sc: torch.Tensor, *, m: int, nsub: int
     carries this chunk's own; COO slots >= ud_real shift up by ud - ud_real.
     A leading chunk axis (blob [G, W], sc [G, 5 or 6]) expands G chunks of
     one layout: every output gains it (dk_d/dk_s as strided views of the
-    blobs); the kernel runs one launch sequence per chunk."""
+    blobs); the kernel runs one sequence of three launches for all G."""
     args = (m, nsub, U, ud, us, ns, batch, layout, mesh)
     if _native.on_cpu("wire_expand4_blob", blob):
         return _wire_expand_plain(blob, sc, *args)
     return _wire_expand_cuda(blob, sc, *args)
 
 
-def _key_tables(blob, layout, nsub, ns, ud, us):
-    """The dk_d/dk_s segments of a blob [W] or blobs [G, W], as views."""
-    offs = _blob_layout_words(layout, nsub, ns, ud, us)
+def _key_tables(blob, offs, ns, ud, us):
+    """The dk_d/dk_s segments of a blob [W] or blobs [G, W] (segment offsets
+    `offs`), as views."""
     lead = blob.shape[:-1]
     return (blob[..., offs[12]:offs[13]].reshape(*lead, ns, ud),
             blob[..., offs[13]:offs[14]].reshape(*lead, ns, us))
@@ -177,7 +181,8 @@ def _wire_expand_plain(blob, sc, m, nsub, U, ud, us, ns, batch, layout, mesh=Fal
         outs = [_wire_expand_plain(b, c, m, nsub, U, ud, us, ns, batch, layout, mesh)
                 for b, c in zip(blob, sc)]
         planes = [torch.stack(x) for x in list(zip(*outs))[:5]]
-        return (*planes, *_key_tables(blob, layout, nsub, ns, ud, us))
+        return (*planes, *_key_tables(blob, _blob_layout_words(layout, nsub, ns, ud, us), ns,
+                                      ud, us))
     offs = _blob_layout_words(layout, nsub, ns, ud, us)
     Lh, La, Lb, Lc, npi, ne, nc, ncc = layout
     dev = blob.device
@@ -204,15 +209,17 @@ def _wire_expand_plain(blob, sc, m, nsub, U, ud, us, ns, batch, layout, mesh=Fal
     cold = cls == 1
     rank = _unpack(w32, torch.where(cold, pos_b, pos_a), torch.where(cold, wb, wa),
                    torch.where(cold, offs[2], offs[1]))
-    # COO slots: clamped unpack (the bucketed nc can pass the packed stream).
-    cs = _unpack(seg(3), torch.arange(nc, device=dev), wcs)
+    # COO slots: clamped unpack (the bucketed nc can pass the packed stream);
+    # an empty stream reads one 0 (JAX's gather has no entry to read).
+    cs = (_unpack(seg(3), torch.arange(nc, device=dev), wcs) if nc
+          else torch.zeros(1, dtype=torch.int64, device=dev))
     if mesh:  # this chunk's sig slots start at its own dual width sc[5]
         ud_real = int(sc[5])
         cs = torch.where(cs >= ud_real, cs + (ud - ud_real), cs)
     cnts = _u16s(seg(8))[:nsub]
     starts = torch.cumsum(cnts, 0) - cnts
     sbase = starts.repeat_interleave(batch)
-    sidx = torch.where(live, sbase + rank, 0).clamp(0, nc - 1)
+    sidx = torch.where(live, sbase + rank, 0).clamp(0, max(nc - 1, 0))
     slot = torch.where(live, cs[sidx], ud - 1)
     # Priors: u8 -> u16 dictionary, escape scatter (pad indices >= npi drop),
     # neutral 1 beyond n.
@@ -230,7 +237,7 @@ def _wire_expand_plain(blob, sc, m, nsub, U, ud, us, ns, batch, layout, mesh=Fal
     mark.index_add_(0, st_in, torch.ones_like(st_in))
     coo_sub = torch.cumsum(mark[:nc], 0) - 1
     livec = torch.arange(nc, device=dev) < n_coo
-    flat = torch.where(livec, coo_sub * U + cs, nsub * U)
+    flat = torch.where(livec, coo_sub * U + cs[:nc], nsub * U)
     nb = _u8s(seg(9))
     v32 = (nb & 15) | ((nb >> 4) << 16)
     ce = _u16s(seg(11)).reshape(ncc, 2)
@@ -243,39 +250,164 @@ def _wire_expand_plain(blob, sc, m, nsub, U, ud, us, ns, batch, layout, mesh=Fal
     deltas = _as_i32(tbl).view(torch.uint16).reshape(nsub, U, 2)
     i32 = torch.int32
     return (bit.to(i32), kind.to(i32), slot.to(i32), prior.to(i32), deltas,
-            *_key_tables(blob, layout, nsub, ns, ud, us))
+            *_key_tables(blob, offs, ns, ud, us))
+
+
+@functools.lru_cache(maxsize=64)
+def _expand_offsets(layout: tuple, nsub: int, ns: int, ud: int, us: int):
+    """The blob's segment offsets, as a list and as the C entry's array."""
+    offs = _blob_layout_words(layout, nsub, ns, ud, us)
+    return offs, (ctypes.c_longlong * len(offs))(*offs)
 
 
 def _wire_expand_cuda(blob, sc, m, nsub, U, ud, us, ns, batch, layout, mesh):
     _native.check_cuda("wire_expand4_blob", blob, sc)
-    offs = _blob_layout_words(layout, nsub, ns, ud, us)
+    offs, offs_c = _expand_offsets(tuple(layout), nsub, ns, ud, us)
     Lh, La, Lb, Lc, npi, ne, nc, ncc = layout
-    blobs, scs = (blob, sc) if blob.dim() == 2 else (blob[None], sc[None])
-    G = blobs.shape[0]
+    one = blob.dim() == 1
+    G, W = (1, blob.shape[0]) if one else blob.shape
     n_sc = 6 if mesh else 5
-    if blobs.dim() != 2 or blobs.shape[1] < offs[-1] or scs.shape[0] != G \
-            or scs.dim() != 2 or scs.shape[1] < n_sc:
+    if blob.dim() not in (1, 2) or W < offs[-1] or sc.dim() != blob.dim() \
+            or sc.shape[-1] < n_sc or (not one and sc.shape[0] != G):
         raise ValueError(f"wire_expand4_blob: blob needs {offs[-1]} words and sc {n_sc} "
                          f"scalars per chunk, got {tuple(blob.shape)} / {tuple(sc.shape)}")
-    if m != nsub * batch or m >= 1 << 31:
-        raise ValueError(f"wire_expand4_blob: m={m} != nsub*batch={nsub * batch}")
+    if m != nsub * batch or m >= 1 << 31 or batch < 1 or G > 65535:
+        raise ValueError(f"wire_expand4_blob: m={m} != nsub*batch={nsub * batch}, or "
+                         f"G={G} chunks over 65535")
+    if U > _EXPAND_MAX_U:
+        raise ValueError(f"wire_expand4_blob: U={U} slots exceed the {_EXPAND_MAX_U} whose "
+                         f"delta row fits a block's shared memory")
     dev = blob.device
-    out = [torch.empty((G, m), dtype=torch.int32, device=dev) for _ in range(4)]
-    deltas = torch.zeros((G, nsub * U), dtype=torch.int32, device=dev)
-    # Scratch shared by the chunks' launch sequences (stream-ordered).
-    block_ab = torch.empty(-(-m // _EXPAND_BINS), dtype=torch.int64, device=dev)
-    starts = torch.empty(nsub, dtype=torch.int32, device=dev)
-    coo_sub = torch.empty(max(nc, 1), dtype=torch.int32, device=dev)
-    offs_c = (ctypes.c_longlong * len(offs))(*offs)
+    lead = () if one else (G,)
+    planes = torch.empty((4, *lead, m), dtype=torch.int32, device=dev)
+    deltas = torch.empty((*lead, nsub, U, 2), dtype=torch.uint16, device=dev)
+    # The block counts (u64) and per sub-batch its run start and its count
+    # of entries in later rows.
+    scratch = torch.empty(2 * G * (-(-m // _EXPAND_BINS) + nsub), dtype=torch.int32,
+                          device=dev)
+    _native.launch("wire_expand", "artc_wire_expand", dev, blob, sc, planes, deltas, scratch,
+                   ctypes.addressof(offs_c), G, W, sc.shape[-1], W, m, nsub, U, ud, batch, Lh,
+                   Lc, npi, ne, nc, ncc, int(mesh))
+    return (*planes.unbind(0), deltas, *_key_tables(blob, offs, ns, ud, us))
+
+
+def _expand_mirror(blob, sc, m, nsub, U, ud, us, ns, batch, layout, mesh=False):
+    """csrc/wire_expand.cu's three launches over numpy arrays, in the
+    kernel's decomposition: per 2,048-bin block the packed rank counts and
+    the prior plane, per sub-batch its delta row built from zeros with its
+    own run (JAX's mark/cumsum: the last run reaches to the live end) and
+    a count of its entries in later rows; the block offsets, those
+    entries, the prior escapes; the bins from their block's offset, and the
+    count escapes at their run found by a binary search of the starts.
+    blob: u32 words [G, W]; sc: [G, 5 or 6]. Returns bit, kind, slot, prior
+    int64 [G, m] and deltas uint32 [G, nsub, U]; raises if an output entry
+    was never written."""
+    blob = np.asarray(blob).astype(np.int64) & 0xFFFFFFFF
+    sc = np.asarray(sc).astype(np.int64)
+    offs = _blob_layout_words(layout, nsub, ns, ud, us)
+    Lh, La, Lb, Lc, npi, ne, nc, ncc = layout
+    G, W = blob.shape
+    nblk = -(-m // _EXPAND_BINS)
+    unset = -(1 << 40)
+    planes = np.full((4, G, m), unset, np.int64)
+    deltas = np.full((G, nsub * U), unset, np.int64)
+
+    def unpack(w, base, last, pos, width):
+        pos = np.asarray(pos, np.int64)
+        width = np.broadcast_to(np.asarray(width, np.int64), pos.shape)
+        epw = 32 // np.maximum(width, 1)
+        q = pos // epw
+        wi = np.minimum(base + q, last)
+        v = (w[wi] >> ((pos - q * epw) * width)) & ((1 << width) - 1)
+        return np.where(width > 0, v, 0)
+
+    def u8(w, k, idx):
+        return (w[offs[k] + idx // 4] >> (8 * (idx % 4))) & 255
+
+    def u16(w, k, idx):
+        return (w[offs[k] + idx // 2] >> (16 * (idx % 2))) & 0xFFFF
+
     for g in range(G):
-        _native.launch("wire_expand", "artc_wire_expand", dev, blobs[g], scs[g],
-                       *(o[g] for o in out), deltas[g], block_ab, starts, coo_sub,
-                       ctypes.addressof(offs_c), blobs.shape[1], m, nsub, U, ud, batch, Lh, Lc,
-                       npi, ne, nc, ncc, int(mesh))
-    planes = (*out, deltas.view(torch.uint16).reshape(G, nsub, U, 2))
-    if blob.dim() == 1:
-        planes = tuple(p[0] for p in planes)
-    return (*planes, *_key_tables(blob, layout, nsub, ns, ud, us))
+        w = blob[g]
+        wa, wb, wcs, n, n_coo = (int(v) for v in sc[g, :5])
+
+        def coo_slot(j):
+            c = (unpack(w, offs[3], offs[3] + Lc - 1, j, wcs) if nc
+                 else np.zeros(np.shape(j), np.int64))
+            if mesh:
+                ud_real = int(sc[g, 5])
+                c = np.where(c >= ud_real, c + ud - ud_real, c)
+            return c
+
+        live = min(nc, n_coo)
+        cnt = u16(w, 8, np.arange(nsub))
+        starts = (np.cumsum(cnt) - cnt + (1 << 31)) % (1 << 32) - (1 << 31)  # int32
+
+        def run(s):  # sub-batch s's live entries; the last run reaches to the live end
+            end = starts[s] + cnt[s] if s + 1 < nsub else live
+            return np.arange(starts[s], min(end, live))
+
+        # Launch 1, count blocks: 2,048 bins a block.
+        i = np.arange(nblk * _EXPAND_BINS)
+        word = np.where(((i >> 3) < Lh) & (i < m), w[np.minimum(offs[0] + (i >> 3), W - 1)], 0)
+        h = (word >> (4 * (i & 7))) & 15
+        live_n = (i < n) & (i < m)
+        bit = np.where(live_n, h >> 3, 0)
+        kind = np.where(live_n, (h >> 1) & 3, 3)
+        cold = (h & 1) == 1
+        hot_sel = ((kind != 3) & ~cold).astype(np.int64).reshape(nblk, -1)
+        cold_sel = ((kind != 3) & cold).astype(np.int64).reshape(nblk, -1)
+        i0 = i & ~3
+        pw = np.where((i0 < npi) & (i0 < n), w[np.minimum(offs[4] + (i0 >> 2), W - 1)], 0)
+        pr = np.where(i >= n, 1, np.where(i < npi, u16(w, 5, (pw >> (8 * (i & 3))) & 255), 0))
+        planes[3, g] = pr[:m]
+        # Launch 1, row blocks: each sub-batch's row from zeros.
+        ovf = np.zeros(nsub, np.int64)
+        for s in range(nsub):
+            j = run(s)
+            c = coo_slot(j)
+            row = np.zeros(U, np.int64)
+            inrow = c < U
+            b = u8(w, 9, j[inrow])
+            row[c[inrow]] = (b & 15) | ((b >> 4) << 16)
+            deltas[g, s * U:(s + 1) * U] = row
+            ovf[s] = int(((~inrow) & (c < (nsub - s) * U)).sum())
+        # Launch 2: the block offsets, the later-row entries, the prior escapes.
+        off_hot = np.cumsum(hot_sel.sum(1)) - hot_sel.sum(1)
+        off_cold = np.cumsum(cold_sel.sum(1)) - cold_sel.sum(1)
+        for s in np.flatnonzero(ovf):
+            j = run(s)
+            c = coo_slot(j)
+            flat = s * U + c
+            keep = (c >= U) & (flat < nsub * U)
+            b = u8(w, 9, j[keep])
+            deltas[g, flat[keep]] = (b & 15) | ((b >> 4) << 16)
+        for k in range(ne):
+            idx = int(w[offs[6] + k])
+            if idx < npi and idx < n and idx < m:
+                planes[3, g, idx] = u16(w, 7, k)
+        # Launch 3: the bins from their block's offset; the count escapes.
+        pos_hot = (off_hot[:, None] + np.cumsum(hot_sel, 1) - hot_sel).reshape(-1)
+        pos_cold = (off_cold[:, None] + np.cumsum(cold_sel, 1) - cold_sel).reshape(-1)
+        rank = np.where(kind != 3, unpack(w, np.where(cold, offs[2], offs[1]), W - 1,
+                                          np.where(cold, pos_cold, pos_hot),
+                                          np.where(cold, wb, wa)), 0)
+        sub = np.minimum(i // batch, max(nsub - 1, 0))
+        sidx = np.clip(starts[sub] + rank if nsub else rank, None, nc - 1).clip(0)
+        slot = np.where(kind != 3, coo_slot(sidx), ud - 1)
+        planes[:3, g] = np.stack([bit, kind, slot])[:, :m]
+        for e in range(ncc):
+            j = int(w[offs[10] + e])
+            if j >= live:
+                continue
+            s = int(np.searchsorted(starts, j, side="right")) - 1
+            flat = s * U + int(coo_slot(np.array([j]))[0])
+            if flat < nsub * U:
+                deltas[g, flat] = u16(w, 11, 2 * e) | (u16(w, 11, 2 * e + 1) << 16)
+    if (planes == unset).any() or (deltas == unset).any():
+        raise AssertionError("_expand_mirror: an output entry was never written")
+    slot = planes[2].astype(np.int32).astype(np.int64)  # the kernel stores int32
+    return planes[0], planes[1], slot, planes[3], deltas.reshape(G, nsub, U)
 
 
 # ------------------------------------------------------ model_pass_v4 / v3_core

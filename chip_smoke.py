@@ -29,6 +29,13 @@ Phases; any failure ends the script with a nonzero exit code:
    plain versions), and the product step's device time on a 1x1, a 2x2 and
    a 4x2 grid of this one card (cells on their own streams), the 4x2 grid
    of both steps held exact too.
+   The expand is also held against its plain version on synthetic blobs
+   (avrecode_tpu_torch/testing.py: live COO entries past the runs, slots
+   past their row, no escapes, m and U not multiples of 4, U = 16,384, no
+   COO entry at all) and the compaction at K in {1, 7, 33, 128} with ragged
+   tiles, silent lanes and maxW below a lane's count; the expand's launches
+   a call are printed for one mesh chunk and for all of them, and must not
+   grow with the chunks.
    The two per-batch passes (model_pass_dict, model_pass) are also held
    against their plain versions on rows far over their windows, kind-3 and
    pad bins on the scratch key, 1, 3 and 70 batches, batches of 512, 4096
@@ -328,6 +335,7 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
     `dev`; the first chunk also gives the timings and the work."""
     import numpy as np
     import torch
+    from avrecode_tpu_torch import _native
     from avrecode_tpu_torch import device as td
     from avrecode_tpu_torch.ops import lanes as lx
     from avrecode_tpu_torch.ops import model_pass as mp
@@ -348,10 +356,12 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
         ex = st.statics["expand"]
         eargs = [ex[k] for k in ("m", "nsub", "U", "ud", "us", "ns", "batch", "layout")]
         got = mp.wire_expand4_blob(st.blob, st.sc, **ex)
+        made = _native.expand_launches()
         want = mp._wire_expand_plain(st.blob, st.sc, *eargs)
         for g, w in zip(got, want):
             K.check("wire_expand", g, w, what)
         if timed:
+            K.extra.setdefault("wire_expand", {})["launches_in_call"] = made
             K.ms["wire_expand"] = cuda_ms(lambda: mp.wire_expand4_blob(st.blob, st.sc, **ex), 10)
             K.plain_ms["wire_expand"] = cuda_ms(lambda: mp._wire_expand_plain(
                 st.blob, st.sc, *eargs), 2)
@@ -415,6 +425,7 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
             _, words, emits, counts = scan
             maxW = bucket(max(int(counts.max()), 1))
             out = lx.lane_compact(words, emits, maxW)
+            K.extra["lane_compact"] = {"launches_in_call": _native.compact_launches()}
             K.check("lane_compact", out, lx._lane_compact_plain(words, emits, maxW), what)
             K.ms["lane_compact"] = cuda_ms(lambda: lx.lane_compact(words, emits, maxW), 5)
             K.plain_ms["lane_compact"] = cuda_ms(
@@ -423,6 +434,47 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
             K.work["lane_compact"] = (nbytes(words, emits, out), 3 * words.numel())
         print(f"kernels == plain on {what}", flush=True)
     lane_streams(K, dev)
+
+
+def expand_compact_cases(K: Kernels, dev) -> None:
+    """The expand on avrecode_tpu_torch/testing.py's synthetic blobs and the
+    compaction at K in {1, 7, 33, 128} (T not a multiple of the tile and
+    under one tile, a silent lane, a lane emitting at every step, maxW at
+    the bucket, at the largest count and below it), each kernel against
+    its plain version (on CPU copies); the launches a call must stay at
+    most 3 (expand) and 2 (compaction)."""
+    import numpy as np
+    import torch
+    from avrecode_tpu_torch import _native
+    from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch.ops import lanes as lx
+    from avrecode_tpu_torch.ops import model_pass as mp
+    from avrecode_tpu_torch.testing import EXPAND_CASES, expand_case, lane_planes
+    made = {}
+    for case in (*EXPAND_CASES, "empty_coo_stream"):
+        blob, sc, kw = expand_case(case)
+        b, s = td._i32(blob), td._i32(sc)
+        got = mp.wire_expand4_blob(b.to(dev), s.to(dev), **kw)
+        made[case] = _native.expand_launches()
+        for g, w in zip(got, mp.wire_expand4_blob(b, s, **kw)):
+            K.check("wire_expand", g, w, f"synthetic blob {case}")
+    rng = np.random.default_rng(7)
+    compact_made = set()
+    for lanes in (1, 7, 33, 128):
+        for T in (lx._compact_rows(9000, lanes) * 3 + 17, 20):
+            words, emits = (torch.from_numpy(a) for a in lane_planes(rng, T, lanes))
+            top = max(int(emits.sum(0).max()), 1)
+            for maxW in (lx._bucket(top), top, max(top // 3, 1)):
+                got = lx.lane_compact(words.to(dev), emits.to(dev), maxW)
+                compact_made.add(_native.compact_launches())
+                K.check("lane_compact", got, lx._lane_compact_plain(words, emits, maxW),
+                        f"K={lanes} T={T} maxW={maxW}")
+    if max(made.values()) > 3 or compact_made != {2}:
+        raise AssertionError(f"launches a call: expand {made}, compaction {compact_made}")
+    print(f"wire_expand == plain on synthetic blobs {list(made)} (launches a call "
+          f"{sorted(set(made.values()))}); lane_compact == plain at K in (1, 7, 33, 128) on "
+          f"ragged tiles, silent lanes and maxW below a lane's count (launches a call "
+          f"{sorted(compact_made)})", flush=True)
 
 
 # Operations of the model passes (int32, as the kernels do them): per bin
@@ -894,6 +946,7 @@ def mesh_kernel_phase(K: Kernels, an, dev) -> None:
     launches (the counters are reset before each main path)."""
     import numpy as np
     import torch
+    from avrecode_tpu_torch import _native
     from avrecode_tpu_torch import device as td
     from avrecode_tpu_torch.ops import lanes as lx
     from avrecode_tpu_torch.ops import model_pass as mp
@@ -913,12 +966,29 @@ def mesh_kernel_phase(K: Kernels, an, dev) -> None:
     ekw = dict(m=M, nsub=NS * SUP, U=UD + US, ud=UD, us=US, ns=NS, batch=BATCH, layout=layout,
                mesh=True)
     planes = mp.wire_expand4_blob(blob, sc, **ekw)
+    made = {G: _native.expand_launches()}
     for g in range(G):
         want = mp._wire_expand_plain(blob[g], sc[g], M, NS * SUP, UD + US, UD, US, NS, BATCH,
                                      layout, True)
         for got, w in zip(planes, want):
             K.check("wire_expand", got[g], w, f"{what}, chunk {g}, mesh mode")
-    K.mesh_ms["wire_expand"] = cuda_ms(lambda: mp.wire_expand4_blob(blob, sc, **ekw), 3)
+        if g == 0:  # chunk 0 alone
+            one = mp.wire_expand4_blob(blob[:1], sc[:1], **ekw)
+            made[1] = _native.expand_launches()
+            for got, w in zip(one, want):
+                K.check("wire_expand", got[0], w, f"{what}, chunk 0 alone, mesh mode")
+    if made[G] > made[1]:
+        raise AssertionError(f"wire_expand: launches a call grow with the chunks: {made}")
+    K.mesh_ms["wire_expand"] = cuda_ms(lambda: mp.wire_expand4_blob(blob, sc, **ekw), 10)
+    K.mesh_ms["wire_expand_g1"] = cuda_ms(
+        lambda: mp.wire_expand4_blob(blob[:1], sc[:1], **ekw), 10)
+    K.extra.setdefault("wire_expand", {}).update(
+        mesh_ms=K.mesh_ms["wire_expand"], mesh_chunks=G, mesh_g1_ms=K.mesh_ms["wire_expand_g1"],
+        mesh_bound_ms=nbytes(blob, sc, *planes[:5]) / HBM_BYTES_S * 1e3,
+        mesh_launches_in_call={str(k): v for k, v in made.items()})
+    print(f"wire_expand at the mesh shapes: launches in a call {made[1]} for one chunk, "
+          f"{made[G]} for all {G}; card ms {K.mesh_ms['wire_expand_g1']:.3f} (one chunk), "
+          f"{K.mesh_ms['wire_expand']:.3f} (all {G})", flush=True)
     bit, kind, slot, prior, deltas, dk_d, dk_s = planes
     mkw = dict(batch=BATCH, sup=SUP, fast_w=an.fast_w, slow_w=an.slow_w, sig_w=an.sig_w,
                sig_alpha=an.sig_alpha, ud=UD, us=US, n_sig=an.n_sig)
@@ -1484,6 +1554,7 @@ def main() -> int:
     K = Kernels()
     K.chain, K.sm_clock_hz = scan_chains(), max_sm_clock_hz()
     kernel_phase(K, refs[CLIPS[0]], refs[CLIPS[0]].chunks, dev)
+    expand_compact_cases(K, dev)
     scan_cases(K, dev)
     profile0_kernel_phase(K, refs0[CLIPS[0]], dev)
     mesh_kernel_phase(K, mesh_an, dev)

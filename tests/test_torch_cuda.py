@@ -19,6 +19,7 @@ from avrecode_tpu_torch import _native
 from avrecode_tpu_torch import device as td
 from avrecode_tpu_torch.ops import lanes as tl
 from avrecode_tpu_torch.ops import model_pass as tmp
+from avrecode_tpu_torch.testing import EXPAND_CASES, expand_case, lane_planes
 
 pytestmark = pytest.mark.cuda
 
@@ -303,7 +304,8 @@ def test_mesh_expand_and_chunk_axis_kernels_match_plain(cuda, mesh_inputs):
               layout=st["layout"], mesh=True)
     _native.reset_launches()
     planes = tmp.wire_expand4_blob(blob, sc, **ex)
-    assert _native.launches["wire_expand"] == blob.shape[0]
+    assert _native.launches["wire_expand"] == 1  # one call: every chunk's launches at once
+    assert _native.expand_launches() == 3
     for g in range(blob.shape[0]):
         for got, want in zip(planes, tmp._wire_expand_plain(blob[g], sc[g], *ex.values())):
             _equal(got[g], want)
@@ -318,6 +320,57 @@ def test_mesh_expand_and_chunk_axis_kernels_match_plain(cuda, mesh_inputs):
                                      *mkw.values(), si, sv))
     for g, c in enumerate(an.chunks):
         assert np.array_equal(probs[g, :c.n].cpu().numpy(), c.host_probs.astype(np.int32))
+
+
+def test_expand_launches_do_not_grow_with_the_chunks(cuda, mesh_inputs):
+    """The expand of all of the mesh's chunks (pad chunks with 0-bit widths
+    among them) and of one chunk alone make the same three launches; each
+    chunk of the call equals the plain version."""
+    _, an, inp = mesh_inputs
+    st = inp.statics
+    UD, US, NS = st["ud"], st["us"], st["ns"]
+    blob, sc = inp.blob.to(cuda), inp.sc.to(cuda)
+    ex = dict(m=NS * 128 * 4096, nsub=NS * 128, U=UD + US, ud=UD, us=US, ns=NS, batch=4096,
+              layout=st["layout"], mesh=True)
+    made = {}
+    for G in (1, blob.shape[0]):
+        planes = tmp.wire_expand4_blob(blob[:G], sc[:G], **ex)
+        made[G] = _native.expand_launches()
+        for g in range(G):
+            for got, want in zip(planes, tmp._wire_expand_plain(blob[g], sc[g], *ex.values())):
+                _equal(got[g], want)
+    assert set(made.values()) == {3}, made
+
+
+@pytest.mark.parametrize("case", [*EXPAND_CASES, "empty_coo_stream"])
+def test_expand_kernel_edge_cases_match_plain(cuda, case):
+    """The expand kernel on synthetic blobs: live COO entries past the sum
+    of the runs (they belong to the last sub-batch), slots past their row,
+    no prior or count escapes, m and U not multiples of 4, U = 16,384 (a
+    64 KB row: the shared-memory opt-in), and no COO entry at all:
+    kernel == plain, in three launches."""
+    blob, sc, kw = expand_case(case)
+    b, s = td._i32(blob), td._i32(sc)
+    got = tmp.wire_expand4_blob(b.to(cuda), s.to(cuda), **kw)
+    assert _native.expand_launches() <= 3
+    for g, w in zip(got, tmp.wire_expand4_blob(b, s, **kw)):
+        _equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("K", [1, 7, 33, 128])
+def test_compact_kernel_edge_cases_match_plain(cuda, K):
+    """The compaction at K lanes: T not a multiple of the tile and under one
+    tile, a silent lane, a lane that emits at every step, maxW at the
+    bucket, at the largest count and below it: kernel == plain, in two
+    launches."""
+    rng = np.random.default_rng(K)
+    for T in (tl._compact_rows(9000, K) * 3 + 17, 20):
+        words, emits = (torch.from_numpy(a) for a in lane_planes(rng, T, K))
+        top = max(int(emits.sum(0).max()), 1)
+        for maxW in (tl._bucket(top), top, max(top // 3, 1)):
+            got = tl.lane_compact(words.to(cuda), emits.to(cuda), maxW)
+            assert _native.compact_launches() == 2
+            _equal(got.cpu(), tl._lane_compact_plain(words, emits, maxW))
 
 
 @pytest.mark.parametrize("G", [1, 3])

@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Device time of the frozen-batch model scans (v3_core, model_pass_v2) on
-one card, split by kernel.
+"""Device time of the port's device kernels on one card, split by kernel:
+the frozen-batch model scans (rows 3 and 6 of PERF.md's kernel table:
+v3_core, model_pass_v2), the wire expand (row 1) and the lane compaction
+(row 5).
 
-    python3 tools/profile_model_scan.py [--repo PATH] [--check]
+    python3 tools/profile_model_scan.py [--repo PATH] [--rows 1,3,5,6,10,11] [--check]
 
-Runs the scans of the avrecode_tpu_torch package found under PATH (default:
-this checkout; a `git archive` of another commit times that commit's
-kernels) at three shapes: benchdata/bench.mp4 chunk 0 under profile 2
-(v3_core, batch 4096, sup 128), the same chunk under profile 0
-(model_pass_v2), multigop720.mp4's mesh shapes (chunk mode 1, v3_core
-over its chunk axis of 10 chunks), and the mesh step of those chunks on a
-1x1 and a 2x2 grid of this one card. For each it prints one JSON line: the
-mean device time of a call (CUDA events around 10 calls after a warm-up),
-from one call under torch.profiler the device time and count of each
-kernel, copy and fill by name (the launches inside a call), and where the
-package has them the pass's own cycle counters (chunk 0). --check also
-holds each result against the plain version (exact).
+Runs the kernels of the avrecode_tpu_torch package found under PATH
+(default: this checkout; a `git archive` of another commit times that
+commit's kernels) at these shapes: benchdata/bench.mp4 chunk 0 under
+profile 2 (batch 4096, sup 128: the expand, v3_core, and the compaction of
+its lane scan's words), the same chunk under profile 0 (model_pass_v2),
+multigop720.mp4's mesh shapes (chunk mode 1: the mesh-mode expand of its
+10 chunks in one call and of chunk 0 alone, v3_core over the chunk axis),
+and the mesh step of those chunks on a 1x1 and a 2x2 grid of this one card
+(row 10), and the pre-ANL5 mesh step on a 2x2 and a 4x2 grid of it (row
+11). For each it prints one JSON line: the mean device time of a call
+(CUDA events around 10 calls after a warm-up), the host time to launch one
+call (the device idle before it) beside the device's busy time in it, from
+one call under torch.profiler the device time and count of each kernel,
+copy and fill by name (the launches inside a call), and where the package
+has them the pass's own cycle counters (chunk 0) and its count of
+launches inside the call. --check also holds each result against the
+plain version (exact).
 """
 from __future__ import annotations
 
@@ -60,24 +67,113 @@ def by_kernel(fn) -> dict:
     return {k: {"ms": ms[k], "count": n[k]} for k in ms}
 
 
-def cases():
-    """(name, kernel call, plain call) at the three shapes."""
+def host_ms(fn, reps: int = 10) -> float:
+    """Mean host time (ms) for fn() to return, the device idle before each
+    call: the time the wrapper takes to launch its work."""
+    import time
+    import torch
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / reps * 1e3
+
+
+def max_abs_err(got, want) -> int:
+    """Largest |got - want| over a tensor or matching tuples of them (u16
+    through their int16 bit patterns)."""
+    import torch
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"shape {tuple(g.shape)} vs {tuple(w.shape)}")
+        if g.dtype == torch.uint16:
+            g, w = (t.view(torch.int16) for t in (g, w))
+        if g.dtype == torch.int16:
+            g, w = (t.long() & 0xFFFF for t in (g, w))
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def _bench_p2(dev):
+    """bench.mp4 chunk 0 under profile 2, staged on `dev`, and its expand."""
+    from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch.ops import model_pass as mp
+    with open(os.path.join(HERE, "benchdata", "bench.mp4"), "rb") as f:
+        bench = f.read()
+    an = td.analyze(bench, batch_size=BATCH, model_profile=2, sup=SUP)
+    c = an.chunks[0]
+    st = td.to_torch_staged(an, c, dev)
+    return bench, c, st, mp.wire_expand4_blob(st.blob, st.sc, **st.statics["expand"])
+
+
+def _mesh(dev):
+    """multigop720.mp4's mesh inputs (chunk mode 1, 2 gop rows) on `dev`."""
+    from avrecode_tpu_torch import device as td
+    with open(os.path.join(HERE, "benchdata", "multigop720.mp4"), "rb") as f:
+        clip = f.read()
+    anm = td.analyze(clip, chunk_mode=1, batch_size=BATCH, model_profile=2, sup=SUP)
+    inp = td.mesh_inputs(anm, anm.chunks, 2, SUP, 16)
+    s = inp.statics
+    ekw = dict(m=s["ns"] * SUP * BATCH, nsub=s["ns"] * SUP, U=s["ud"] + s["us"], ud=s["ud"],
+               us=s["us"], ns=s["ns"], batch=BATCH, layout=s["layout"], mesh=True)
+    return anm, inp, tuple(t.to(dev) for t in inp.tensors()), ekw
+
+
+def expand_cases(p2, mesh):
+    """Row 1: the expand at bench chunk 0 and at the mesh's shapes, all G
+    chunks in one call and chunk 0 alone."""
+    from avrecode_tpu_torch.ops import model_pass as mp
+    _, c, st, _ = p2
+    ex = st.statics["expand"]
+    eargs = [ex[k] for k in ("m", "nsub", "U", "ud", "us", "ns", "batch", "layout")]
+    yield (f"wire_expand4_blob bench.mp4 chunk 0 (m={c.m}, nsub={ex['nsub']}, U={ex['U']}, "
+           f"nc={ex['layout'][6]})",
+           lambda: mp.wire_expand4_blob(st.blob, st.sc, **ex),
+           lambda: mp._wire_expand_plain(st.blob, st.sc, *eargs))
+    _, _, (blob, sc, *_), ekw = mesh
+    margs = [ekw[k] for k in ("m", "nsub", "U", "ud", "us", "ns", "batch", "layout", "mesh")]
+    for G in (blob.shape[0], 1):
+        b, s = blob[:G], sc[:G]
+        yield (f"wire_expand4_blob multigop720.mp4 mesh shapes (G={G}, m={ekw['m']}, "
+               f"U={ekw['U']}, nc={ekw['layout'][6]})",
+               lambda b=b, s=s: mp.wire_expand4_blob(b, s, **ekw),
+               lambda b=b, s=s: mp._wire_expand_plain(b, s, *margs))
+
+
+def compact_cases(p2):
+    """Row 5: the compaction of bench chunk 0's lane scan."""
+    from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch.ops import lanes as lx
+    from avrecode_tpu_torch.ops import model_pass as mp
+    _, c, st, planes = p2
+    bit, kind, slot, prior, deltas, dk_d, dk_s = planes
+    probs = mp.v3_core(bit, kind, slot, prior, dk_d, dk_s, deltas, st.dual0,
+                       sig0_idx=st.s_idx, sig0_val=st.s_val, **st.statics["model"])
+    lanes = td.pick_lanes(c.n)
+    T = 1 << (-(-c.n // lanes) - 1).bit_length()
+    _, words, emits, counts = lx.lane_scan_dev(bit, probs, c.n, T, lanes)
+    maxW = 1 << (max(int(counts.max()), 1) - 1).bit_length()
+    yield (f"lane_compact bench.mp4 chunk 0 (T={T}, K={lanes}, maxW={maxW})",
+           lambda: lx.lane_compact(words, emits, maxW),
+           lambda: lx._lane_compact_plain(words, emits, maxW))
+
+
+def scan_cases(dev, p2, mesh):
+    """Rows 3, 6 and 10: the scans at bench chunk 0 (both profiles), v3_core
+    over the mesh's chunk axis, and the mesh step on 1x1 and 2x2 grids."""
     import numpy as np
     import torch
     from avrecode_tpu_torch import device as td
     from avrecode_tpu_torch.ops import model_pass as mp
-    dev = torch.device("cuda")
-    root = os.path.join(HERE, "benchdata")
-    with open(os.path.join(root, "bench.mp4"), "rb") as f:
-        bench = f.read()
-    with open(os.path.join(root, "multigop720.mp4"), "rb") as f:
-        mesh_clip = f.read()
-
-    an = td.analyze(bench, batch_size=BATCH, model_profile=2, sup=SUP)
-    c = an.chunks[0]
-    st = td.to_torch_staged(an, c, dev)
-    bit, kind, slot, prior, deltas, dk_d, dk_s = mp.wire_expand4_blob(st.blob, st.sc,
-                                                                       **st.statics["expand"])
+    bench, c, st, (bit, kind, slot, prior, deltas, dk_d, dk_s) = p2
     mo = st.statics["model"]
     tensors = (kind, slot, prior, dk_d, dk_s, deltas, st.dual0)
     yield (f"v3_core bench.mp4 chunk 0 (m={c.m}, ns={c.ns}, ud={c.ud}, us={c.us})",
@@ -109,14 +205,11 @@ def cases():
            lambda: mp.model_pass_v2(*planes, *tables, **kw),
            lambda: mp._model_pass_v2_plain(*planes, *tables, *kw.values()))
 
-    anm = td.analyze(mesh_clip, chunk_mode=1, batch_size=BATCH, model_profile=2, sup=SUP)
-    inp = td.mesh_inputs(anm, anm.chunks, 2, SUP, 16)
+    anm, inp, staged, ekw = mesh
     s = inp.statics
     UD, US, NS = s["ud"], s["us"], s["ns"]
-    blob, sc, dual0, si, sv, _ = (t.to(dev) for t in inp.tensors())
-    bit, kind, slot, prior, deltas, dk_d, dk_s = mp.wire_expand4_blob(
-        blob, sc, m=NS * SUP * BATCH, nsub=NS * SUP, U=UD + US, ud=UD, us=US, ns=NS,
-        batch=BATCH, layout=s["layout"], mesh=True)
+    blob, sc, dual0, si, sv, _ = staged
+    bit, kind, slot, prior, deltas, dk_d, dk_s = mp.wire_expand4_blob(blob, sc, **ekw)
     mkw = dict(batch=BATCH, sup=SUP, fast_w=anm.fast_w, slow_w=anm.slow_w, sig_w=anm.sig_w,
                sig_alpha=anm.sig_alpha, ud=UD, us=US, n_sig=anm.n_sig)
     yield (f"v3_core multigop720.mp4 mesh shapes (G={blob.shape[0]}, ns={NS}, ud={UD}, "
@@ -128,7 +221,6 @@ def cases():
 
     from avrecode_tpu_torch.parallel import pipeline
     from avrecode_tpu_torch.parallel.mesh import make_mesh
-    staged = tuple(t.to(dev) for t in inp.tensors())
     for n_gop, n_lane in ((1, 1), (2, 2)):
         step = pipeline.sharded_v4_compress_step(make_mesh(n_gop, n_lane, [dev] * n_gop * n_lane),
                                                  **s)
@@ -136,12 +228,63 @@ def cases():
                lambda step=step: step(*staged), None)
 
 
+def recompress_cases(dev):
+    """Row 11: the pre-ANL5 mesh step on a 2x2 and a 4x2 grid of this one
+    card, on chip_smoke.py's inputs (4 random chunks of 65,536 pairs, batch
+    4096, 16 lanes)."""
+    import numpy as np
+    import torch
+    from avrecode_tpu_torch.parallel import pipeline
+    from avrecode_tpu_torch.parallel.mesh import make_mesh
+    G, N, n_dual, n_sig = 4, 1 << 16, 4096, 1 << 17
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 2, (G, N))
+    kinds = rng.integers(0, 3, (G, N))
+    keys = np.where(kinds == 2, rng.integers(0, n_sig, (G, N)),
+                    rng.integers(0, n_dual - 1, (G, N)))
+    arrays = (bits, kinds, keys, rng.integers(1, 32767, (G, N)), np.full((G, n_dual, 4), 3),
+              np.zeros((G, n_sig, 2)))
+    staged = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in arrays]
+    for n_gop, n_lane in ((2, 2), (4, 2)):
+        step = pipeline.sharded_recompress_step(
+            make_mesh(n_gop, n_lane, [dev] * n_gop * n_lane), batch=BATCH, fast_w=48,
+            slow_w=640, sig_w=80, sig_alpha=1)(K_total=16)
+        yield (f"sharded_recompress_step {n_gop}x{n_lane} on one card (G={G}, N={N})",
+               lambda step=step: step(*staged), None)
+
+
+def cases(rows: set):
+    """(name, kernel call, plain call, row) for the rows asked for."""
+    import torch
+    dev = torch.device("cuda")
+    if 11 in rows:
+        for case in recompress_cases(dev):
+            yield (*case, 11)
+    if not rows & {1, 3, 5, 6, 10}:
+        return
+    p2 = _bench_p2(dev)
+    mesh = _mesh(dev) if rows & {1, 3, 6, 10} else None
+    if 1 in rows:
+        for case in expand_cases(p2, mesh):
+            yield (*case, 1)
+    if 5 in rows:
+        for case in compact_cases(p2):
+            yield (*case, 5)
+    if rows & {3, 6, 10}:
+        for case in scan_cases(dev, p2, mesh):
+            yield (*case, 3)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--repo", default=HERE, help="checkout whose port is timed")
+    p.add_argument("--rows", default="1,3,5,6,10,11",
+                   help="kernel table rows to time: 1 (expand), 5 (compaction), 3, 6 or "
+                        "10 (the scans and the mesh step), 11 (the pre-ANL5 mesh step)")
     p.add_argument("--check", action="store_true", help="hold each result against plain")
     args = p.parse_args()
+    rows = {int(r) for r in args.rows.split(",")}
     sys.path.insert(0, os.path.abspath(args.repo))
     import torch
     if not torch.cuda.is_available():
@@ -151,15 +294,22 @@ def main() -> int:
     from avrecode_tpu_torch.ops import model_pass as mp
     _native.build()
     _native.ensure_host_lib()
-    for name, fn, plain in cases():
+    # Launches inside the last call, where the checkout counts them.
+    inside = {1: getattr(_native, "expand_launches", None),
+              5: getattr(_native, "compact_launches", None),
+              3: getattr(_native, "pass_launches", None), 11: None}
+    for name, fn, plain, row in cases(rows):
+        kernels = by_kernel(fn)
         out = {"case": name, "repo": os.path.relpath(os.path.abspath(args.repo), HERE),
                "card": torch.cuda.get_device_name(0), "call_ms": events_ms(fn),
-               "by_kernel": by_kernel(fn)}
-        if hasattr(mp, "scan_profile"):
+               "host_ms": host_ms(fn),
+               "busy_ms": sum(k["ms"] for k in kernels.values()), "by_kernel": kernels}
+        if inside[row] is not None:
+            out["launches_in_call"] = inside[row]()
+        if row == 3 and hasattr(mp, "scan_profile"):
             out["cycles"] = mp.scan_profile()
         if args.check and plain is not None:
-            got, want = fn(), plain()
-            out["max_abs_err"] = int((got.long() - want.long()).abs().max())
+            out["max_abs_err"] = max_abs_err(fn(), plain())
             if out["max_abs_err"] != 0:
                 print(json.dumps(out), flush=True)
                 return 1
