@@ -51,6 +51,7 @@ launches = {"wire_expand": 0, "dual0_expand": 0, "model_pass_v4": 0,
 _SIGNATURES = {
     "artc_wire_expand": "p" * 6 + "i" * 16,
     "artc_dual0_expand": "p" * 5 + "i" * 3,
+    "artc_launch_floor": "p" * 5 + "i" * 3,
     "artc_model_pass_v4": "p" * 14 + "i" * 20,
     "artc_lane_scan_dev": "p" * 7 + "i" * 3,
     "artc_lane_compact": "p" * 4 + "i" * 3,
@@ -165,7 +166,7 @@ def load() -> ctypes.CDLL:
             lib.artc_cuda_error_string.restype = ctypes.c_char_p
             lib.artc_cuda_error_string.argtypes = [ctypes.c_int]
             for name in ("artc_pass_launches", "artc_expand_launches",
-                         "artc_compact_launches"):
+                         "artc_compact_launches", "artc_dual0_launches"):
                 getattr(lib, name).restype = ctypes.c_int
                 getattr(lib, name).argtypes = []
             _lib = lib
@@ -178,10 +179,11 @@ def count(name: str) -> None:
         launches[name] += 1
 
 
-def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+def launch(kernel: str | None, entry: str, device: torch.device, *args) -> None:
     """Calls C entry `entry` on `device`'s current stream with `args`
     (tensors pass their data pointer), raises on a CUDA error, and counts
-    one launch of `kernel`."""
+    one launch of `kernel` (None: a launch that is no kernel of a path, as
+    the launch floor, counts nowhere)."""
     lib = _lib or load()
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     # The raw stream handle and no device switch where the device is the
@@ -196,7 +198,8 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc} "
                            f"({lib.artc_cuda_error_string(rc).decode()})")
-    count(kernel)
+    if kernel is not None:
+        count(kernel)
 
 
 def pass_launches() -> int:
@@ -212,6 +215,12 @@ def expand_launches() -> int:
     return int(load().artc_expand_launches())
 
 
+def dual0_launches() -> int:
+    """Device-side launches that the calling thread's last dual0 expand call
+    made."""
+    return int(load().artc_dual0_launches())
+
+
 def compact_launches() -> int:
     """Device-side launches that the calling thread's last lane compaction
     call made."""
@@ -219,13 +228,15 @@ def compact_launches() -> int:
 
 
 def check_cuda(name: str, *tensors: torch.Tensor, dtype=torch.int32) -> None:
-    """Validates kernel inputs: one CUDA device, the dtype, contiguity."""
+    """Validates kernel inputs: one CUDA device, the dtype (one for all, or
+    a tuple with one per tensor), contiguity."""
     dev = tensors[0].device
-    for t in tensors:
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,) * len(tensors)
+    for t, want in zip(tensors, dtypes, strict=True):
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if t.dtype != want:
+            raise TypeError(f"{name}: expected {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor is not contiguous")
 

@@ -2,10 +2,12 @@
 
     python -m avrecode_tpu_torch.cli compress <in> <out> [--device cuda] [--model-profile 0]
     python -m avrecode_tpu_torch.cli roundtrip <in> [out] [--device cuda] [--model-profile 0]
-    python -m avrecode_tpu_torch.cli corpus <dir|glob> <out_dir> [--device cuda]
-        [--chunk-mode 1] [--batch-size 512] [--host-workers 2] [--resume]
+    python -m avrecode_tpu_torch.cli corpus <dir|glob> <out_dir> [--device cuda | --host]
+        [--chunk-mode {0,1}] [--batch-size N] [--host-workers 2] [--resume]
 
+--chunk-mode defaults to 0 and --batch-size to 4096, as in avrecode_tpu.cli.
 Profile 0 runs the model pass that ARTC_MODEL_IMPL names (v2, dict, sort, mm).
+ARTC_TIMING=1 prints the profile-2 path's per-chunk timings and wire bytes.
 
 Compression runs through the port (avrecode_tpu_torch.device.compress);
 decompression and the roundtrip check run through the host decoder
@@ -13,8 +15,9 @@ decompression and the roundtrip check run through the host decoder
 directory or glob through the port on --device, each output checked by the
 host decoder, dealt across the processes that JAX_COORDINATOR /
 JAX_NUM_PROCESSES / JAX_PROCESS_ID describe (parallel/distributed.py; one
-process needs none of them). Prints one JSON report, as avrecode_tpu.cli
-does.
+process needs none of them); with --host it runs the native host engine
+instead, as avrecode_tpu.cli's corpus does without --device. Prints one
+JSON report, as avrecode_tpu.cli does.
 """
 from __future__ import annotations
 
@@ -43,12 +46,13 @@ def _corpus(p: argparse.ArgumentParser, args) -> int:
     if not paths:
         p.error(f"no input files match {args.input!r}")
     pidx, pcount = dist.init_distributed()
-    rep = dist.corpus_compress(paths, args.output, use_device=True, device=args.device,
-                               chunk_mode=args.chunk_mode, batch_size=args.batch_size,
-                               host_workers=args.host_workers, resume=args.resume)
+    rep = dist.corpus_compress(paths, args.output, use_device=not args.host,
+                               device=args.device, chunk_mode=args.chunk_mode,
+                               batch_size=args.batch_size, host_workers=args.host_workers,
+                               resume=args.resume)
     print(json.dumps({
         "process": f"{pidx}/{pcount}",
-        "device": args.device,
+        "device": "host" if args.host else args.device,
         "files": rep.files,
         "failures": rep.failures,
         "input_bytes": rep.input_bytes,
@@ -76,6 +80,8 @@ def main(argv=None) -> int:
                    help="bins per model batch (small clips may need 512-1024)")
     p.add_argument("--host-workers", type=int, default=2,
                    help="corpus: concurrent files per process")
+    p.add_argument("--host", action="store_true",
+                   help="corpus: run the native host engine instead of the device path")
     p.add_argument("--resume", action="store_true",
                    help="corpus: skip inputs whose output container already exists "
                         "(outputs are written atomically)")

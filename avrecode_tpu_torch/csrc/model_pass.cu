@@ -3,7 +3,7 @@
 // Replaces, in avrecode_tpu/ops/model_pass.py:
 //   - model_pass_v4 -> v3_core (profile 2, frozen batches), with its table
 //     set-up (dual0 widened with ones scratch rows, sig0 zeros + warm-row
-//     scatter) and dual0_expand;
+//     scatter) and dual0_expand (one launch over the wire-width dictionary);
 //   - model_pass_v2 (profile 0, super-batched, host-shipped prefix counts);
 //   - model_pass_dict (profile 0, per-batch dictionary pass);
 //   - model_pass, impl "sort" and "mm" (profile 0, per-batch scatter-add pass);
@@ -118,26 +118,93 @@ __device__ inline int bin_prob(int kind, int prior_raw, int dfp, int dfn, int ds
   return clamp_prob(p);
 }
 
-__global__ void dual0_gather_kernel(const int* __restrict__ rows, const int* __restrict__ idx,
-                                    int* __restrict__ out, long long n_rows, long long n_dual) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_dual) return;
-  long long r = idx[i];
-  r = r < 0 ? 0 : (r > n_rows - 1 ? n_rows - 1 : r);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) out[i * 4 + c] = rows[r * 4 + c];
+// ---------------------------------------------------------------- dual0_expand
+//
+// One launch over blocks of kDual0Rows contiguous table rows, reading the
+// dictionary at the widths the wire ships it: rows u16[R][4], idx u8[n_dual],
+// escape indices u32 (the live ones strictly ascending, as the native writer
+// emits them and the host checks; padding = n_dual) and escape rows u16[4].
+// A block stages the dictionary (2 KB) and its indices (read as 16-byte
+// vectors) in shared memory. It narrows the ascending escape list to a
+// window of at most one entry a thread that holds its first escape (rounds
+// of one strided probe a thread: none for up to 256 escapes, one for up to
+// 65,536), reads the list from there one entry a thread while the entries
+// stay below its end, and drops each of its escapes into its row in shared
+// memory with a flag. Each row is then built in registers (the escape, or
+// the dictionary row) and stored once as one 16-byte int4. With 256
+// escapes or fewer every global load of the block is issued before its
+// first barrier. An escape index at or past n_dual (the padding) falls in
+// no block and drops; a u8 index past the dictionary is clamped to its last
+// row, as JAX's gather clamps.
+constexpr int kDual0Threads = 256;
+constexpr int kDual0Rows = 1024;  // 4 a thread
+constexpr int kDual0Dict = 256;   // the rows a u8 index can name
+
+__global__ void __launch_bounds__(kDual0Threads)
+dual0_expand_kernel(const uint2* __restrict__ rows, const uint8_t* __restrict__ idx,
+                    const uint32_t* __restrict__ esc_idx, const uint2* __restrict__ esc_val,
+                    int4* __restrict__ out, int n_rows, long long n_dual, long long ne) {
+  __shared__ uint2 dict[kDual0Dict];
+  __shared__ __align__(16) uint8_t ix[kDual0Rows];
+  __shared__ __align__(16) uint8_t escaped[kDual0Rows];
+  __shared__ uint2 esc_row[kDual0Rows];
+  const int t = threadIdx.x;
+  const long long r0 = (long long)blockIdx.x * kDual0Rows;
+  const int nb = n_dual - r0 < kDual0Rows ? int(n_dual - r0) : kDual0Rows;
+  const long long r1 = r0 + nb;
+  const int staged = n_rows < kDual0Dict ? n_rows : kDual0Dict;
+  if (t < staged) dict[t] = rows[t];
+  if (t < kDual0Rows / 16) {  // idx starts on 16 bytes (the wrapper checks)
+    const int b = t * 16;
+    if (b + 16 <= nb) {
+      reinterpret_cast<uint4*>(ix)[t] = *reinterpret_cast<const uint4*>(idx + r0 + b);
+    } else {
+      for (int k = b; k < nb; ++k) ix[k] = idx[r0 + k];
+    }
+    reinterpret_cast<uint4*>(escaped)[t] = make_uint4(0, 0, 0, 0);
+  }
+  // Narrow [lo, hi] to hold the first escape >= r0 and span at most one
+  // entry a thread. The probes lo + t * stride below r0 are a prefix (the
+  // list ascends), so the count leaves a range shorter than the stride.
+  long long lo = 0, hi = ne;
+  while (hi - lo > kDual0Threads) {
+    const long long stride = (hi - lo + kDual0Threads - 1) / kDual0Threads;
+    const long long p = lo + t * stride;
+    const int below = __syncthreads_count(p < hi && esc_idx[p] < r0);
+    if (below > 0) {
+      hi = lo + below * stride < hi ? lo + below * stride : hi;
+      lo += (below - 1) * stride + 1;
+    } else {
+      hi = lo;
+    }
+  }
+  long long e = lo + t;
+  uint32_t k = e < ne ? esc_idx[e] : 0xffffffffu;
+  uint2 v = e < ne ? esc_val[e] : make_uint2(0, 0);
+  __syncthreads();  // dict, ix and the flags staged
+  // Entries below r0 are skipped, the block's own are dropped into place,
+  // and the walk goes on while every entry of a round is below r1. The
+  // barrier that ends it also orders the drops before the stores.
+  for (;;) {
+    if (k >= r0 && k < r1) {
+      esc_row[k - r0] = v;
+      escaped[k - r0] = 1;
+    }
+    if (!__syncthreads_and(k < r1)) break;
+    e += kDual0Threads;
+    k = e < ne ? esc_idx[e] : 0xffffffffu;
+    v = e < ne ? esc_val[e] : make_uint2(0, 0);
+  }
+  for (int j = t; j < nb; j += kDual0Threads) {
+    const int r = ix[j];
+    const uint2 w = escaped[j] ? esc_row[j] : dict[r < staged ? r : staged - 1];
+    out[r0 + j] = make_int4(int(w.x & 0xffffu), int(w.x >> 16), int(w.y & 0xffffu),
+                            int(w.y >> 16));
+  }
 }
 
-__global__ void dual0_escape_kernel(const int* __restrict__ esc_idx,
-                                    const int* __restrict__ esc_val, int* __restrict__ out,
-                                    long long n_dual, long long ne) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= ne) return;
-  const long long k = (long long)(uint32_t)esc_idx[e];
-  if (k >= n_dual) return;  // padding drops
-#pragma unroll
-  for (int c = 0; c < 4; ++c) out[k * 4 + c] = esc_val[e * 4 + c];
-}
+// The launch floor: dual0_expand_kernel's grid and block doing nothing.
+__global__ void launch_floor_kernel() {}
 
 // v3_core, chunk blockIdx.y: dual = [dual0; ones(1 + ud)], sig = [zeros(n_sig);
 // ones(us)].
@@ -152,9 +219,10 @@ __global__ void tables_init_kernel(const int* __restrict__ dual0, int* __restric
   if (i < (M.n_sig + M.us) * 2) sig[i] = i < M.n_sig * 2 ? 0 : 1;
 }
 
-// Sparse warm sig rows (v16 warm-started chunks), k per chunk blockIdx.y; pad
-// rows (>= n_sig) drop.
-__global__ void sig0_scatter_kernel(const int* __restrict__ idx, const int* __restrict__ val,
+// Sparse warm sig rows (v16 warm-started chunks) at their wire widths (u32
+// index, u16 values), k per chunk blockIdx.y; pad rows (>= n_sig) drop.
+__global__ void sig0_scatter_kernel(const int* __restrict__ idx,
+                                    const uint16_t* __restrict__ val,
                                     int* __restrict__ sig, long long k, long long n_sig,
                                     long long sig_stride) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -1306,16 +1374,32 @@ long long scan_buf_words(const Model& M) {
 
 }  // namespace
 
-ARTC_API int artc_dual0_expand(const int* rows, const int* idx, const int* esc_idx,
-                               const int* esc_val, int* out, long long n_rows,
+// Launches of the last artc_dual0_expand call of this thread.
+thread_local int g_dual0_launches = 0;
+
+ARTC_API int artc_dual0_launches(void) { return g_dual0_launches; }
+
+ARTC_API int artc_dual0_expand(const void* rows, const void* idx, const void* esc_idx,
+                               const void* esc_val, int* out, long long n_rows,
                                long long n_dual, long long ne, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_dual > 0)
-    dual0_gather_kernel<<<artc::grid_for(n_dual, 256), 256, 0, st>>>(rows, idx, out, n_rows,
-                                                                    n_dual);
-  if (ne > 0)
-    dual0_escape_kernel<<<artc::grid_for(ne, 256), 256, 0, st>>>(esc_idx, esc_val, out,
-                                                                 n_dual, ne);
+  g_dual0_launches = 0;
+  if (n_dual <= 0) return int(cudaGetLastError());
+  if (n_rows < 1) return int(cudaErrorInvalidValue);
+  dual0_expand_kernel<<<artc::grid_for(n_dual, kDual0Rows), kDual0Threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint2*>(rows), static_cast<const uint8_t*>(idx),
+      static_cast<const uint32_t*>(esc_idx), static_cast<const uint2*>(esc_val),
+      static_cast<int4*>(static_cast<void*>(out)), int(n_rows < kDual0Dict ? n_rows : kDual0Dict),
+      n_dual, ne);
+  return check_launch(g_dual0_launches);
+}
+
+// artc_dual0_expand's arguments and grid, launching the empty kernel.
+ARTC_API int artc_launch_floor(const void*, const void*, const void*, const void*, int*,
+                               long long, long long n_dual, long long, void* stream) {
+  if (n_dual <= 0) return int(cudaGetLastError());
+  launch_floor_kernel<<<artc::grid_for(n_dual, kDual0Rows), kDual0Threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
   return int(cudaGetLastError());
 }
 
@@ -1326,7 +1410,8 @@ ARTC_API int artc_dual0_expand(const int* rows, const int* idx, const int* esc_i
 // buffers) and sync (kSyncStride ints: the barrier line and its counters).
 ARTC_API int artc_model_pass_v4(const int* kind, const int* slot, const int* prior,
                                 const int* dk_d, const int* dk_s, const int* deltas,
-                                const int* dual0, const int* sig0_idx, const int* sig0_val,
+                                const int* dual0, const int* sig0_idx,
+                                const uint16_t* sig0_val,
                                 int* dual, int* sig, int* cst, int* sync, int* probs,
                                 long long G, long long dkd_stride, long long dks_stride,
                                 long long k_sig0, long long n_dual, long long n_sig,

@@ -24,6 +24,7 @@ analysis.py (re-exported here); every public entry takes an explicit
 from __future__ import annotations
 
 import ctypes
+import os
 import time
 from dataclasses import dataclass
 
@@ -103,24 +104,38 @@ def _build_blob4(an: Analysis, c: SlimChunk, layout: tuple, dk_d: np.ndarray | N
 
 def _dual0_dict(c: SlimChunk) -> tuple[np.ndarray, ...]:
     """The dual0 row dictionary as avrecode_tpu.device._stage_v4 uploads it:
-    rows u16[256, 4], idx u8[n_dual], escape rows padded to a power of two
-    (pad indices = n_dual drop)."""
-    ned = _bucket_pow2(max(len(c.d0_esc_idx), 1))
-    ei = np.full(ned, len(c.d0_idx), np.uint32)
-    ei[:len(c.d0_esc_idx)] = c.d0_esc_idx
+    rows u16[256, 4], idx u8[n_dual], escape indices u32 and rows u16[., 4]
+    padded to a power of two (pad indices = n_dual drop).
+
+    The expand kernel finds a block's escapes by searching the list, so the
+    live escape indices must be strictly ascending and below n_dual, as the
+    native writer emits them (one per row, in row order); a list that is not
+    raises here instead of being expanded wrongly."""
+    n_dual = len(c.d0_idx)
+    live = c.d0_esc_idx.astype(np.int64)
+    if len(live) and (live[-1] >= n_dual or np.any(live[1:] <= live[:-1])):
+        raise ValueError("dual0 escape indices must be strictly ascending and below "
+                         f"n_dual={n_dual}")
+    ned = _bucket_pow2(max(len(live), 1))
+    ei = np.full(ned, n_dual, np.uint32)
+    ei[:len(live)] = c.d0_esc_idx
     ev = np.zeros((ned, 4), np.uint16)
-    ev[:len(c.d0_esc_idx)] = c.d0_esc_val
+    ev[:len(live)] = c.d0_esc_val
     rows = np.zeros((256, 4), np.uint16)
     rows[:len(c.d0_rows)] = c.d0_rows
     return rows, c.d0_idx, ei, ev
 
 
-def _i32(a: np.ndarray) -> torch.Tensor:
-    """Host array -> int32 tensor (u32 as its bit pattern, narrower types
-    widened)."""
-    if a.dtype in (np.uint32, np.int32):
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
-    return torch.from_numpy(a.astype(np.int32))
+# Wire dtype -> the tensor dtype that carries its bits (torch's unsigned
+# 16- and 32-bit types lack most operations).
+_WIRE_VIEW = {np.dtype(np.uint32): np.int32, np.dtype(np.int32): np.int32,
+              np.dtype(np.uint16): np.int16, np.dtype(np.uint8): np.uint8}
+
+
+def _wire(a: np.ndarray) -> torch.Tensor:
+    """Host array -> tensor of the same width (u32 as int32 and u16 as int16
+    bit patterns, u8 as uint8): what the JAX staging ships, byte for byte."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(_WIRE_VIEW[a.dtype]))
 
 
 @dataclass
@@ -132,8 +147,8 @@ class StagedChunk:
     blob: torch.Tensor            # int32[total_words] (u32 bit patterns)
     sc: torch.Tensor              # int32[5] = [wa, wb, wcs, n, n_coo]
     dual0: torch.Tensor           # int32[n_dual, 4]
-    s_idx: torch.Tensor | None    # int32[k] warm sig rows (pad = n_sig) or None
-    s_val: torch.Tensor | None    # int32[k, 2]
+    s_idx: torch.Tensor | None    # int32[k] warm sig rows (u32; pad = n_sig) or None
+    s_val: torch.Tensor | None    # int16[k, 2] (u16 bit patterns)
     n: int
     m: int
     layout: tuple                 # (Lh, La, Lb, Lc, npi, ne, nc, ncc)
@@ -145,8 +160,9 @@ def to_torch_staged(an: Analysis, chunk: SlimChunk, device, cache: dict | None =
                     ) -> StagedChunk:
     """Stages one slim chunk on `device` (the port of avrecode_tpu.device
     ._stage_v4): uploads exactly the arrays the JAX staging uploads (fused
-    blob, scalar vector, dual0 row dictionary, padded sparse sig0 rows) as
-    int32 tensors and expands the dual0 dictionary there.
+    blob, scalar vector, dual0 row dictionary, padded sparse sig0 rows) at
+    their wire widths (`_wire`), counts their bytes as it does, and expands
+    the dual0 dictionary there.
 
     `cache` (key -> (owner array, tensor)) dedupes the tables that warm
     chunks alias: chunks >= 2 share chunk 1's dual0/sig0 arrays. Each entry
@@ -161,7 +177,7 @@ def to_torch_staged(an: Analysis, chunk: SlimChunk, device, cache: dict | None =
 
     def upload(a: np.ndarray) -> torch.Tensor:
         nonlocal wire_nbytes
-        t = _i32(a)
+        t = _wire(a)
         wire_nbytes += t.nbytes
         return t.to(device)
 
@@ -216,7 +232,8 @@ def device_probs(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device="cuda",
     for "cpu"); returns uint16 probs[n]. A slim
     chunk runs the frozen-batch pass; a profile-0 chunk runs the pass that
     `impl` (default ops.model_pass.default_impl()) names: "v2" on the native
-    export's tables, or "dict", "sort" or "mm"."""
+    export's tables (built on the host where the export has none), or
+    "dict", "sort" or "mm"."""
     if an.slim:
         probs, _ = _run_v4(an, chunk, device)
         return probs[:chunk.n].cpu().numpy().astype(np.uint16)
@@ -224,15 +241,17 @@ def device_probs(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device="cuda",
     impl = impl or mp.default_impl()
     sig0 = _sig0_dense(chunk, an.n_sig)
     if impl == "v2":
-        if chunk.v2_bin_u is None:
-            raise NotImplementedError(
-                "model_pass_v2 needs the native export's tables; building them on the "
-                "host (build_v2_inputs / run_chunk_v2) stays in the JAX package")
-        return mp.run_chunk_v2_tables(
-            chunk.kind, chunk.prior, chunk.pre_ones, chunk.pre_tot, chunk.v2_m,
-            chunk.v2_bin_u, chunk.v2_dk_d, chunk.v2_dk_s, chunk.v2_dd, chunk.v2_ds,
-            chunk.dual0, an.batch, an.sup, an.fast_w, an.slow_w, an.sig_w, an.sig_alpha,
-            an.n_sig, sig0=sig0, device=device)
+        if chunk.v2_bin_u is not None:
+            return mp.run_chunk_v2_tables(
+                chunk.kind, chunk.prior, chunk.pre_ones, chunk.pre_tot, chunk.v2_m,
+                chunk.v2_bin_u, chunk.v2_dk_d, chunk.v2_dk_s, chunk.v2_dd, chunk.v2_ds,
+                chunk.dual0, an.batch, an.sup, an.fast_w, an.slow_w, an.sig_w, an.sig_alpha,
+                an.n_sig, sig0=sig0, device=device)
+        # No native tables: build them on the host, as the JAX package does.
+        return mp.run_chunk_v2(chunk.bit, chunk.kind, chunk.key, chunk.prior, chunk.pre_ones,
+                               chunk.pre_tot, chunk.dual0, an.batch, mp.default_sup(),
+                               an.fast_w, an.slow_w, an.sig_w, an.sig_alpha, an.n_sig,
+                               sig0=sig0, device=device)
     return mp.run_chunk(chunk.bit, chunk.kind, chunk.key, chunk.prior, chunk.dual0, an.batch,
                         an.fast_w, an.slow_w, an.sig_w, an.sig_alpha, an.n_sig, impl=impl,
                         sig0=sig0, device=device)
@@ -329,7 +348,12 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
     stage_s (blob packing and uploads), launch_s (kernel launches),
     compact_s (the counts readback, which waits for the lane scan, and the
     compaction launch), dispatch_s (the whole chunk loop), emit_s
-    (downloads and blob assembly)."""
+    (downloads and blob assembly).
+
+    With ARTC_TIMING set (not "0") it prints the JAX package's lines, in its
+    order and format: per chunk fetch+dispatch with its MiB of wire, the
+    previous chunk's compaction, each emit, and the wire total."""
+    timing = os.environ.get("ARTC_TIMING", "") not in ("", "0")
     out = ctypes.POINTER(ctypes.c_uint8)()
     out_len = ctypes.c_size_t()
     n_chunks = lib.artc_session_analyze_begin(h, mp.default_sup(), 0)
@@ -353,6 +377,7 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
         clock = now
 
     for i in range(n_chunks):
+        t_chunk = clock
         rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out), ctypes.byref(out_len))
         raw = _fetch(rc, out, out_len)
         c = _parse_slim_chunk(np.frombuffer(raw, np.uint8), an, prev)
@@ -367,14 +392,28 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
         handles.append(lx.encode_interleaved_start(
             bits, probs, c.n, force_lanes or pick_lanes(c.n)))
         lap("launch_s")
+        if timing:
+            print(f"[artc] device chunk {i}: fetch+dispatch {clock - t_chunk:.3f}s "
+                  f"({st.wire_nbytes >> 20} MiB wire)", flush=True)
         if i > 0:
+            t_compact = clock
             compacted.append(lx.encode_interleaved_compact(handles[i - 1]))
             lap("compact_s")
+            if timing:
+                print(f"[artc] device chunk {i - 1}: compact {clock - t_compact:.3f}s",
+                      flush=True)
     if handles:
         compacted.append(lx.encode_interleaved_compact(handles[-1]))
         lap("compact_s")
     t_emit = time.monotonic()
-    blobs = [lx.encode_interleaved_emit(ch) for ch in compacted]
+    blobs = []
+    for i, ch in enumerate(compacted):
+        t0 = time.monotonic()
+        blobs.append(lx.encode_interleaved_emit(ch))
+        if timing:
+            print(f"[artc] device chunk {i}: emit {time.monotonic() - t0:.3f}s", flush=True)
+    if timing:
+        print(f"[artc] device wire total {wire_bytes / 1e6:.1f} MB", flush=True)
     if info is not None:
         info.update(spent)
         info["open_s"] = t_start - t_open
@@ -396,7 +435,7 @@ class MeshInputs:
     sc: torch.Tensor        # int32[G, 6] = [wa, wb, wcs, n, n_coo, ud_real]
     dual0: torch.Tensor     # int32[G, n_dual, 4]
     sig0_idx: torch.Tensor  # int32[G, SK] sparse warm sig rows (pad = n_sig, drops)
-    sig0_val: torch.Tensor  # int32[G, SK, 2]
+    sig0_val: torch.Tensor  # int16[G, SK, 2] (u16 bit patterns)
     n_arr: torch.Tensor     # int32[G] live bins per chunk
     statics: dict           # kwargs of parallel.pipeline.sharded_v4_compress_step
 
@@ -438,7 +477,7 @@ def mesh_inputs(an: Analysis, chunks: list[SlimChunk], n_gop: int, sup: int,
     SK = _bucket_pow2(max(max(len(c.sig0_idx) if c.sig0_idx is not None else 0
                               for c in chunks), 1))
     sig0_idx = np.full((G_pad, SK), an.n_sig, np.uint32)
-    sig0_val = np.zeros((G_pad, SK, 2), np.int32)
+    sig0_val = np.zeros((G_pad, SK, 2), np.uint16)
     for g, c in enumerate(chunks):
         dk_d = np.tile(dk_d0, (NS, 1))
         dk_s = np.tile(dk_s0, (NS, 1))
@@ -454,7 +493,7 @@ def mesh_inputs(an: Analysis, chunks: list[SlimChunk], n_gop: int, sup: int,
                    slow_w=int(an.slow_w), sig_w=int(an.sig_w), sig_alpha=int(an.sig_alpha),
                    ud=int(UD), us=int(US), ns=int(NS), n_sig=int(an.n_sig), K_total=int(K),
                    layout=layout)
-    return MeshInputs(*(_i32(a) for a in (blob, sc, dual0, sig0_idx, sig0_val, n_arr)),
+    return MeshInputs(*(_wire(a) for a in (blob, sc, dual0, sig0_idx, sig0_val, n_arr)),
                       statics)
 
 

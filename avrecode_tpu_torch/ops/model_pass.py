@@ -8,9 +8,10 @@ Counterpart of avrecode_tpu/ops/model_pass.py:
       per-sub-batch update-delta table (single device, mesh=False);
     - `model_pass_v4` / `v3_core`: the frozen-batch probability scan;
   - profile 0 (immediate increments, the dense analysis export):
-    - `model_pass_v2` (+ `run_chunk_v2_tables`): the super-batched scan with
-      host-shipped within-batch prefix counts (ARTC_MODEL_IMPL=v2, the
-      default);
+    - `model_pass_v2` (+ `run_chunk_v2_tables` on the native export's
+      tables, `run_chunk_v2` + `build_v2_inputs` where it has none): the
+      super-batched scan with host-shipped within-batch prefix counts
+      (ARTC_MODEL_IMPL=v2, the default);
     - `model_pass_dict` (+ `build_dicts`, `run_chunk`): the per-batch
       dictionary pass (impl "dict");
     - `model_pass` (+ `run_chunk`): the per-batch scatter-add pass (impls
@@ -107,26 +108,81 @@ def dual0_expand(rows: torch.Tensor, idx: torch.Tensor, esc_idx: torch.Tensor,
     """ANL5 dual0 row dictionary -> dense int32[n_dual, 4]: row idx[i]
     (clamped to the last dictionary row) for table row i, then the exact
     escape rows at esc_idx (indices >= n_dual are padding and drop).
-    rows int32[R, 4], idx int32[n_dual], esc_idx int32[j], esc_val int32[j, 4]."""
+
+    The inputs are the wire's arrays at their widths (device._dual0_dict,
+    device._wire): rows int16[R, 4] and esc_val int16[j, 4] hold u16 bit
+    patterns, idx is uint8[n_dual], esc_idx int32[j] holds u32 bit patterns.
+    The kernel also takes the writer's order: the live escape indices
+    strictly ascending (device._dual0_dict checks it); the plain version
+    takes any list."""
     if _native.on_cpu("dual0_expand", rows):
         return _dual0_expand_plain(rows, idx, esc_idx, esc_val)
     return _dual0_expand_cuda(rows, idx, esc_idx, esc_val)
 
 
 def _dual0_expand_plain(rows, idx, esc_idx, esc_val):
-    d = rows[idx.to(torch.int64).clamp(0, rows.shape[0] - 1)]
+    d = (rows.to(torch.int32) & 0xFFFF)[idx.to(torch.int64).clamp(0, rows.shape[0] - 1)]
     keep = (esc_idx >= 0) & (esc_idx < d.shape[0])
-    d[esc_idx[keep].to(torch.int64)] = esc_val[keep]
+    d[esc_idx[keep].to(torch.int64)] = esc_val[keep].to(torch.int32) & 0xFFFF
     return d
 
 
-def _dual0_expand_cuda(rows, idx, esc_idx, esc_val):
-    _native.check_cuda("dual0_expand", rows, idx, esc_idx, esc_val)
-    if rows.dim() != 2 or rows.shape[1] != 4 or esc_val.shape != (esc_idx.shape[0], 4):
-        raise ValueError("dual0_expand: rows must be [R, 4], esc_val [j, 4]")
+def _dual0_expand_cuda(rows, idx, esc_idx, esc_val, entry="artc_dual0_expand"):
+    """One launch (csrc/model_pass.cu dual0_expand_kernel). With entry
+    "artc_launch_floor" the same call launches an empty kernel on the same
+    grid instead, uncounted: the floor under this wrapper's time."""
+    _native.check_cuda("dual0_expand", rows, idx, esc_idx, esc_val,
+                       dtype=(torch.int16, torch.uint8, torch.int32, torch.int16))
+    if rows.dim() != 2 or rows.shape[1] != 4 or not rows.shape[0] or idx.dim() != 1 \
+            or esc_val.shape != (esc_idx.shape[0], 4):
+        raise ValueError("dual0_expand: rows must be [R >= 1, 4], idx [n], esc_val [j, 4]")
+    if idx.data_ptr() % 16 or rows.data_ptr() % 8 or esc_val.data_ptr() % 8:
+        raise ValueError("dual0_expand: idx must start on 16 bytes, rows and esc_val on 8")
     out = torch.empty((idx.shape[0], 4), dtype=torch.int32, device=rows.device)
-    _native.launch("dual0_expand", "artc_dual0_expand", rows.device, rows, idx,
-                   esc_idx, esc_val, out, rows.shape[0], idx.shape[0], esc_idx.shape[0])
+    _native.launch("dual0_expand" if entry == "artc_dual0_expand" else None, entry,
+                   rows.device, rows, idx, esc_idx, esc_val, out, rows.shape[0],
+                   idx.shape[0], esc_idx.shape[0])
+    return out
+
+
+# csrc/model_pass.cu dual0_expand_kernel: rows a block, threads a block.
+_DUAL0_ROWS, _DUAL0_THREADS = 1024, 256
+
+
+def _dual0_expand_mirror(rows, idx, esc_idx, esc_val):
+    """dual0_expand by the kernel's formulation (numpy in, at the wire's
+    widths; int32[n_dual, 4] out): per block of _DUAL0_ROWS rows, the
+    dictionary's first 256 rows (an index past them clamped to the last),
+    the escape list narrowed by rounds of one strided probe a thread to a
+    window of one entry a thread that holds the block's first escape, then
+    walked from there one entry a thread while the entries stay below the
+    block's end, entries below its start skipped."""
+    n_rows = min(len(rows), 256)
+    dic = rows[:n_rows].astype(np.int64) & 0xFFFF
+    ei = esc_idx.astype(np.int64) & 0xFFFFFFFF
+    ne, n_dual, T = len(ei), len(idx), _DUAL0_THREADS
+    out = np.empty((n_dual, 4), np.int32)
+    for r0 in range(0, n_dual, _DUAL0_ROWS):
+        r1 = min(r0 + _DUAL0_ROWS, n_dual)
+        lo, hi = 0, ne
+        while hi - lo > T:
+            stride = -(-(hi - lo) // T)
+            probes = lo + np.arange(T) * stride
+            below = int((ei[probes[probes < hi]] < r0).sum())
+            if below:
+                hi, lo = min(lo + below * stride, hi), lo + (below - 1) * stride + 1
+            else:
+                hi = lo
+        row = dic[np.minimum(idx[r0:r1].astype(np.int64), n_rows - 1)]
+        e = lo + np.arange(T)
+        while True:
+            k = np.where(e < ne, ei[np.minimum(e, ne - 1)], 0xFFFFFFFF)
+            mine = (k >= r0) & (k < r1)
+            row[k[mine] - r0] = esc_val[e[mine]].astype(np.int64) & 0xFFFF
+            if not (k < r1).all():
+                break
+            e = e + T
+        out[r0:r1] = row
     return out
 
 
@@ -468,8 +524,9 @@ def v3_core(bit_all, kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, *
       ud-1, prior 1); bit_all is carried for the caller only.
     dk_d/dk_s: int32[ns, ud/us] per-super-step sorted-unique table rows.
     deltas: uint16[ns*sup, U, 2] per-sub-batch per-slot (ones, total).
-    dual0: int32[n_dual, 4] seeded dual table; sig0_idx int32[k] / sig0_val
-      int32[k, 2] the sparse warm sig rows (indices >= n_sig drop), or None.
+    dual0: int32[n_dual, 4] seeded dual table; sig0_idx int32[k] (u32 bit
+      patterns) / sig0_val int16[k, 2] (u16 bit patterns) the sparse warm
+      sig rows at their wire widths (indices >= n_sig drop), or None.
 
     Super-steps run in order over a dual table (n_dual+1+ud, 4), whose
     scratch rows hold ones, and a sig table (n_sig+us, 2), zeros with the
@@ -517,7 +574,7 @@ def _v3_core_plain(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, bat
     sig[n_sig:] = 1
     if sig0_idx is not None:
         keep = (sig0_idx >= 0) & (sig0_idx < n_sig)
-        sig[sig0_idx[keep].to(i64)] = sig0_val[keep].to(i64)
+        sig[sig0_idx[keep].to(i64)] = sig0_val[keep].to(i64) & 0xFFFF
     return _staged_scan_plain(kind_all, slot_all, prior_all, None, None, dk_d, dk_s,
                               d & 0xFFFF, d >> 16, dual, sig, batch, sup, fast_w, slow_w,
                               sig_w, sig_alpha)
@@ -617,7 +674,8 @@ def _v3_core_cuda(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, batc
     if sig0_idx is None:
         k_sig0, s_idx, s_val = 0, 0, 0
     else:
-        _native.check_cuda("v3_core", kind_all, sig0_idx, sig0_val)
+        _native.check_cuda("v3_core", kind_all, sig0_idx, sig0_val,
+                           dtype=(torch.int32, torch.int32, torch.int16))
         if sig0_idx.shape[0] != G or sig0_val.shape != (*sig0_idx.shape, 2):
             raise ValueError("v3_core: sig0_val must be [k, 2] per chunk")
         k_sig0, s_idx, s_val = sig0_idx.shape[1], sig0_idx, sig0_val
@@ -742,6 +800,81 @@ def run_chunk_v2_tables(kind, prior, pre_ones, pre_tot, v2_m, bin_u, dk_d, dk_s,
         batch=int(batch), sup=int(sup), fast_w=int(fast_w), slow_w=int(slow_w),
         sig_w=int(sig_w), sig_alpha=int(sig_alpha))
     return probs[:n].cpu().numpy().astype(np.uint16)
+
+
+def build_v2_inputs(bit_p, kind_p, key_p, n_dual_ext, n_sig, batch, sup):
+    """The host's (numpy) tables of model_pass_v2 where the native export has
+    none, a copy of avrecode_tpu.ops.model_pass.build_v2_inputs: per
+    super-step sorted-unique dictionaries, per-bin dictionary indices, and
+    per-sub-batch per-entry (ones, total) deltas. Returns (bin_u, dk_d,
+    dk_s, dd, ds, ud, us)."""
+    n = len(kind_p)
+    ns = n // (sup * batch)
+    off = np.int64(1) << 32
+    sent = off * 2
+    ukey = np.where(kind_p == 2, key_p.astype(np.int64) + off, key_p.astype(np.int64))
+    ukey = np.where(kind_p == 3, sent, ukey)  # ext/pad bins own no dict entry
+    slab = ukey.reshape(ns, sup * batch)
+    uniqs, invs, nds = [], [], []
+    for i in range(ns):
+        u, inv = np.unique(slab[i], return_inverse=True)
+        if u[-1] == sent:
+            u = u[:-1]
+        uniqs.append(u)
+        invs.append(inv.astype(np.int32))
+        nds.append(int(np.searchsorted(u, off)))
+    max_d = max(nds, default=0)
+    max_s = max((len(u) - nd for u, nd in zip(uniqs, nds)), default=0)
+    ud = _bucket(max_d + 1)
+    us = _bucket(max_s + 1)
+    dk_d = np.empty((ns, ud), np.int32)
+    dk_s = np.empty((ns, us), np.int32)
+    bin_u = np.empty((ns, sup * batch), np.int32)
+    dd = np.zeros((ns, sup, ud, 2), np.int32)
+    ds = np.zeros((ns, sup, us, 2), np.int32)
+    m_dual = ((kind_p == 0) | (kind_p == 1)).astype(np.int32).reshape(ns, sup, batch)
+    m_sig = (kind_p == 2).astype(np.int32).reshape(ns, sup, batch)
+    bit_3 = bit_p.astype(np.int32).reshape(ns, sup, batch)
+    for i in range(ns):
+        u, inv, nd = uniqs[i], invs[i], nds[i]
+        nu = len(u)
+        dk_d[i, :nd] = u[:nd].astype(np.int32)
+        dk_d[i, nd:] = n_dual_ext + np.arange(ud - nd, dtype=np.int32)
+        dk_s[i, :nu - nd] = (u[nd:] - off).astype(np.int32)
+        dk_s[i, nu - nd:] = n_sig + np.arange(us - (nu - nd), dtype=np.int32)
+        bin_u[i] = np.where(inv < nd, inv, np.where(inv < nu, ud + inv - nd, ud - 1))
+        inv3 = inv.reshape(sup, batch)
+        for s in range(sup):
+            iv = inv3[s]
+            w_d = m_dual[i, s]
+            w_s = m_sig[i, s]
+            dd[i, s, :nd, 1] = np.bincount(iv, weights=w_d, minlength=nu)[:nd]
+            dd[i, s, :nd, 0] = np.bincount(iv, weights=w_d * bit_3[i, s], minlength=nu)[:nd]
+            ds[i, s, :nu - nd, 1] = np.bincount(iv, weights=w_s, minlength=nu)[nd:nu]
+            ds[i, s, :nu - nd, 0] = np.bincount(iv, weights=w_s * bit_3[i, s],
+                                                minlength=nu)[nd:nu]
+    return bin_u, dk_d, dk_s, dd, ds, ud, us
+
+
+def run_chunk_v2(bit, kind, key, prior, pre_ones, pre_tot, dual0, batch, sup, fast_w,
+                 slow_w, sig_w, sig_alpha, n_sig, sig0=None, *, device):
+    """model_pass_v2 over one chunk whose export has no v2 tables (numpy in,
+    uint16 probs[n] out), as avrecode_tpu.ops.model_pass.run_chunk_v2: pads
+    the stream to whole super-steps (a power of two of them; pad bins are
+    kind-3 no-ops), builds the tables on the host (build_v2_inputs) and runs
+    them through run_chunk_v2_tables on `device`."""
+    n = len(bit)
+    if n == 0:
+        return np.zeros(0, np.uint16)
+    span = sup * batch
+    m = _bucket(-(-n // span)) * span
+    pad = m - n
+    bin_u, dk_d, dk_s, dd, ds, _, _ = build_v2_inputs(
+        _padded(bit, pad, 0), _padded(kind, pad, 3), _padded(key, pad, 0),
+        dual0.shape[0] + 1, n_sig, batch, sup)  # + the scratch row ext bins target
+    return run_chunk_v2_tables(kind, prior, pre_ones, pre_tot, m, bin_u, dk_d, dk_s, dd, ds,
+                               dual0, batch, sup, fast_w, slow_w, sig_w, sig_alpha, n_sig,
+                               sig0=sig0, device=device)
 
 
 # ---------------------------------------------- model_pass_dict / model_pass
@@ -1265,7 +1398,7 @@ def _v3_core_mirror(kind_all, slot_all, prior_all, dk_d, dk_s, deltas, dual0, ba
     if sig0_idx is not None:
         si = sig0_idx.numpy().astype(np.int64)
         keep = (si >= 0) & (si < n_sig)
-        sig[si[keep]] = sig0_val.numpy()[keep]
+        sig[si[keep]] = sig0_val.numpy()[keep].astype(np.int64) & 0xFFFF
     i64 = [x.numpy().astype(np.int64) for x in (kind_all, slot_all, prior_all, dk_d, dk_s)]
     return torch.from_numpy(_scan_mirror(*i64[:3], None, None, *i64[3:], d & 0xFFFF, d >> 16,
                                          dual, sig, batch, sup, fast_w, slow_w, sig_w,

@@ -1,6 +1,7 @@
-"""Synthetic inputs for the kernel checks of the wire expand and the lane
-compaction, made from a seed with numpy: the CPU tests hold the plain
-versions and the numpy mirrors against the JAX package on them, and
+"""Synthetic inputs for the kernel checks of the wire expand, the dual0
+expand and the lane compaction, made from a seed with numpy: the CPU tests
+hold the plain versions and the numpy mirrors against the JAX package on
+them, and
 chip_smoke.py and the card tests hold the kernels against the plain
 versions on the same inputs. Nothing on the main path calls this module.
 """
@@ -141,3 +142,48 @@ def lane_planes(rng, T: int, K: int):
         emits[:, K // 2] = 0
         emits[:, -1] = 1
     return rng.integers(0, 65536, (T, K)).astype(np.int32), emits
+
+
+# name -> (seed, n_dual, dictionary rows, live escapes, where they lie):
+# no escapes; escapes at row 0 and row n_dual - 1; escapes only in the first
+# block, so the later blocks see only padding; a dictionary of fewer than 256
+# rows (indices past it clamp); every row of a block an escape (four rounds
+# of the kernel's escape loop); 70,000 escapes (three search rounds); and
+# bench.mp4's shape. No n_dual is a multiple of the kernel's 1024 rows.
+DUAL0_CASES = {
+    "no_escapes": (1, 5000, 256, 0, "random"),
+    "ends": (2, 3001, 256, 40, "ends"),
+    "padding_blocks": (3, 4100, 256, 300, "first_block"),
+    "short_dict": (4, 2049, 100, 25, "random"),
+    "dense_block": (5, 2500, 256, 1024, "second_block"),
+    "many": (6, 200_001, 256, 70_000, "random"),
+    "bench_shape": (7, 177_663, 256, 2306, "random"),
+}
+
+
+def dual0_case(case: str):
+    """A dual0 row dictionary as device._dual0_dict returns it: rows
+    u16[R, 4], idx u8[n_dual], escape indices u32 (live ones strictly
+    ascending, padded to a power of two with n_dual) and rows u16[., 4]."""
+    seed, n_dual, R, n_esc, where = DUAL0_CASES[case]
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 1 << 16, (R, 4)).astype(np.uint16)
+    idx = rng.integers(0, 256, n_dual).astype(np.uint8)
+    if where == "ends":
+        live = np.concatenate([[0, n_dual - 1], rng.choice(np.arange(1, n_dual - 1),
+                                                            n_esc - 2, replace=False)])
+    elif where == "first_block":
+        live = rng.choice(1024, n_esc, replace=False)
+    elif where == "second_block":
+        live = 1024 + np.arange(n_esc)
+    else:
+        live = rng.choice(n_dual, n_esc, replace=False)
+    live = np.sort(live)
+    ned = 16
+    while ned < max(n_esc, 1):
+        ned *= 2
+    ei = np.full(ned, n_dual, np.uint32)
+    ei[:n_esc] = live
+    ev = np.zeros((ned, 4), np.uint16)
+    ev[:n_esc] = rng.integers(0, 1 << 16, (n_esc, 4))
+    return rows, idx, ei, ev

@@ -29,6 +29,13 @@ Phases; any failure ends the script with a nonzero exit code:
    plain versions), and the product step's device time on a 1x1, a 2x2 and
    a 4x2 grid of this one card (cells on their own streams), the 4x2 grid
    of both steps held exact too.
+   The dual0 expand (row 2) takes the dictionary at its wire widths, as
+   staged; it is also held against its plain version on synthetic
+   dictionaries (avrecode_tpu_torch/testing.py: no escapes, escapes at row
+   0 and row n_dual - 1, blocks with only padding escapes, a short
+   dictionary, a block of escapes only, 70,000 escapes; n_dual never a
+   multiple of the block), and its launch floor (an empty kernel through
+   the same wrapper path) is timed beside it.
    The expand is also held against its plain version on synthetic blobs
    (avrecode_tpu_torch/testing.py: live COO entries past the runs, slots
    past their row, no escapes, m and U not multiples of 4, U = 16,384, no
@@ -41,12 +48,17 @@ Phases; any failure ends the script with a nonzero exit code:
    pad bins on the scratch key, 1, 3 and 70 batches, batches of 512, 4096
    and 12288 and a chunk axis of 3, with their pre-pass and their chain
    timed apart and the launches a call makes printed.
+   The v2 fallback: bench.mp4's profile-0 chunk 0 without the native v2
+   tables, which device_probs builds on the host, equals the host model
+   and run_chunk_v2_tables.
    All values are integers, so the tolerance is 0;
 3. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - compress(device="cuda") under profile 2 on bench.mp4 and
      multigop720.mp4 (one warm-up, best of 3): probs == host model, lane
-     blobs == C++ encoder, exact roundtrip;
+     blobs == C++ encoder, exact roundtrip, and `wire_bytes` == the nbytes
+     of the arrays the staging builds (printed beside it; the comparison
+     with the JAX package's count is tests/test_torch_wire.py's);
    - compress(model_profile=0) with ARTC_MODEL_IMPL=v2 on both clips (one
      warm-up, best of 3), dict, sort and mm once each on bench.mp4: the same
      checks, and the containers identical across impls;
@@ -68,6 +80,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import dataclasses
 import glob
 import json
 import os
@@ -343,15 +356,25 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
         timed = ci == 0
         st = td.to_torch_staged(an, c, dev)
         what = f"bench chunk {ci} (n={c.n}, m={c.m}, ud={c.ud}, us={c.us})"
-        # dual0_expand
-        d0 = [td._i32(a).to(dev) for a in td._dual0_dict(c)]
+        # dual0_expand, on the dictionary at its wire widths, as staged
+        d0 = [td._wire(a).to(dev) for a in td._dual0_dict(c)]
         got = mp.dual0_expand(*d0)
+        made = _native.dual0_launches()
         K.check("dual0_expand", got, mp._dual0_expand_plain(*d0), what)
+        K.check("dual0_expand", st.dual0, got, f"{what}: the staged table")
         if timed:
             K.ms["dual0_expand"] = cuda_ms(lambda: mp.dual0_expand(*d0), 20)
             K.plain_ms["dual0_expand"] = cuda_ms(lambda: mp._dual0_expand_plain(*d0), 5)
+            # The launch floor: the same wrapper path launching an empty
+            # kernel on the same grid (uncounted), timed the same way.
+            floor_ms = cuda_ms(lambda: mp._dual0_expand_cuda(
+                *d0, entry="artc_launch_floor"), 20)
+            K.extra["dual0_expand"] = {"launches_in_call": made, "launch_floor_ms": floor_ms}
             # a gather of n_dual rows and the escape rows' scatter, 4 columns each
             K.work["dual0_expand"] = (nbytes(*d0, got), 4 * (d0[1].numel() + d0[2].numel()))
+            print(f"dual0_expand on {what}: {K.ms['dual0_expand']:.4f} ms a call, the launch "
+                  f"floor (an empty kernel through the same wrapper) {floor_ms:.4f} ms",
+                  flush=True)
         # wire_expand4_blob
         ex = st.statics["expand"]
         eargs = [ex[k] for k in ("m", "nsub", "U", "ud", "us", "ns", "batch", "layout")]
@@ -434,6 +457,26 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
             K.work["lane_compact"] = (nbytes(words, emits, out), 3 * words.numel())
         print(f"kernels == plain on {what}", flush=True)
     lane_streams(K, dev)
+    dual0_cases(K, dev)
+
+
+def dual0_cases(K: Kernels, dev) -> None:
+    """The dual0 expand on avrecode_tpu_torch/testing.py's dictionaries: no
+    escapes, escapes at row 0 and row n_dual - 1, blocks that see only
+    padding escapes, a dictionary of fewer than 256 rows, a block of
+    escapes only, 70,000 escapes, bench.mp4's shape (no n_dual a multiple
+    of the kernel's block), each also with an index vector 5 rows short."""
+    from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch.ops import model_pass as mp
+    from avrecode_tpu_torch.testing import DUAL0_CASES, dual0_case
+    for case in DUAL0_CASES:
+        d0 = [td._wire(a).to(dev) for a in dual0_case(case)]
+        short = [d0[0], d0[1][:d0[1].shape[0] - 5], *d0[2:]]
+        for args, what in ((d0, case), (short, f"{case}, n_dual - 5")):
+            K.check("dual0_expand", mp.dual0_expand(*args), mp._dual0_expand_plain(*args),
+                    f"the dictionary {what}")
+    print(f"dual0_expand == plain on {len(DUAL0_CASES)} synthetic dictionaries "
+          f"({', '.join(DUAL0_CASES)}), each also 5 rows short", flush=True)
 
 
 def expand_compact_cases(K: Kernels, dev) -> None:
@@ -453,7 +496,7 @@ def expand_compact_cases(K: Kernels, dev) -> None:
     made = {}
     for case in (*EXPAND_CASES, "empty_coo_stream"):
         blob, sc, kw = expand_case(case)
-        b, s = td._i32(blob), td._i32(sc)
+        b, s = td._wire(blob), td._wire(sc)
         got = mp.wire_expand4_blob(b.to(dev), s.to(dev), **kw)
         made[case] = _native.expand_launches()
         for g, w in zip(got, mp.wire_expand4_blob(b, s, **kw)):
@@ -744,7 +787,8 @@ def scan_cases(K: Kernels, dev) -> None:
         args = [up(a) for a in (*x["planes"], x["dk_d"], x["dk_s"])] + [
             torch.from_numpy(x["deltas"].view(np.int16)).to(dev).view(torch.uint16),
             up(x["dual0"])]
-        si, sv = up(x["si"]), up(x["sv"])
+        si = up(x["si"])
+        sv = torch.from_numpy(x["sv"].astype(np.int16)).to(dev)  # u16 on the wire
         got = mp.v3_core(args[0], *args, sig0_idx=si, sig0_val=sv, **x["kw"])
         made[label] = _native.pass_launches()
         K.check("model_pass_v4", got, mp._v3_core_plain(*args, *x["kw"].values(), si, sv),
@@ -830,6 +874,21 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
     K.work["model_pass_v2"] = (nbytes(*planes, *tables, got),
                                model_ops(c.v2_m, ns * an.sup, ud + us) + 6 * c.v2_m)
     print(f"model_pass_v2 == plain == host on {what}", flush=True)
+
+    # The v2 fallback: the chunk without the native tables, which
+    # device_probs then builds on the host (run_chunk_v2), as JAX does.
+    bare = dataclasses.replace(c, v2_bin_u=None, v2_dk_d=None, v2_dk_s=None, v2_dd=None,
+                               v2_ds=None)
+    fallback, fallback_s = host_timed(lambda: td.device_probs(an, bare, dev, impl="v2"))
+    tables_probs = mp.run_chunk_v2_tables(
+        c.kind, c.prior, c.pre_ones, c.pre_tot, c.v2_m, c.v2_bin_u, c.v2_dk_d, c.v2_dk_s,
+        c.v2_dd, c.v2_ds, c.dual0, an.batch, an.sup, an.fast_w, an.slow_w, an.sig_w,
+        an.sig_alpha, an.n_sig, device=dev)
+    if not (np.array_equal(fallback, c.host_probs) and np.array_equal(fallback, tables_probs)):
+        raise AssertionError(f"device_probs(impl='v2') without the native tables != host "
+                             f"probs / run_chunk_v2_tables on {what}")
+    print(f"v2 fallback (tables built on the host, model_pass_v2 on the card) == host == "
+          f"run_chunk_v2_tables on {what}: {fallback_s:.3f} s on the host clock", flush=True)
 
     # model_pass_dict and model_pass on run_chunk's padded layout
     nb = bucket(-(-n // an.batch))
@@ -1146,6 +1205,27 @@ def recompress_kernel_phase(K: Kernels, dev):
     return step, staged
 
 
+def staged_nbytes(an) -> int:
+    """The nbytes of the numpy arrays that the port's staging builds for
+    these chunks (the fused blob, the scalars, the dual0 dictionary at its
+    wire widths, the padded warm sig rows), the tables that chunks alias
+    once: what `wire_bytes` must count. The comparison with the JAX
+    package's own count is tests/test_torch_wire.py's, on the CPU."""
+    from avrecode_tpu_torch import device as td
+    total, shipped = 0, set()
+    for c in an.chunks:
+        blob, sc = td._build_blob4(an, c, td._chunk_layout(c))
+        total += blob.nbytes + sc.nbytes
+        si, sv = td._sig0_sparse_padded(c, an.n_sig)
+        if si is not None and ("sig0", id(c.sig0_idx)) not in shipped:
+            shipped.add(("sig0", id(c.sig0_idx)))
+            total += si.nbytes + sv.nbytes
+        if ("dual0", id(c.d0_idx)) not in shipped:
+            shipped.add(("dual0", id(c.d0_idx)))
+            total += sum(a.nbytes for a in td._dual0_dict(c))
+    return total
+
+
 def main_path_phase(clips: dict, refs: dict, dev) -> dict:
     """compress(device=dev) on each clip: one warm-up, best of 3, then
     the checks on a further run that keeps its probs."""
@@ -1175,11 +1255,17 @@ def main_path_phase(clips: dict, refs: dict, dev) -> dict:
                 raise AssertionError(f"{name} chunk {i}: lane blob != C++ encoder")
         if not roundtrip_ok(comp, data):
             raise AssertionError(f"{name}: decompress(compress(x)) != x")
+        staged = staged_nbytes(refs[name])
+        if info["wire_bytes"] != staged:
+            raise AssertionError(f"{name}: wire_bytes {info['wire_bytes']} != {staged}, the "
+                                 f"nbytes of the staged arrays")
+        print(f"main path {name}: wire_bytes {info['wire_bytes']} (the nbytes of the staged "
+              f"arrays: {staged})", flush=True)
         best = min(times)
         report[name] = dict(bytes=len(data), container=len(comp), chunks=len(chunks),
                             bins=int(sum(c.n for c in chunks)), best_s=best,
                             runs_s=times, mb_s=len(data) / 1e6 / best,
-                            wire_bytes=info["wire_bytes"],
+                            wire_bytes=info["wire_bytes"], staged_nbytes=staged,
                             host_phases_s={k: info[k] for k in (
                                 "open_s", "fetch_s", "stage_s", "launch_s", "compact_s",
                                 "dispatch_s", "emit_s", "pack_s")})

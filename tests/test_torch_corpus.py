@@ -133,6 +133,30 @@ def test_corpus_cli(corpus_dir, tmp_path, capsys, kind):
     assert len(_outputs_roundtrip(in_dir, out_dir)) == n
 
 
+@pytest.mark.parametrize("chunk_mode", ["0", "1"])
+def test_corpus_cli_host_matches_jax(corpus_dir, tmp_path, capsys, chunk_mode):
+    """`corpus --host` runs the native host engine, as the JAX CLI's corpus
+    does without --device: with the same --chunk-mode both write identical
+    files, and their JSON reports agree in every field both have but the
+    clock's (wall_s, mb_s)."""
+    from avrecode_tpu import cli as jcli
+    in_dir = _inputs(corpus_dir, tmp_path)
+    reports, outs = [], []
+    for name, run in (("port", cli.main), ("jax", jcli.main)):
+        out_dir = tmp_path / name
+        args = ["corpus", str(in_dir), str(out_dir), "--chunk-mode", chunk_mode]
+        capsys.readouterr()
+        assert run(args + (["--host"] if name == "port" else [])) == 0
+        reports.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+        outs.append({n: (out_dir / n).read_bytes() for n in sorted(os.listdir(out_dir))})
+    assert outs[0] == outs[1] and len(outs[0]) == len(CLIPS)
+    shared = (set(reports[0]) & set(reports[1])) - {"wall_s", "mb_s"}
+    assert shared == {"process", "files", "failures", "input_bytes", "output_bytes", "ratio"}
+    assert {k: reports[0][k] for k in shared} == {k: reports[1][k] for k in shared}
+    assert reports[0]["device"] == "host"
+    assert _outputs_roundtrip(in_dir, tmp_path / "port") == sorted(n + ".atrc" for n in CLIPS)
+
+
 def test_init_distributed_without_coordinator_is_noop(monkeypatch):
     for k in ("JAX_COORDINATOR", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
         monkeypatch.delenv(k, raising=False)

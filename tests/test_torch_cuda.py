@@ -19,7 +19,8 @@ from avrecode_tpu_torch import _native
 from avrecode_tpu_torch import device as td
 from avrecode_tpu_torch.ops import lanes as tl
 from avrecode_tpu_torch.ops import model_pass as tmp
-from avrecode_tpu_torch.testing import EXPAND_CASES, expand_case, lane_planes
+from avrecode_tpu_torch.testing import (DUAL0_CASES, EXPAND_CASES, dual0_case, expand_case,
+                                        lane_planes)
 
 pytestmark = pytest.mark.cuda
 
@@ -71,8 +72,9 @@ def test_expand_and_model_kernels_match_plain(cuda, clip_analysis):
     _, an = clip_analysis
     c = an.chunks[0]
     st = td.to_torch_staged(an, c, cuda)
-    d0 = [td._i32(a).to(cuda) for a in td._dual0_dict(c)]
+    d0 = [td._wire(a).to(cuda) for a in td._dual0_dict(c)]
     _equal(tmp.dual0_expand(*d0), tmp._dual0_expand_plain(*d0))
+    _equal(st.dual0, tmp._dual0_expand_plain(*d0))
     ex = st.statics["expand"]
     planes = tmp.wire_expand4_blob(st.blob, st.sc, **ex)
     plain = tmp._wire_expand_plain(st.blob, st.sc, *(ex[k] for k in (
@@ -88,6 +90,28 @@ def test_expand_and_model_kernels_match_plain(cuda, clip_analysis):
                                                        "sig_w", "sig_alpha", "ud", "us",
                                                        "n_sig")), st.s_idx, st.s_val))
     assert np.array_equal(probs[:c.n].cpu().numpy(), c.host_probs.astype(np.int32))
+
+
+@pytest.mark.parametrize("case", list(DUAL0_CASES))
+def test_dual0_expand_edge_cases_match_plain(cuda, case):
+    """The one-launch dual0 expand on testing.py's dictionaries (no escapes,
+    escapes at rows 0 and n_dual - 1, blocks with only padding escapes, a
+    short dictionary, a block of escapes only, three search rounds, n_dual
+    never a multiple of the block) and on an idx slice whose end is not on
+    16 bytes: kernel == plain, one launch a call as the wrapper and the C
+    entry count it; the launch floor (the same wrapper path, an empty
+    kernel) counts nothing."""
+    d0 = [td._wire(a).to(cuda) for a in dual0_case(case)]
+    _native.reset_launches()
+    got = tmp.dual0_expand(*d0)
+    assert _native.launches["dual0_expand"] == 1
+    assert _native.dual0_launches() == 1
+    _equal(got, tmp._dual0_expand_plain(*d0))
+    short = [d0[0], d0[1][:d0[1].shape[0] - 5], *d0[2:]]
+    _equal(tmp.dual0_expand(*short), tmp._dual0_expand_plain(*short))
+    tmp._dual0_expand_cuda(*d0, entry="artc_launch_floor")
+    torch.cuda.synchronize()
+    assert _native.launches["dual0_expand"] == 2
 
 
 PROFILE2_KERNELS = ("wire_expand", "dual0_expand", "model_pass_v4", "lane_scan_dev",
@@ -350,7 +374,7 @@ def test_expand_kernel_edge_cases_match_plain(cuda, case):
     64 KB row: the shared-memory opt-in), and no COO entry at all:
     kernel == plain, in three launches."""
     blob, sc, kw = expand_case(case)
-    b, s = td._i32(blob), td._i32(sc)
+    b, s = td._wire(blob), td._wire(sc)
     got = tmp.wire_expand4_blob(b.to(cuda), s.to(cuda), **kw)
     assert _native.expand_launches() <= 3
     for g, w in zip(got, tmp.wire_expand4_blob(b, s, **kw)):
@@ -426,9 +450,9 @@ def _scan_inputs(rng, G, ns, sup, batch, ud, us, cap, n_dual=200, n_sig=300):
         rng.integers(0, 4, (G, m)), rng.integers(0, U, (G, m)), rng.integers(0, 65536, (G, m)),
         keys(n_dual + 1 + ud, ud), keys(n_sig + us, us))]
     deltas = torch.from_numpy(np.stack([one, tot], -1).astype(np.int16)).view(torch.uint16)
-    dual0, si, sv = (torch.from_numpy(a.astype(np.int32)) for a in (
-        rng.integers(1, 30, (G, n_dual, 4)), rng.integers(0, n_sig + 3, (G, 7)),
-        rng.integers(0, 40, (G, 7, 2))))
+    dual0, si = (torch.from_numpy(a.astype(np.int32)) for a in (
+        rng.integers(1, 30, (G, n_dual, 4)), rng.integers(0, n_sig + 3, (G, 7))))
+    sv = torch.from_numpy(rng.integers(0, 40, (G, 7, 2)).astype(np.int16))  # u16 on the wire
     kw = dict(batch=batch, sup=sup, fast_w=48, slow_w=640, sig_w=80, sig_alpha=(24 << 16) | 12,
               ud=ud, us=us, n_sig=n_sig)
     return [*t, deltas, dual0], si, sv, kw

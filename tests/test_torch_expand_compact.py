@@ -48,7 +48,7 @@ def _jax(blob_u32, sc, **kw):
 
 
 def _plain(blob_u32, sc, **kw):
-    out = tmp.wire_expand4_blob(td._i32(blob_u32), td._i32(sc), **kw)
+    out = tmp.wire_expand4_blob(td._wire(blob_u32), td._wire(sc), **kw)
     planes = [x.numpy().astype(np.int64) for x in out[:4]]
     return (*planes, out[4].view(torch.int32).numpy().view(np.uint32).astype(np.int64)
             .reshape(out[4].shape[:-1]))

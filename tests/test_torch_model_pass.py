@@ -3,6 +3,7 @@
 JAX package's functions on the same staged inputs, and against the host
 model's probabilities. Every value is an integer: every comparison is exact.
 """
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ from avrecode_tpu_torch import _native
 from avrecode_tpu_torch import device as td
 from avrecode_tpu_torch.ops import intmath as im
 from avrecode_tpu_torch.ops import model_pass as tmp
+from avrecode_tpu_torch.testing import DUAL0_CASES, dual0_case
 
 # Built here, under the port's lock, before any test of any module can reach
 # the host library's unlocked build (see _native.ensure_host_lib).
@@ -62,7 +64,7 @@ def _sig0(an, c):
     si, sv = jd._sig0_sparse_padded(c, an.n_sig)
     if si is None:
         return None, None, None, None
-    return jnp.asarray(si), jnp.asarray(sv), td._i32(si), td._i32(sv)
+    return jnp.asarray(si), jnp.asarray(sv), td._wire(si), td._wire(sv)
 
 
 @pytest.mark.parametrize("clip", list(CLIPS))
@@ -89,7 +91,7 @@ def test_wire_expand_matches_jax(analyses, clip):
         kw = _expand_kw(an, c, layout)
         want = [np.asarray(x) for x in jmp.wire_expand4_blob(jnp.asarray(blob),
                                                              jnp.asarray(sc), **kw)]
-        got = tmp.wire_expand4_blob(td._i32(blob), td._i32(sc), **kw)
+        got = tmp.wire_expand4_blob(td._wire(blob), td._wire(sc), **kw)
         for name, w, g in zip(("bit", "kind", "slot", "prior", "deltas", "dk_d", "dk_s"),
                               want, got):
             g = g.numpy()
@@ -103,13 +105,63 @@ def test_wire_expand_matches_jax(analyses, clip):
 
 @pytest.mark.parametrize("clip", list(CLIPS))
 def test_dual0_expand_matches_jax(analyses, clip):
+    """The plain version and the kernel's numpy mirror, on the dictionary
+    at its wire widths (as staged), equal JAX's dual0_expand and the dense
+    table on every chunk."""
     an = analyses(clip)
     for c in an.chunks:
         d0 = td._dual0_dict(c)
+        assert [a.dtype for a in d0] == [np.uint16, np.uint8, np.uint32, np.uint16]
         want = np.asarray(jmp.dual0_expand(*(jnp.asarray(a) for a in d0)))
-        got = tmp.dual0_expand(*(td._i32(a) for a in d0)).numpy()
+        got = tmp.dual0_expand(*(td._wire(a) for a in d0)).numpy()
         assert np.array_equal(got, want.astype(np.int32))
         assert np.array_equal(got, c.dual0.astype(np.int32))
+        assert np.array_equal(tmp._dual0_expand_mirror(*d0), got)
+
+
+@pytest.mark.parametrize("case", list(DUAL0_CASES))
+def test_dual0_expand_synthetic_matches_jax(case):
+    """On testing.py's dictionaries (no escapes, escapes at the first and
+    last rows, blocks with only padding escapes, a short dictionary whose
+    indices clamp, a block of escapes only, 70,000 escapes, bench.mp4's
+    shape): plain == the kernel's mirror == JAX."""
+    d0 = dual0_case(case)
+    want = np.asarray(jmp.dual0_expand(*(jnp.asarray(a) for a in d0))).astype(np.int32)
+    assert np.array_equal(tmp.dual0_expand(*(td._wire(a) for a in d0)).numpy(), want)
+    assert np.array_equal(tmp._dual0_expand_mirror(*d0), want)
+
+
+@pytest.mark.parametrize("fault", ["descending", "duplicate", "past_end"])
+def test_dual0_escapes_out_of_order_raise(analyses, fault):
+    """The kernel searches the escape list, so it needs the writer's order:
+    live indices strictly ascending and below n_dual. A list that breaks it
+    raises in the staging instead of being expanded (for the descending
+    list the kernel's mirror shows that its search would not give JAX's
+    table)."""
+    an = analyses("i_main.264")
+    c = an.chunks[0]
+    n_dual = len(c.d0_idx)
+    rng = np.random.default_rng(3)
+    ei = np.sort(rng.choice(n_dual, 300, replace=False))  # past one search window
+    if fault == "descending":
+        ei = ei[::-1]
+    elif fault == "duplicate":
+        ei[1] = ei[0]
+    else:
+        ei[-1] = n_dual
+    ev = rng.integers(0, 1 << 16, (len(ei), 4)).astype(np.uint16)
+    bad = dataclasses.replace(c, d0_esc_idx=ei.astype(np.uint32), d0_esc_val=ev)
+    with pytest.raises(ValueError, match="strictly ascending"):
+        td._dual0_dict(bad)
+    with pytest.raises(ValueError, match="strictly ascending"):
+        td.to_torch_staged(an, bad, "cpu")
+    if fault == "descending":
+        rows, idx, _, _ = td._dual0_dict(c)
+        pad = 512 - len(ei)
+        d0 = (rows, idx, np.concatenate([ei, np.full(pad, n_dual)]).astype(np.uint32),
+              np.concatenate([ev, np.zeros((pad, 4), np.uint16)]))
+        want = np.asarray(jmp.dual0_expand(*(jnp.asarray(a) for a in d0)))
+        assert not np.array_equal(tmp._dual0_expand_mirror(*d0), want.astype(np.int32))
 
 
 def _v3_case(an, c):
@@ -129,7 +181,7 @@ def _v3_case(an, c):
     tp = [torch.from_numpy(np.asarray(x).astype(np.int32)) for x in planes[:4]]
     deltas = torch.from_numpy(np.asarray(planes[4]).copy())
     dk = [torch.from_numpy(np.asarray(x).view(np.int32).copy()) for x in planes[5:]]
-    args = (*tp, *dk, deltas, tmp.dual0_expand(*(td._i32(a) for a in d0)))
+    args = (*tp, *dk, deltas, tmp.dual0_expand(*(td._wire(a) for a in d0)))
     return np.asarray(want).astype(np.int32), args, dict(sig0_idx=t_si, sig0_val=t_sv, **mkw)
 
 

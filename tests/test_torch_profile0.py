@@ -5,6 +5,7 @@ model_pass (sort, mm), the masked lane scan, encode_interleaved and
 compress(model_profile=0). Every value is an integer: every comparison is
 exact.
 """
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -265,7 +266,8 @@ def test_compress_profile0_identical_to_jax(corpus_dir, monkeypatch, clip, impl)
 
 def test_profile0_rejects_unknown_impl_and_missing_tables(analyses):
     """An unknown ARTC_MODEL_IMPL raises, as in JAX; a chunk without the
-    native v2 tables raises (building them stays JAX-only)."""
+    native v2 tables takes JAX's fallback: the tables built on the host
+    (run_chunk_v2), with the same probs as JAX's device_probs."""
     an = analyses("i_main.264")
     c = an.chunks[0]
     with pytest.raises(ValueError, match="impl"):
@@ -277,5 +279,44 @@ def test_profile0_rejects_unknown_impl_and_missing_tables(analyses):
                        slow_w=1, sig_w=1, sig_alpha=1, impl="v2")
     bare = jd.ChunkAnalysis(c.bit, c.kind, c.key, c.prior, c.pre_ones, c.pre_tot,
                             c.host_probs, c.dual0)
-    with pytest.raises(NotImplementedError):
-        td.device_probs(an, bare, "cpu", impl="v2")
+    got = td.device_probs(an, bare, "cpu", impl="v2")
+    assert got.dtype == np.uint16 and np.array_equal(got, c.host_probs)
+    assert np.array_equal(got, jd.device_probs(an, bare, impl="v2"))
+
+
+@pytest.mark.parametrize("sup", [1, 4])
+def test_run_chunk_v2_matches_host_and_jax(analyses, sup):
+    """The port's run_chunk_v2 (host-built tables, the counterpart of
+    test_device_model.py's test_model_pass_v2_bit_exact_all_impls) equals
+    the host model's probs and JAX's run_chunk_v2 at sup 1 and 4."""
+    an = analyses("i_main.264")
+    c = an.chunks[0]
+    args = (c.bit, c.kind, c.key, c.prior, c.pre_ones, c.pre_tot, c.dual0, an.batch, sup,
+            an.fast_w, an.slow_w, an.sig_w, an.sig_alpha, an.n_sig)
+    got = tmp.run_chunk_v2(*args, device="cpu")
+    assert got.dtype == np.uint16 and np.array_equal(got, c.host_probs)
+    assert np.array_equal(got, jmp.run_chunk_v2(*args))
+
+
+@pytest.mark.parametrize("clip", ["pcm_mixed.mp4", "multislice.264"])
+def test_build_v2_inputs_matches_jax(analyses, clip):
+    """build_v2_inputs (the port's copy) builds JAX's tables, field by field,
+    on kind-3 bins (pcm_mixed) and warm sections; with them the fallback
+    path of device_probs equals the host model on every chunk, a warm
+    chunk's sig0 included."""
+    an = analyses(clip)
+    sup = tmp.default_sup()
+    for c in an.chunks:
+        span = sup * an.batch
+        m = tmp._bucket(-(-len(c.bit) // span)) * span
+        pad = m - len(c.bit)
+        padded = [np.concatenate([a.astype(np.int32), np.full(pad, v, np.int32)])
+                  for a, v in ((c.bit, 0), (c.kind, 3), (c.key, 0))]
+        n_ext = c.dual0.shape[0] + 1
+        got = tmp.build_v2_inputs(*padded, n_ext, an.n_sig, an.batch, sup)
+        want = jmp.build_v2_inputs(*padded, n_ext, an.n_sig, an.batch, sup)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w) and np.asarray(g).dtype == np.asarray(w).dtype
+        bare = dataclasses.replace(c, v2_bin_u=None, v2_dk_d=None, v2_dk_s=None, v2_dd=None,
+                                   v2_ds=None)
+        assert np.array_equal(td.device_probs(an, bare, "cpu", impl="v2"), c.host_probs)

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Device time of the port's device kernels on one card, split by kernel:
 the frozen-batch model scans (rows 3 and 6 of PERF.md's kernel table:
-v3_core, model_pass_v2), the wire expand (row 1) and the lane compaction
-(row 5).
+v3_core, model_pass_v2), the wire expand (row 1), the dual0 expand (row 2)
+and the lane compaction (row 5).
 
-    python3 tools/profile_model_scan.py [--repo PATH] [--rows 1,3,5,6,10,11] [--check]
+    python3 tools/profile_model_scan.py [--repo PATH] [--rows 1,2,3,5,6,10,11] [--check]
 
 Runs the kernels of the avrecode_tpu_torch package found under PATH
 (default: this checkout; a `git archive` of another commit times that
 commit's kernels) at these shapes: benchdata/bench.mp4 chunk 0 under
 profile 2 (batch 4096, sup 128: the expand, v3_core, and the compaction of
 its lane scan's words), the same chunk under profile 0 (model_pass_v2),
+the dual0 expand of bench.mp4's chunks 0 and 1 on the dictionary as the
+checkout stages it (with, where the checkout has it, the launch floor: an
+empty kernel through the same wrapper path),
 multigop720.mp4's mesh shapes (chunk mode 1: the mesh-mode expand of its
 10 chunks in one call and of chunk 0 alone, v3_core over the chunk axis),
 and the mesh step of those chunks on a 1x1 and a 2x2 grid of this one card
@@ -148,6 +151,30 @@ def expand_cases(p2, mesh):
                lambda b=b, s=s: mp._wire_expand_plain(b, s, *margs))
 
 
+def dual0_cases(dev):
+    """Row 2: the dual0 expand at bench.mp4's chunks 0 (no escapes) and 1
+    (escapes), on the dictionary as the checkout stages it (its wire widths,
+    or int32 where the checkout widens them), then the launch floor where
+    the checkout has one."""
+    import inspect
+    from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch.ops import model_pass as mp
+    with open(os.path.join(HERE, "benchdata", "bench.mp4"), "rb") as f:
+        an = td.analyze(f.read(), batch_size=BATCH, model_profile=2, sup=SUP)
+    up = getattr(td, "_wire", None) or td._i32  # the parent widens to int32
+    for ci in (0, 1):
+        c = an.chunks[ci]
+        d0 = [up(a).to(dev) for a in td._dual0_dict(c)]
+        yield (f"dual0_expand bench.mp4 chunk {ci} (n_dual={len(c.d0_idx)}, "
+               f"escapes={len(c.d0_esc_idx)}, padded to {d0[2].shape[0]}, "
+               f"idx {d0[1].dtype})",
+               lambda d0=d0: mp.dual0_expand(*d0), lambda d0=d0: mp._dual0_expand_plain(*d0))
+        if "entry" in inspect.signature(mp._dual0_expand_cuda).parameters:
+            yield (f"launch floor: dual0_expand's wrapper and grid, an empty kernel, bench.mp4 "
+                   f"chunk {ci}",
+                   lambda d0=d0: mp._dual0_expand_cuda(*d0, entry="artc_launch_floor"), None)
+
+
 def compact_cases(p2):
     """Row 5: the compaction of bench chunk 0's lane scan."""
     from avrecode_tpu_torch import device as td
@@ -260,6 +287,9 @@ def cases(rows: set):
     if 11 in rows:
         for case in recompress_cases(dev):
             yield (*case, 11)
+    if 2 in rows:
+        for case in dual0_cases(dev):
+            yield (*case, 2)
     if not rows & {1, 3, 5, 6, 10}:
         return
     p2 = _bench_p2(dev)
@@ -279,9 +309,10 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--repo", default=HERE, help="checkout whose port is timed")
-    p.add_argument("--rows", default="1,3,5,6,10,11",
-                   help="kernel table rows to time: 1 (expand), 5 (compaction), 3, 6 or "
-                        "10 (the scans and the mesh step), 11 (the pre-ANL5 mesh step)")
+    p.add_argument("--rows", default="1,2,3,5,6,10,11",
+                   help="kernel table rows to time: 1 (expand), 2 (dual0 expand), 5 "
+                        "(compaction), 3, 6 or 10 (the scans and the mesh step), 11 (the "
+                        "pre-ANL5 mesh step)")
     p.add_argument("--check", action="store_true", help="hold each result against plain")
     args = p.parse_args()
     rows = {int(r) for r in args.rows.split(",")}
@@ -297,14 +328,15 @@ def main() -> int:
     # Launches inside the last call, where the checkout counts them.
     inside = {1: getattr(_native, "expand_launches", None),
               5: getattr(_native, "compact_launches", None),
-              3: getattr(_native, "pass_launches", None), 11: None}
+              3: getattr(_native, "pass_launches", None),
+              2: getattr(_native, "dual0_launches", None), 11: None}
     for name, fn, plain, row in cases(rows):
         kernels = by_kernel(fn)
         out = {"case": name, "repo": os.path.relpath(os.path.abspath(args.repo), HERE),
                "card": torch.cuda.get_device_name(0), "call_ms": events_ms(fn),
                "host_ms": host_ms(fn),
                "busy_ms": sum(k["ms"] for k in kernels.values()), "by_kernel": kernels}
-        if inside[row] is not None:
+        if inside[row] is not None and (row != 2 or plain is not None):  # not the floor
             out["launches_in_call"] = inside[row]()
         if row == 3 and hasattr(mp, "scan_profile"):
             out["cycles"] = mp.scan_profile()

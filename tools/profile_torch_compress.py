@@ -5,11 +5,11 @@
 
 For each clip (default: benchdata/bench.mp4 and benchdata/multigop720.mp4):
 one warm-up compress, then one compress under torch.profiler (CPU and CUDA
-activities). Prints the host-clock phases of the compress loop (the `info`
-fields of avrecode_tpu_torch.device.compress), the device busy time read
-from the trace (kernels, copies and fills; one stream, so they do not
-overlap) with its share of the wall time, and the device time by kernel
-name. Writes each trace's key_averages table and a Chrome trace under DIR
+activities). Prints the host-clock phases of the compress loop and its
+upload bytes (the `info` fields of avrecode_tpu_torch.device.compress), the
+device busy time read from the trace (kernels, copies and fills; one
+stream, so they do not overlap) with its share of the wall time, and the
+device time by kernel name. Writes each trace's key_averages table and a Chrome trace under DIR
 (default avrecode_tpu_torch/build/profile, which git ignores).
 """
 from __future__ import annotations
@@ -55,6 +55,7 @@ def profile_clip(path: str, out_dir: str) -> dict:
         "wall_s": wall,
         "device_busy_s": busy_s,
         "device_busy_share": busy_s / wall,
+        "wire_bytes": info["wire_bytes"],
         "host_phases_s": {k: info[k] for k in ("open_s", "fetch_s", "stage_s", "launch_s",
                                                "compact_s", "dispatch_s", "emit_s",
                                                "pack_s")},
