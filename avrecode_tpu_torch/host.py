@@ -181,6 +181,23 @@ def decompress(data: bytes) -> tuple[bytes, Stats]:
     return _call(lib().artc_decompress, data)
 
 
+def rans_encode(bits, probs, lanes: int) -> bytes:
+    """One chunk's K-lane rANS blob from the C++ encoder (native/rans.h):
+    bits[n] (0/1) and probs[n] in [1, 32767]; what the device lane encode
+    must write byte for byte."""
+    import numpy as np
+    bits = np.ascontiguousarray(bits, np.uint8)
+    probs = np.ascontiguousarray(probs, np.uint16)
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    out_len = ctypes.c_size_t()
+    rc = lib().artc_rans_encode(bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                probs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+                                len(bits), lanes, ctypes.byref(out), ctypes.byref(out_len))
+    if rc != 0:
+        raise last_error()
+    return take(out, out_len)
+
+
 def pack_session(h, blobs: list[bytes]) -> tuple[bytes, Stats]:
     """Packs an open analysis session's container around the chunks' lane
     blobs (avrecode_tpu/device.py _pack_session)."""

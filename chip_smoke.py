@@ -69,6 +69,14 @@ Phases; any failure ends the script with a nonzero exit code:
      roundtrip;
    - sharded_recompress_step (the pre-ANL5 mesh step) on a 2x2 grid: probs
      == the single-device model_pass of each chunk;
+   - the modules a user calls besides compress, on bench.mp4 (the
+     profile-2 kernels must launch here too): the CLI with --device cuda
+     (compress, whose container must equal compress(device="cuda")'s;
+     info on it; decompress back to the input; roundtrip --bill),
+     pipeline.roundtrip, format_bill's table, MODEL_FAMILIES["refprior"]
+     against the analysis header and ops/intmath.py, the microbench
+     (--reps 5) and the bench (--reps 3 --host-reps 3) with their gates
+     passing; their JSON lines are printed, with the phase's seconds;
    - the corpus: two processes joined over gloo, each `cli corpus --device
      cuda --chunk-mode 1` over benchdata/*.mp4: both report the same merged stats, no
      failures, and every output roundtrips.
@@ -79,7 +87,6 @@ them, the per-kernel JSON and the result JSON.
 from __future__ import annotations
 
 import concurrent.futures
-import ctypes
 import dataclasses
 import glob
 import json
@@ -206,19 +213,8 @@ def nbytes(*tensors) -> int:
 
 def c_rans_encode(bits, probs, lanes: int) -> bytes:
     """The host C++ rANS encoder (native/rans.h) through the C ABI."""
-    import numpy as np
     from avrecode_tpu_torch import host
-    lib = host.lib()
-    bits = np.ascontiguousarray(bits, np.uint8)
-    probs = np.ascontiguousarray(probs, np.uint16)
-    out = ctypes.POINTER(ctypes.c_uint8)()
-    out_len = ctypes.c_size_t()
-    rc = lib.artc_rans_encode(bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                              probs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-                              len(bits), lanes, ctypes.byref(out), ctypes.byref(out_len))
-    if rc != 0:
-        raise host.last_error()
-    return host.take(out, out_len)
+    return host.rans_encode(bits, probs, lanes)
 
 
 def roundtrip_ok(comp: bytes, data: bytes) -> bool:
@@ -1361,6 +1357,100 @@ def mesh_main_path_phase(data: bytes, single: bytes, dev) -> dict:
     return report
 
 
+def _captured(main, argv) -> tuple[int, str]:
+    """(exit code, the last line printed) of an entry point's main(argv);
+    its other output goes to stderr."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    lines = out.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        print(line, file=sys.stderr)
+    return rc, lines[-1] if lines else ""
+
+
+def modules_phase(data: bytes, an, card: str, dev) -> dict:
+    """The CLI, pipeline, format_bill, refprior, the microbench and the
+    bench on CLIPS[0]; `an` is its profile-2 analysis, `card` nvidia-smi's
+    line. Any failure raises."""
+    from avrecode_tpu_torch import bench, cli, host, microbench, pipeline
+    from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch.models import MODEL_FAMILIES
+    from avrecode_tpu_torch.ops import intmath
+    from avrecode_tpu_torch.utils.billing import format_bill
+    t0 = time.perf_counter()
+    clip = os.path.join(REPO, CLIPS[0])
+    out_dir = os.path.join(REPO, "avrecode_tpu_torch", "build", "modules_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    comp_path, dec_path = os.path.join(out_dir, "bench.atrc"), os.path.join(out_dir, "bench.mp4")
+
+    def cli_json(*argv) -> dict:
+        rc, line = _captured(cli.main, list(argv))
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]} exited {rc}: {line}")
+        return json.loads(line)
+
+    opts = ["--device", str(dev), "--batch-size", str(BATCH)]
+    rep = cli_json("compress", clip, comp_path, *opts)
+    with open(comp_path, "rb") as f:
+        written = f.read()
+    want, _ = td.compress(data, batch_size=BATCH, device=dev)
+    if written != want or rep["output_bytes"] != len(want):
+        raise AssertionError(f"cli compress --device {dev}: container != compress(device)'s")
+    info = cli_json("info", comp_path)
+    if not info["readable"] or info["container_version"] != host.container_version():
+        raise AssertionError(f"cli info: {info}")
+    dec = cli_json("decompress", comp_path, dec_path)
+    with open(dec_path, "rb") as f:
+        if f.read() != data or dec["output_bytes"] != len(data):
+            raise AssertionError("cli decompress: output != input")
+    rt = cli_json("roundtrip", clip, *opts, "--bill")
+    if rt["roundtrip_ok"] is not True or not rt["bill"] or rt["compressed_bytes"] != len(want):
+        raise AssertionError(f"cli roundtrip --bill: {rt}")
+    print(f"modules: cli compress / info / decompress / roundtrip --bill on {CLIPS[0]} with "
+          f"--device {dev}: container == compress(device='{dev}') ({len(want)} B), version "
+          f"{info['container_version']}, decompress == input, roundtrip ok", flush=True)
+    prt = pipeline.roundtrip(data)
+    if not prt.ok:
+        raise AssertionError("pipeline.roundtrip: not ok")
+    table = format_bill(prt.stats)
+    if not table.splitlines()[-1].startswith("TOTAL") or len(table.splitlines()) < 4:
+        raise AssertionError(f"format_bill: {table!r}")
+    cfg = MODEL_FAMILIES["refprior"]
+    header = (an.fast_w, an.slow_w, an.sig_w, an.sig_alpha & 0xFFFF, an.n_sig,
+              intmath.PROB_BITS, intmath.RES_DIR_ALPHA, intmath.RES_DIR_K)
+    want_cfg = (cfg.fast_window, cfg.slow_window, cfg.sig_window, cfg.sig_mix_alpha,
+                1 << cfg.sig_hash_bits, cfg.prob_bits, cfg.res_dir_alpha, cfg.res_dir_fast_boost)
+    if header != want_cfg or (an.sig_alpha >> 16) not in cfg.sig_mix_alpha_off_cands:
+        raise AssertionError(f"refprior {want_cfg} != export header / intmath {header}")
+    print(f"modules: pipeline.roundtrip ok (ratio {prt.ratio:.5f}, overhead "
+          f"{prt.container_overhead:.5f}); format_bill {len(table.splitlines())} lines; "
+          f"MODEL_FAMILIES['refprior'] == the export header and ops/intmath.py", flush=True)
+    rc, micro_line = _captured(microbench.main, [clip, "--reps", "5", *opts])
+    micro = json.loads(micro_line)
+    if rc != 0 or not micro["differential_ok"]:
+        raise AssertionError(f"microbench exited {rc}: {micro_line}")
+    print("modules: microbench", flush=True)
+    print(micro_line, flush=True)
+    rc, bench_line = _captured(bench.main, ["--reps", "3", "--host-reps", "3", *opts])
+    rep_bench = json.loads(bench_line)
+    if rc != 0 or "error" in rep_bench or rep_bench.get("roundtrip_bit_exact") is not True:
+        raise AssertionError(f"bench exited {rc}: {bench_line}")
+    if rep_bench["card"] != card:
+        raise AssertionError(f"bench card {rep_bench['card']!r} != {card!r}")
+    print("modules: bench", flush=True)
+    print(bench_line, flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"modules: device e2e best {rep_bench['device_e2e_s']:.3f} s, median "
+          f"{rep_bench['device_e2e_median_s']:.3f} s, spread "
+          f"{rep_bench['device_e2e_spread']:.3f}; {rep_bench['value']:.3f} MB/s "
+          f"(vs host {rep_bench['vs_baseline']:.3f}x); phase {seconds:.1f} s", flush=True)
+    return {"seconds": seconds, "microbench": micro, "bench": rep_bench}
+
+
 _CORPUS_CHILD = """
 import json, os, sys, time
 import torch
@@ -1668,6 +1758,8 @@ def main() -> int:
             clips[MESH_CLIP], single_mesh_ref, dev)),
         ("recompress", RECOMPRESS_KERNELS, lambda: {
             "total_words": int(recompress_step(*recompress_in)[4])}),
+        ("modules", PROFILE2_KERNELS, lambda: modules_phase(
+            clips[CLIPS[0]], refs[CLIPS[0]], card, dev)),
     )
     for path, kernels, run in paths:
         _native.reset_launches()

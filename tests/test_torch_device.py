@@ -158,11 +158,13 @@ def test_port_host_decoder_matches_jax_package(corpus_dir):
 def test_port_never_imports_jax(corpus_dir, tmp_path):
     """Importing every module of the port and running every entry point on
     a clip (compress under profile 2 and under profile 0 with every model
-    pass, compress_mesh on a CPU grid, corpus_compress through the port)
-    leaves jax and every module of the JAX package (avrecode_tpu,
-    avrecode_tpu.*) out of sys.modules. Checked in a subprocess: this test
-    process has imported jax already (conftest)."""
+    pass, compress_mesh on a CPU grid, corpus_compress through the port,
+    pipeline.roundtrip, the CLI's info, the microbench on the CPU) leaves
+    jax and every module of the JAX package (avrecode_tpu, avrecode_tpu.*)
+    out of sys.modules. Checked in a subprocess: this test process has
+    imported jax already (conftest)."""
     clip = os.path.join(corpus_dir, "i_main.264")
+    container = str(tmp_path / "i_main.atrc")
     code = (
         "import sys\n"
         "import avrecode_tpu_torch, avrecode_tpu_torch._native, avrecode_tpu_torch.cli\n"
@@ -170,6 +172,9 @@ def test_port_never_imports_jax(corpus_dir, tmp_path):
         "import avrecode_tpu_torch.ops.model_pass, avrecode_tpu_torch.analysis\n"
         "import avrecode_tpu_torch.host, avrecode_tpu_torch.parallel.mesh\n"
         "import avrecode_tpu_torch.parallel.pipeline, avrecode_tpu_torch.parallel.distributed\n"
+        "import avrecode_tpu_torch.pipeline, avrecode_tpu_torch.bench\n"
+        "import avrecode_tpu_torch.microbench, avrecode_tpu_torch.models.refprior\n"
+        "import avrecode_tpu_torch.utils.billing\n"
         "import os\n"
         "from avrecode_tpu_torch import device\n"
         "from avrecode_tpu_torch.parallel import distributed, mesh\n"
@@ -183,6 +188,12 @@ def test_port_never_imports_jax(corpus_dir, tmp_path):
         f"rep = distributed.corpus_compress([{clip!r}], {str(tmp_path)!r}, use_device=True,\n"
         "                                  device='cpu', batch_size=512)\n"
         "assert rep.files == 1 and rep.failures == 0, rep\n"
+        "from avrecode_tpu_torch import cli, microbench, pipeline\n"
+        "assert pipeline.roundtrip(data).ok\n"
+        f"open({container!r}, 'wb').write(pipeline.compress(data)[0])\n"
+        f"assert cli.main(['info', {container!r}]) == 0\n"
+        f"assert microbench.main([{clip!r}, '--device', 'cpu', '--batch-size', '512',\n"
+        "                        '--reps', '1']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'avrecode_tpu'))\n"
         "assert not bad, bad\n"
