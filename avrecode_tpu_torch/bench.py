@@ -40,19 +40,29 @@ The last line printed is one JSON object. Its keys:
   device_e2e_spread       (slowest - best) / best of those runs
   host_phases_s           the host-clock phases of the best run's
                           compress(info=...): open_s, fetch_s, stage_s,
-                          launch_s, compact_s, dispatch_s, emit_s, pack_s
+                          launch_s, compact_s, dispatch_s, emit_s, pack_s,
+                          and fetch_s's two parts: fetch_wait_s (the time
+                          in the native artc_session_analyze_chunk: waiting
+                          for the session's workers to walk and export the
+                          chunk, and the export's copy out) and parse_s
+                          (the Python parse of the export,
+                          analysis._parse_slim_chunk)
   wire_bytes              host->device bytes of that run (info["wire_bytes"])
   device_phases_ms        per phase {"best", "median"} over --reps runs after
                           a warm-up, each phase over every chunk and timed
-                          with CUDA events from an idle stream: h2d
+                          with CUDA events from an idle card, on one set of
+                          call streams as device.compress makes them (the
+                          end event waits for the copy stream too): h2d
                           (to_torch_staged with the shared-table cache: blob
-                          packing, uploads, the dual0 expand), expand
+                          packing into pinned memory, uploads on the copy
+                          stream, the dual0 expand), expand
                           (wire_expand4_blob), model (model_pass_v4),
                           lane_scan (encode_interleaved_start), compaction
                           (encode_interleaved_compact: the counts readback
-                          and lane_compact), d2h (encode_interleaved_emit:
-                          downloads and blob assembly); their blobs must
-                          equal device.compress's
+                          into pinned memory and lane_compact), d2h (every
+                          chunk's downloads into pinned memory, one wait,
+                          encode_interleaved_emit's assembly); their blobs
+                          must equal device.compress's
   device_busy_ms, device_busy_median_ms
                           the sum of the phases' best (median) times; host
                           gaps inside a phase count, so it bounds the busy
@@ -91,6 +101,7 @@ import torch
 
 from . import device as td
 from . import host, microbench, pipeline
+from . import streams as cs
 from .ops import lanes as lx
 from .ops import model_pass as mp
 
@@ -141,12 +152,18 @@ def _decodes_to(comp: bytes, data: bytes) -> bool:
 
 def device_phases(an, dev: torch.device, reps: int) -> tuple[dict, list[bytes]]:
     """The device path's phases over every chunk, each timed on its own
-    (microbench.one_ms) in production order, --reps times after a warm-up;
-    returns {phase: {"best", "median"}} ms and the last run's blobs."""
+    (microbench.one_ms) in production order, --reps times after a warm-up,
+    on one set of call streams (none on the CPU) as device.compress runs
+    them; returns {phase: {"best", "median"}} ms and the last run's blobs."""
+    with cs.for_call(dev) as streams, torch.cuda.stream(streams and streams.compute):
+        return _phases(an, dev, reps, streams)
+
+
+def _phases(an, dev: torch.device, reps: int, streams) -> tuple[dict, list[bytes]]:
     s: dict = {}
 
     def h2d():
-        s["staged"] = microbench.stage_all(an, dev)
+        s["staged"] = microbench.stage_all(an, dev, streams)
 
     def expand():
         s["ex"] = [mp.wire_expand4_blob(st.blob, st.sc, **st.statics["expand"])
@@ -160,22 +177,27 @@ def device_phases(an, dev: torch.device, reps: int) -> tuple[dict, list[bytes]]:
                    in zip(s["staged"], s["ex"])]
 
     def lane_scan():
-        s["h"] = [lx.encode_interleaved_start(bits, probs, c.n, td.pick_lanes(c.n))
+        s["h"] = [lx.encode_interleaved_start(bits, probs, c.n, td.pick_lanes(c.n), streams)
                   for c, (probs, bits) in zip(an.chunks, s["pb"])]
 
     def compaction():
-        s["ch"] = [lx.encode_interleaved_compact(h) for h in s["h"]]
+        s["ch"] = [lx.encode_interleaved_compact(h, streams) for h in s["h"]]
 
     def d2h():
-        s["blobs"] = [lx.encode_interleaved_emit(ch) for ch in s["ch"]]
+        parts = [lx.emit_tensors(ch) for ch in s["ch"]]
+        arrays = cs.to_host([t for p in parts for t in p], streams)
+        s["blobs"] = []
+        for ch, p in zip(s["ch"], parts):
+            s["blobs"].append(lx.encode_interleaved_emit(ch, arrays[:len(p)]))
+            arrays = arrays[len(p):]
 
     steps = (h2d, expand, model, lane_scan, compaction, d2h)
+    runs = {name: [] for name in PHASES}
     for fn in steps:
         fn()
-    runs = {name: [] for name in PHASES}
     for _ in range(reps):
         for name, fn in zip(PHASES, steps):
-            runs[name].append(microbench.one_ms(fn, dev))
+            runs[name].append(microbench.one_ms(fn, dev, streams))
     out = {}
     for name, r in runs.items():
         best, med = microbench.best_median(r)
@@ -306,8 +328,8 @@ def main(argv=None) -> int:
         "device_e2e_runs_s": dev_runs,
         "device_e2e_spread": (max(dev_runs) - dev_best) / dev_best,
         "host_phases_s": {k: best_info[k] for k in (
-            "open_s", "fetch_s", "stage_s", "launch_s", "compact_s", "dispatch_s", "emit_s",
-            "pack_s")},
+            "open_s", "fetch_s", "fetch_wait_s", "parse_s", "stage_s", "launch_s",
+            "compact_s", "dispatch_s", "emit_s", "pack_s")},
         "wire_bytes": best_info["wire_bytes"],
         "device_phases_ms": phases,
         "device_busy_ms": busy,

@@ -47,19 +47,32 @@
 // several times larger, blocks on the two SMs of one TPC ran markedly
 // slower than a block alone (on an H100; most likely instruction fetch).
 //
-// The compaction only moves the [T, K] planes (about 64 MB at bench size),
-// so it is bound by how much of that traffic is in flight at once. Two
-// launches over tiles of whole rows (steps), each thread keeping eight
-// 16-byte loads in flight. The count pass reads the emit plane, counts each
-// lane's emissions of the tile in shared memory, keeps them as lane masks
-// (bit r of mask (g, l) is lane l's emission at the tile's row 32 g + r; a
-// 32nd of the plane) and zeroes a slice of the int16 output. The write pass
-// sums, with all its threads, the counts of the tiles before its own (at
-// most 256 tiles, so at most 128 KB of counts a block at K = 128), turns
-// the masks into each (row group, lane)'s first position, then reads the
-// word plane four lanes at a time where a mask has an emission and stores
+// The outputs have JAX's widths: words u16 (int16 bit patterns), emits bool
+// (a byte), x_final u32 (int32 bit patterns), counts int32: 3 bytes a (step,
+// lane) slot.
+//
+// The compaction only moves the [T, K] planes (25.2 MB at bench chunk 0: T
+// = 65,536, K = 128), so it is bound by how much of that traffic is in
+// flight at once. Two launches over tiles of whole rows (steps); the work
+// unit of both is a warp over a row group of 32 rows and a column of lanes,
+// thread r on row 32 g + r, one 16-byte load a row (16 one-byte emits, or 8
+// two-byte words), so that a ballot per lane is that lane's mask of the
+// group. The count pass reads the emit plane, keeps each lane's emissions of
+// the tile as lane masks (bit r of mask (g, l) is lane l's emission at the
+// tile's row 32 g + r; a 32nd of the plane's entries), written by the
+// warp's ballots with no atomics, sums their popcounts a lane in shared
+// memory, and zeroes a slice of the int16 output. At bench chunk 0 a tile
+// is 256 rows x 128 lanes (32 KB of emits): 64 units, 8 per warp, which is
+// each thread's eight 16-byte loads in flight, so the 256 tiles have the
+// whole 8.4 MB emit plane in flight at once. The write pass sums, with all
+// its threads, the counts of the tiles before its own (at most 256 tiles,
+// so at most 128 KB of counts a block at K = 128), turns the masks into each
+// (row group, lane)'s first position, then, a unit of 8 lanes at a time,
+// loads a row's words only where one of the 8 masks has its bit, and stores
 // each word at its position: the group's first plus the popcount of the
-// lane's mask below its row. Positions >= maxW drop.
+// lane's mask below its row. Positions >= maxW drop. Where K is not a
+// multiple of 16 (or a plane is unaligned) both passes take an entry a
+// thread instead, with the masks built by shared atomics.
 #include <atomic>
 
 #include "common.cuh"
@@ -96,9 +109,9 @@ struct ScanArgs {
   const int* probs;
   const uint8_t* valid;  // the masked scan's mask (null for the dense scan)
   const uint4* magic;    // kMagicWords words
-  int* x_final;
-  int* words;
-  int* emits;
+  int* x_final;     // u32 bit patterns
+  int16_t* words;   // u16 bit patterns
+  uint8_t* emits;   // bool
   int* counts;
   long long n, T, K, chunk_stride, row_stride;
   bool vec;  // 16-byte rows: aligned planes, K and the strides multiples of 4
@@ -265,8 +278,8 @@ struct Ring {
 #pragma unroll 4
       for (int j = 0; j <= last; ++j) {
         const uint32_t w = sl.state[j][ln];
-        a.words[top - j * a.K] = int(w & 0xffffu);
-        a.emits[top - j * a.K] = int(w >> 16);
+        a.words[top - j * a.K] = int16_t(w & 0xffffu);
+        a.emits[top - j * a.K] = uint8_t(w >> 16);
         count += int(w >> 16);
       }
     }
@@ -410,24 +423,17 @@ __host__ __device__ inline long long compact_rows(long long T, long long K) {
 }
 
 struct Compact {
-  const int* words;    // [T, K]
-  const int* emits;    // [T, K]
-  int16_t* out;        // [maxW, K] u16 bit patterns
-  int* tile_cnt;       // [ntile, K]
-  uint32_t* masks;     // [ntile, rows / 32, K]
+  const int16_t* words;  // [T, K] u16 bit patterns
+  const uint8_t* emits;  // [T, K] bool
+  int16_t* out;          // [maxW, K] u16 bit patterns
+  int* tile_cnt;         // [ntile, K]
+  uint32_t* masks;       // [ntile, rows / 32, K]
   long long T, K, maxW, rows, ntile;
-  int vec;             // the planes and out take 16-byte accesses
+  int vec;  // K % 16 == 0 and 16-byte aligned planes and out: the warp-unit paths
 };
 
-// Launch 1: tile blockIdx.x's per-lane counts and lane masks, and its share
-// of the output's zeros. Dynamic shared memory: K + rows / 32 * K ints.
-__global__ void __launch_bounds__(kCountThreads) compact_count_kernel(const Compact C) {
-  extern __shared__ int cnt[];
-  uint32_t* mask = reinterpret_cast<uint32_t*>(cnt + C.K);
-  const long long tile = blockIdx.x;
-  const long long nmask = C.rows / 32 * C.K;
-  for (long long i = threadIdx.x; i < C.K + nmask; i += blockDim.x) cnt[i] = 0;
-  // The zeros: an equal share of the output's 16-byte units a tile.
+// The output's zeros: an equal share of its 16-byte units a tile.
+__device__ void compact_zero(const Compact& C, long long tile) {
   const long long total = C.maxW * C.K;
   if (C.vec) {
     const long long units = total / 8, per = (units + C.ntile - 1) / C.ntile;
@@ -441,49 +447,71 @@ __global__ void __launch_bounds__(kCountThreads) compact_count_kernel(const Comp
     const long long i1 = (tile + 1) * per < total ? (tile + 1) * per : total;
     for (long long i = tile * per + threadIdx.x; i < i1; i += blockDim.x) C.out[i] = 0;
   }
+}
+
+// Launch 1: tile blockIdx.x's per-lane counts and lane masks, and its share
+// of the output's zeros. Dynamic shared memory: K + rows / 32 * K ints (the
+// lane masks live there only on the scalar path).
+__global__ void __launch_bounds__(kCountThreads) compact_count_kernel(const Compact C) {
+  extern __shared__ int cnt[];
+  uint32_t* mask = reinterpret_cast<uint32_t*>(cnt + C.K);
+  const long long tile = blockIdx.x;
+  const long long groups = C.rows / 32, nmask = groups * C.K;
+  const long long r0 = tile * C.rows;  // the tile's first row
+  const long long r1 = r0 + C.rows < C.T ? r0 + C.rows : C.T;
+  for (long long i = threadIdx.x; i < (C.vec ? C.K : C.K + nmask); i += blockDim.x) cnt[i] = 0;
+  compact_zero(C, tile);
   __syncthreads();
-  const long long f0 = tile * C.rows * C.K;
-  const long long f1 = (tile + 1) * C.rows < C.T ? (tile + 1) * C.rows * C.K : C.T * C.K;
-  const long long nq = (f1 - f0 + 3) / 4;  // quads of flat entries
-  const uint32_t K = uint32_t(C.K);
-  for (long long q0 = 0; q0 < nq; q0 += kInFlight * blockDim.x) {
-    int e[kInFlight][4];
+  const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  if (C.vec) {
+    // A warp unit: 32 rows (a row group g) x 16 lanes (column c), thread r
+    // reading row 32 g + r's 16 emits in one load; 16 ballots are then the
+    // 16 lanes' masks of the group, stored by lanes 0-15, no atomics.
+    const long long cols = C.K / 16, units = groups * cols;
+    uint32_t* tile_masks = C.masks + tile * nmask;
+    for (long long u0 = warp; u0 < units; u0 += kInFlight * nwarp) {
+      uint4 e[kInFlight];
 #pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const long long f = f0 + 4 * (q0 + u * blockDim.x + threadIdx.x);
-      if (C.vec && f + 4 <= f1) {
-        const int4 v = __ldcs(reinterpret_cast<const int4*>(C.emits + f));
-        e[u][0] = v.x;
-        e[u][1] = v.y;
-        e[u][2] = v.z;
-        e[u][3] = v.w;
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) e[u][k] = f + k < f1 ? C.emits[f + k] : 0;
+      for (int k = 0; k < kInFlight; ++k) {
+        const long long u = u0 + k * nwarp, g = u / cols, c = u - g * cols;
+        const long long t = r0 + 32 * g + ln;
+        e[k] = u < units && t < r1
+                   ? __ldcs(reinterpret_cast<const uint4*>(C.emits + t * C.K + 16 * c))
+                   : make_uint4(0, 0, 0, 0);
       }
-    }
 #pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const uint32_t rel = uint32_t(4 * (q0 + u * blockDim.x + threadIdx.x));
-      // Where K % 4 == 0 a quad is four lanes of one row: one division.
-      uint32_t t = rel / K, l = rel - t * K;
+      for (int k = 0; k < kInFlight; ++k) {
+        const long long u = u0 + k * nwarp, g = u / cols, c = u - g * cols;
+        if (u >= units) break;  // warp-uniform
+        const uint32_t q[4] = {e[k].x, e[k].y, e[k].z, e[k].w};
+        uint32_t mine = 0;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (k > 0 && ++l == K) {
-          l = 0;
-          ++t;
+        for (int b = 0; b < 16; ++b) {
+          const uint32_t m = __ballot_sync(0xffffffffu, (q[b >> 2] >> (8 * (b & 3))) & 0xffu);
+          if (ln == b) mine = m;
         }
-        if (e[u][k] != 0) {
-          atomicAdd(&cnt[l], 1);
-          atomicOr(&mask[(t >> 5) * K + l], 1u << (t & 31));
+        if (ln < 16) {
+          tile_masks[g * C.K + 16 * c + ln] = mine;
+          if (mine) atomicAdd(&cnt[16 * c + ln], __popc(mine));
         }
       }
     }
+  } else {
+    // Any K: an entry a thread, a shared atomic per emission.
+    const uint32_t K = uint32_t(C.K);
+    for (long long f = r0 * C.K + threadIdx.x; f < r1 * C.K; f += blockDim.x) {
+      if (C.emits[f]) {
+        const uint32_t rel = uint32_t(f - r0 * C.K), t = rel / K, l = rel - t * K;
+        atomicAdd(&cnt[l], 1);
+        atomicOr(&mask[(t >> 5) * K + l], 1u << (t & 31));
+      }
+    }
+    __syncthreads();
+    for (long long i = threadIdx.x; i < nmask; i += blockDim.x)
+      C.masks[tile * nmask + i] = mask[i];
   }
   __syncthreads();
   for (long long l = threadIdx.x; l < C.K; l += blockDim.x) C.tile_cnt[tile * C.K + l] = cnt[l];
-  for (long long i = threadIdx.x; i < nmask; i += blockDim.x)
-    C.masks[tile * nmask + i] = mask[i];
 }
 
 // Launch 2: tile blockIdx.x's emitted words at their positions. Dynamic
@@ -495,6 +523,8 @@ __global__ void __launch_bounds__(kWriteThreads, 2) compact_write_kernel(const C
   const long long tile = blockIdx.x;
   const long long K = C.K;
   const long long groups = C.rows / 32;
+  const long long r0 = tile * C.rows;
+  const long long r1 = r0 + C.rows < C.T ? r0 + C.rows : C.T;
   const uint32_t* mask = C.masks + tile * groups * K;
   for (long long l = threadIdx.x; l < K; l += blockDim.x) pre[l] = 0;
   __syncthreads();
@@ -502,10 +532,10 @@ __global__ void __launch_bounds__(kWriteThreads, 2) compact_write_kernel(const C
   // four lanes (one lane where K is not a multiple of 4), the tiles split
   // between the threads of a column.
   const bool v4 = K % 4 == 0;
-  const long long cols = v4 ? K / 4 : K;
-  const long long parts = cols < blockDim.x ? blockDim.x / cols : 1;
-  for (long long idx = threadIdx.x; idx < cols * parts; idx += blockDim.x) {
-    const long long c = idx % cols, p = idx / cols;
+  const long long cols4 = v4 ? K / 4 : K;
+  const long long parts = cols4 < blockDim.x ? blockDim.x / cols4 : 1;
+  for (long long idx = threadIdx.x; idx < cols4 * parts; idx += blockDim.x) {
+    const long long c = idx % cols4, p = idx / cols4;
     if (v4) {
       int4 s = make_int4(0, 0, 0, 0);
 #pragma unroll 8
@@ -536,60 +566,52 @@ __global__ void __launch_bounds__(kWriteThreads, 2) compact_write_kernel(const C
     }
   }
   __syncthreads();
-  const long long f0 = tile * C.rows * K;
-  const long long f1 = (tile + 1) * C.rows < C.T ? (tile + 1) * C.rows * K : C.T * K;
-  const long long nq = (f1 - f0 + 3) / 4;
-  const uint32_t Ku = uint32_t(K);
-  for (long long q0 = 0; q0 < nq; q0 += kWriteInFlight * blockDim.x) {
-    // Per quad: its first entry's (row, lane), and per entry bit 31 for an
-    // emission over the lane's mask below the row.
-    uint32_t row[kWriteInFlight], lane0[kWriteInFlight], bits[kWriteInFlight][4];
-    int w[kWriteInFlight][4];
+  const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  const uint32_t below = (1u << ln) - 1u;
+  if (C.vec) {
+    // A warp unit: 32 rows (row group g) x 8 lanes (column c), thread r
+    // holding row 32 g + r's 8 words (one 16-byte load, taken only where
+    // one of the 8 lanes' masks has the row's bit).
+    const long long cols = K / 8, units = groups * cols;
+    for (long long u0 = warp; u0 < units; u0 += kWriteInFlight * nwarp) {
+      uint32_t m[kWriteInFlight][8];
+      uint4 w[kWriteInFlight];
 #pragma unroll
-    for (int u = 0; u < kWriteInFlight; ++u) {
-      const uint32_t rel = uint32_t(4 * (q0 + u * blockDim.x + threadIdx.x));
-      uint32_t t = rel / Ku, l = rel - t * Ku;
-      row[u] = t;
-      lane0[u] = l;
-      bool any = false;
+      for (int k = 0; k < kWriteInFlight; ++k) {
+        const long long u = u0 + k * nwarp, g = u / cols, c = u - g * cols;
+        const long long t = r0 + 32 * g + ln;
+        bool any = false;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (k > 0 && ++l == Ku) {
-          l = 0;
-          ++t;
+        for (int b = 0; b < 8; ++b) {
+          m[k][b] = u < units ? __ldg(mask + g * K + 8 * c + b) : 0u;
+          any |= (m[k][b] >> ln) & 1u;
         }
-        bits[u][k] = 0;
-        if (f0 + rel + k < f1) {
-          const uint32_t m = __ldg(mask + (t >> 5) * Ku + l);
-          if ((m >> (t & 31)) & 1u) bits[u][k] = (m & ((1u << (t & 31)) - 1u)) | 0x80000000u;
-          any |= bits[u][k] != 0;
-        }
+        w[k] = any && t < r1
+                   ? __ldcs(reinterpret_cast<const uint4*>(C.words + t * K + 8 * c))
+                   : make_uint4(0, 0, 0, 0);
       }
-      const long long f = f0 + rel;
-      if (any && C.vec && f + 4 <= f1) {
-        const int4 v = __ldcs(reinterpret_cast<const int4*>(C.words + f));
-        w[u][0] = v.x;
-        w[u][1] = v.y;
-        w[u][2] = v.z;
-        w[u][3] = v.w;
-      } else {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) w[u][k] = bits[u][k] ? C.words[f + k] : 0;
+      for (int k = 0; k < kWriteInFlight; ++k) {
+        const long long u = u0 + k * nwarp, g = u / cols, c = u - g * cols;
+        const uint32_t q[4] = {w[k].x, w[k].y, w[k].z, w[k].w};
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          if ((m[k][b] >> ln) & 1u) {
+            const long long l = 8 * c + b;
+            const long long pos = first[g * K + l] + __popc(m[k][b] & below);
+            if (pos < C.maxW) C.out[pos * K + l] = int16_t(q[b >> 1] >> (16 * (b & 1)));
+          }
+        }
       }
     }
-#pragma unroll
-    for (int u = 0; u < kWriteInFlight; ++u) {
-      uint32_t t = row[u], l = lane0[u];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (k > 0 && ++l == Ku) {
-          l = 0;
-          ++t;
-        }
-        if (bits[u][k]) {
-          const long long pos = first[(t >> 5) * Ku + l] + __popc(bits[u][k] & 0x7fffffffu);
-          if (pos < C.maxW) C.out[pos * K + l] = int16_t(uint16_t(w[u][k]));
-        }
+  } else {
+    const uint32_t Ku = uint32_t(K);
+    for (long long f = r0 * K + threadIdx.x; f < r1 * K; f += blockDim.x) {
+      const uint32_t rel = uint32_t(f - r0 * K), t = rel / Ku, l = rel - t * Ku;
+      const uint32_t mk = mask[(t >> 5) * Ku + l];
+      if ((mk >> (t & 31)) & 1u) {
+        const long long pos = first[(t >> 5) * Ku + l] + __popc(mk & ((1u << (t & 31)) - 1u));
+        if (pos < C.maxW) C.out[pos * K + l] = C.words[f];
       }
     }
   }
@@ -605,8 +627,8 @@ ARTC_API const char* artc_cuda_error_string(int code) {
 }
 
 ARTC_API int artc_lane_scan_dev(const int* bits, const int* probs, const void* magic,
-                                int* x_final, int* words, int* emits, int* counts, long long n,
-                                long long T, long long K, void* stream) {
+                                int* x_final, int16_t* words, uint8_t* emits, int* counts,
+                                long long n, long long T, long long K, void* stream) {
   const ScanArgs a{bits, probs, nullptr, static_cast<const uint4*>(magic),
                    x_final, words, emits, counts, n, T, K, /*chunk_stride=*/0, /*row_stride=*/K,
                    /*vec=*/false};
@@ -615,8 +637,8 @@ ARTC_API int artc_lane_scan_dev(const int* bits, const int* probs, const void* m
 }
 
 ARTC_API int artc_lane_scan(const int* bits, const int* probs, const uint8_t* valid,
-                            const void* magic, int* x_final, int* words, int* emits,
-                            int* counts, long long G, long long T, long long K,
+                            const void* magic, int* x_final, int16_t* words,
+                            uint8_t* emits, int* counts, long long G, long long T, long long K,
                             long long chunk_stride, long long row_stride, void* stream) {
   if (G <= 0) return int(cudaGetLastError());
   const ScanArgs a{bits, probs, valid, static_cast<const uint4*>(magic),
@@ -627,11 +649,13 @@ ARTC_API int artc_lane_scan(const int* bits, const int* probs, const uint8_t* va
 
 ARTC_API int artc_compact_launches(void) { return g_compact_launches; }
 
-// words, emits [T, K] int32; out [maxW, K] int16; scratch: the tile counts
-// (ntile * K ints) then the lane masks (ntile * rows / 32 * K words), with
-// rows = compact_rows(T, K) and ntile = ceil(T / rows).
-ARTC_API int artc_lane_compact(const int* words, const int* emits, void* out, int* scratch,
-                               long long T, long long K, long long maxW, void* stream) {
+// words [T, K] int16 (u16 bit patterns), emits [T, K] bool; out [maxW, K]
+// int16; scratch: the tile counts (ntile * K ints) then the lane masks
+// (ntile * rows / 32 * K words), with rows = compact_rows(T, K) and ntile =
+// ceil(T / rows).
+ARTC_API int artc_lane_compact(const int16_t* words, const uint8_t* emits, void* out,
+                               int* scratch, long long T, long long K, long long maxW,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   g_compact_launches = 0;
   if (T <= 0 || K <= 0 || maxW <= 0) return 0;
@@ -647,7 +671,7 @@ ARTC_API int artc_lane_compact(const int* words, const int* emits, void* out, in
   C.ntile = (T + C.rows - 1) / C.rows;
   C.tile_cnt = scratch;
   C.masks = reinterpret_cast<uint32_t*>(scratch + C.ntile * K);
-  C.vec = aligned(words, 16) && aligned(emits, 16) && aligned(out, 16);
+  C.vec = K % 16 == 0 && aligned(words, 16) && aligned(emits, 16) && aligned(out, 16);
   // K + at most kMaskWords ints: within the 48 KB a block has without opt-in.
   const size_t smem = size_t(K + C.rows / 32 * K) * sizeof(int);
   compact_count_kernel<<<unsigned(C.ntile), kCountThreads, smem, st>>>(C);

@@ -16,6 +16,16 @@ Counterpart of avrecode_tpu/device.py, for both model profiles and the mesh:
     parallel.pipeline.sharded_v4_compress_step over a (gop, lane) grid of
     devices.
 
+On the card, a profile-2 `compress` and a `compress_mesh` call are
+asynchronous as the JAX package's are (streams.CallStreams): the call's
+kernels run on a compute stream of its own, its uploads and downloads on a
+copy stream of its own, from and into pinned memory, and each readback
+waits only for the buffer it reads. Concurrent calls (the corpus's threads)
+then wait on none of each other's work. On "cpu" the same code runs the
+plain versions with no streams and no pinning. The profile-0 path keeps the
+caller's stream: the JAX package runs it chunk by chunk, each probs
+readback a synchronise.
+
 The host packs the container. Decompression stays host-only (host.py), so
 every container is checked by an independent reader. The parsers live in
 analysis.py (re-exported here); every public entry takes an explicit
@@ -32,6 +42,7 @@ import numpy as np
 import torch
 
 from . import host
+from . import streams as cs
 from .analysis import (Analysis, ChunkAnalysis, SlimChunk, _bucket_pow2, _chunk_layout,
                        _parse_analysis, _parse_header, _parse_slim_chunk, _sig0_dense,
                        _sig0_sparse_padded, analyze, pick_lanes)
@@ -52,15 +63,18 @@ def _device(device) -> torch.device:
 
 
 def _build_blob4(an: Analysis, c: SlimChunk, layout: tuple, dk_d: np.ndarray | None = None,
-                 dk_s: np.ndarray | None = None,
-                 ud_mesh: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+                 dk_s: np.ndarray | None = None, ud_mesh: int | None = None,
+                 out: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Packs one slim chunk's ANL5 planes into the fused u32 blob + scalar
     vector [wa, wb, wcs, n, n_coo] (segments per ops.model_pass
     ._blob_layout_words); a copy of avrecode_tpu.device._build_blob4.
     `layout` may be wider than the chunk's own buckets (the mesh's uniform
     layout); dk_d/dk_s override the chunk's key tables (the mesh pads them
     to uniform shapes with scratch rows), and ud_mesh switches to the
-    6-entry mesh scalar vector, which adds the chunk's real dual width."""
+    6-entry mesh scalar vector, which adds the chunk's real dual width.
+    `out`, a zeroed uint32 array of the blob's words (a view of pinned
+    memory, a row of the mesh's blob), receives the blob in place of a new
+    array; the key table segments may hold anything, they are overwritten."""
     n = c.n
     npi, ne, nc, ncc = layout[4:]
     if dk_d is None:
@@ -68,7 +82,7 @@ def _build_blob4(an: Analysis, c: SlimChunk, layout: tuple, dk_d: np.ndarray | N
     ns_l, ud_l = dk_d.shape
     us_l = dk_s.shape[1]
     offs = mp._blob_layout_words(layout, ns_l * an.sup, ns_l, ud_l, us_l)
-    blob = np.zeros(offs[-1], np.uint32)
+    blob = np.zeros(offs[-1], np.uint32) if out is None else out
 
     def put32(k, a):
         blob[offs[k]:offs[k] + len(a)] = a
@@ -156,13 +170,20 @@ class StagedChunk:
     wire_nbytes: int              # bytes uploaded for this chunk (cache misses only)
 
 
-def to_torch_staged(an: Analysis, chunk: SlimChunk, device, cache: dict | None = None
-                    ) -> StagedChunk:
+def to_torch_staged(an: Analysis, chunk: SlimChunk, device, cache: dict | None = None,
+                    streams: cs.CallStreams | None = None) -> StagedChunk:
     """Stages one slim chunk on `device` (the port of avrecode_tpu.device
     ._stage_v4): uploads exactly the arrays the JAX staging uploads (fused
     blob, scalar vector, dual0 row dictionary, padded sparse sig0 rows) at
     their wire widths (`_wire`), counts their bytes as it does, and expands
     the dual0 dictionary there.
+
+    With `streams` (a call on the card) the blob is packed straight into
+    pinned memory and the small arrays are written into pinned tensors;
+    every upload goes on the copy stream without blocking, and the compute
+    stream (on which the caller runs) waits on one event after them before
+    the dual0 expand and, later, the wire expand. Without, the uploads are
+    `.to(device)` on the current stream.
 
     `cache` (key -> (owner array, tensor)) dedupes the tables that warm
     chunks alias: chunks >= 2 share chunk 1's dual0/sig0 arrays. Each entry
@@ -175,32 +196,51 @@ def to_torch_staged(an: Analysis, chunk: SlimChunk, device, cache: dict | None =
         raise ValueError(f"chunk too large for the ANL5 device path: m={m}")
     wire_nbytes = 0
 
-    def upload(a: np.ndarray) -> torch.Tensor:
+    def upload(a: np.ndarray, host: torch.Tensor | None = None) -> torch.Tensor:
+        """`a` on the device; `host`: its pinned tensor where it was packed
+        in one."""
         nonlocal wire_nbytes
         t = _wire(a)
         wire_nbytes += t.nbytes
-        return t.to(device)
+        if streams is None:
+            return t.to(device)
+        if host is None:
+            host = cs.pinned(t.shape, t.dtype).copy_(t)
+        return streams.upload(host)
 
-    def cached(tag: str, owner, make):
+    def cached(tag: str, owner):
         if cache is not None:
             ent = cache.get((tag, id(owner)))
             if ent is not None and ent[0] is owner:
                 return ent[1]
-        v = make()
+        return None
+
+    def keep(tag: str, owner, v):
         if cache is not None:
             cache[(tag, id(owner))] = (owner, v)
         return v
 
     layout = _chunk_layout(c)
-    blob, sc = _build_blob4(an, c, layout)
+    blob_host = None
+    if streams is not None:
+        words = mp._blob_layout_words(layout, ns * an.sup, ns, ud, us)[-1]
+        blob_host = cs.pinned(words, torch.int32).zero_()
+        blob, sc = _build_blob4(an, c, layout, out=blob_host.numpy().view(np.uint32))
+    else:
+        blob, sc = _build_blob4(an, c, layout)
     s_idx = s_val = None
     si, sv = _sig0_sparse_padded(c, an.n_sig)
     if si is not None:
-        s_idx, s_val = cached("sig0", c.sig0_idx, lambda: (upload(si), upload(sv)))
-    dual0 = cached("dual0x", c.d0_idx,
-                   lambda: mp.dual0_expand(*(upload(a) for a in _dual0_dict(c))))
-    blob_t = upload(blob)
+        s_idx, s_val = cached("sig0", c.sig0_idx) or keep(
+            "sig0", c.sig0_idx, (upload(si), upload(sv)))
+    dual0 = cached("dual0x", c.d0_idx)
+    d0_dict = None if dual0 is not None else [upload(a) for a in _dual0_dict(c)]
+    blob_t = upload(blob, blob_host)
     sc_t = upload(sc)
+    if streams is not None:
+        streams.uploaded()
+    if d0_dict is not None:
+        dual0 = keep("dual0x", c.d0_idx, mp.dual0_expand(*d0_dict))
     statics = dict(
         expand=dict(m=int(m), nsub=int(ns * an.sup), U=int(ud + us), ud=int(ud),
                     us=int(us), ns=int(ns), batch=int(an.batch), layout=layout),
@@ -340,15 +380,23 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
     """Profile 2: the native session's workers walk and export chunks while
     the loop fetches chunk i, stages it and launches its expand, model pass
     and lane scan (no readback), then reads chunk i-1's lane counts and
-    launches its compaction; the bulk downloads come last.
+    launches its compaction; the bulk downloads come last, one wait for all.
+    On the card the loop runs on the call's own streams (streams
+    .CallStreams): uploads and downloads on the copy stream through pinned
+    memory, the kernels on the compute stream, and chunk i-1's counts
+    readback waits for its own lane scan only.
 
     info phases (host clock): wire_bytes (host->device bytes, cached shared
     tables once), open_s (session open and the start of the native
-    analysis), fetch_s (waiting for and parsing each chunk's export),
-    stage_s (blob packing and uploads), launch_s (kernel launches),
-    compact_s (the counts readback, which waits for the lane scan, and the
-    compaction launch), dispatch_s (the whole chunk loop), emit_s
-    (downloads and blob assembly).
+    analysis), fetch_s (waiting for and parsing each chunk's export: the
+    sum of fetch_wait_s, the time in artc_session_analyze_chunk, and
+    parse_s, _parse_slim_chunk's), stage_s (blob packing and uploads),
+    launch_s (kernel launches), compact_s (the counts readback, which waits
+    for the lane scan, and the compaction launch), dispatch_s (the whole
+    chunk loop), emit_s (downloads and blob assembly). On the card also,
+    per chunk, scan_end_ms and counts_ready_ms: when its lane scan ended and
+    when its counts' copy ended, in ms from an event recorded before the
+    loop (CUDA events).
 
     With ARTC_TIMING set (not "0") it prints the JAX package's lines, in its
     order and format: per chunk fetch+dispatch with its MiB of wire, the
@@ -367,7 +415,7 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
     kept: list = []
     prev = None
     wire_bytes = 0
-    spent = dict.fromkeys(("fetch_s", "stage_s", "launch_s", "compact_s"), 0.0)
+    spent = dict.fromkeys(("fetch_wait_s", "parse_s", "stage_s", "launch_s", "compact_s"), 0.0)
     t_start = clock = time.monotonic()
 
     def lap(key):
@@ -376,65 +424,81 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
         spent[key] += now - clock
         clock = now
 
-    for i in range(n_chunks):
-        t_chunk = clock
-        rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out), ctypes.byref(out_len))
-        raw = _fetch(rc, out, out_len)
-        c = _parse_slim_chunk(np.frombuffer(raw, np.uint8), an, prev)
-        prev = c
-        lap("fetch_s")
-        st = to_torch_staged(an, c, device, cache)
-        wire_bytes += st.wire_nbytes
-        lap("stage_s")
-        probs, bits = _exec_v4(st)
-        if keep_probs:
-            kept.append(probs[:c.n].cpu().numpy().astype(np.uint16))
-        handles.append(lx.encode_interleaved_start(
-            bits, probs, c.n, force_lanes or pick_lanes(c.n)))
-        lap("launch_s")
-        if timing:
-            print(f"[artc] device chunk {i}: fetch+dispatch {clock - t_chunk:.3f}s "
-                  f"({st.wire_nbytes >> 20} MiB wire)", flush=True)
-        if i > 0:
-            t_compact = clock
-            compacted.append(lx.encode_interleaved_compact(handles[i - 1]))
-            lap("compact_s")
+    with cs.for_call(device) as streams, torch.cuda.stream(streams and streams.compute):
+        origin = None
+        if streams is not None:
+            origin = torch.cuda.Event(enable_timing=True)
+            origin.record(streams.compute)
+        for i in range(n_chunks):
+            t_chunk = clock
+            rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out), ctypes.byref(out_len))
+            raw = _fetch(rc, out, out_len)
+            lap("fetch_wait_s")
+            c = _parse_slim_chunk(np.frombuffer(raw, np.uint8), an, prev)
+            prev = c
+            lap("parse_s")
+            st = to_torch_staged(an, c, device, cache, streams)
+            wire_bytes += st.wire_nbytes
+            lap("stage_s")
+            probs, bits = _exec_v4(st)
+            if keep_probs:
+                kept.append(probs[:c.n])
+            handles.append(lx.encode_interleaved_start(
+                bits, probs, c.n, force_lanes or pick_lanes(c.n), streams))
+            lap("launch_s")
             if timing:
-                print(f"[artc] device chunk {i - 1}: compact {clock - t_compact:.3f}s",
-                      flush=True)
-    if handles:
-        compacted.append(lx.encode_interleaved_compact(handles[-1]))
-        lap("compact_s")
-    t_emit = time.monotonic()
+                print(f"[artc] device chunk {i}: fetch+dispatch {clock - t_chunk:.3f}s "
+                      f"({st.wire_nbytes >> 20} MiB wire)", flush=True)
+            if i > 0:
+                t_compact = clock
+                compacted.append(lx.encode_interleaved_compact(handles[i - 1], streams))
+                lap("compact_s")
+                if timing:
+                    print(f"[artc] device chunk {i - 1}: compact {clock - t_compact:.3f}s",
+                          flush=True)
+        if handles:
+            compacted.append(lx.encode_interleaved_compact(handles[-1], streams))
+            lap("compact_s")
+        t_emit = time.monotonic()
+        parts = [lx.emit_tensors(ch) for ch in compacted]
+        arrays = cs.to_host([t for p in parts for t in p] + kept, streams)
     blobs = []
-    for i, ch in enumerate(compacted):
+    for i, (ch, p) in enumerate(zip(compacted, parts)):
         t0 = time.monotonic()
-        blobs.append(lx.encode_interleaved_emit(ch))
+        blobs.append(lx.encode_interleaved_emit(ch, arrays[:len(p)]))
+        arrays = arrays[len(p):]
         if timing:
             print(f"[artc] device chunk {i}: emit {time.monotonic() - t0:.3f}s", flush=True)
     if timing:
         print(f"[artc] device wire total {wire_bytes / 1e6:.1f} MB", flush=True)
     if info is not None:
         info.update(spent)
+        info["fetch_s"] = spent["fetch_wait_s"] + spent["parse_s"]
         info["open_s"] = t_start - t_open
         info["wire_bytes"] = wire_bytes
         info["n_chunks"] = n_chunks
         info["dispatch_s"] = t_emit - t_start
         info["emit_s"] = time.monotonic() - t_emit
         if keep_probs:
-            info["probs"] = kept
+            info["probs"] = [a.astype(np.uint16) for a in arrays]
+        if streams is not None:
+            info["scan_end_ms"] = [origin.elapsed_time(hd.scanned) if hd.scanned else None
+                                   for hd in handles]
+            info["counts_ready_ms"] = [origin.elapsed_time(ch.ready) if ch.ready else None
+                                       for ch in compacted]
     return blobs
 
 
 @dataclass
 class MeshInputs:
     """One mesh step's inputs: every chunk packed with the mesh-uniform
-    layout, padded to a multiple of the gop axis (host tensors; G = padded
-    chunk count), plus the uniform shapes the step is built for."""
+    layout, padded to a multiple of the gop axis (host tensors at the JAX
+    package's widths; G = padded chunk count), plus the uniform shapes the
+    step is built for."""
     blob: torch.Tensor      # int32[G, W] fused ANL5 planes (u32 bit patterns)
     sc: torch.Tensor        # int32[G, 6] = [wa, wb, wcs, n, n_coo, ud_real]
-    dual0: torch.Tensor     # int32[G, n_dual, 4]
-    sig0_idx: torch.Tensor  # int32[G, SK] sparse warm sig rows (pad = n_sig, drops)
+    dual0: torch.Tensor     # int16[G, n_dual, 4] (u16 bit patterns)
+    sig0_idx: torch.Tensor  # int32[G, SK] sparse warm sig rows (u32; pad = n_sig, drops)
     sig0_val: torch.Tensor  # int16[G, SK, 2] (u16 bit patterns)
     n_arr: torch.Tensor     # int32[G] live bins per chunk
     statics: dict           # kwargs of parallel.pipeline.sharded_v4_compress_step
@@ -443,15 +507,30 @@ class MeshInputs:
         return self.blob, self.sc, self.dual0, self.sig0_idx, self.sig0_val, self.n_arr
 
 
+def _host_array(shape, dtype, fill, pin: bool) -> tuple[np.ndarray, torch.Tensor]:
+    """A host array of `dtype` filled with `fill`, and the tensor that
+    carries it at its wire width (`_wire`): with `pin` the array is a view of
+    a pinned tensor's memory."""
+    if not pin:
+        a = np.full(shape, fill, dtype)
+        return a, _wire(a)
+    t = cs.pinned(shape, _wire(np.empty(0, dtype)).dtype)
+    a = t.numpy().view(dtype)
+    a[...] = fill
+    return a, t
+
+
 def mesh_inputs(an: Analysis, chunks: list[SlimChunk], n_gop: int, sup: int,
-                force_lanes: int | None = None) -> MeshInputs:
+                force_lanes: int | None = None, pin: bool = False) -> MeshInputs:
     """Packs the chunks for one sharded_v4_compress_step, as
-    avrecode_tpu.device.compress_mesh does (device.py:941-993): the layout is
-    the elementwise max of the chunks' own, dk/ds key tables are padded to
-    the widest chunk's (UD, US, NS) with distinct scratch keys, and pad
-    chunks (up to a multiple of n_gop) carry live, distinct scratch keys too:
-    the model kernel's sorted-unique row scatter writes each row from one
-    slot, so rows of zeros would race on row 0."""
+    avrecode_tpu.device.compress_mesh does (device.py:941-993), at its
+    widths (dual0 u16): the layout is the elementwise max of the chunks'
+    own, dk/ds key tables are padded to the widest chunk's (UD, US, NS) with
+    distinct scratch keys, and pad chunks (up to a multiple of n_gop) carry
+    live, distinct scratch keys too: the model kernel's sorted-unique row
+    scatter writes each row from one slot, so rows of zeros would race on
+    row 0. With `pin` every array is packed in pinned memory (a call on the
+    card uploads from there without blocking)."""
     G = len(chunks)
     G_pad = -(-G // n_gop) * n_gop
     UD = max(c.ud for c in chunks)
@@ -467,23 +546,23 @@ def mesh_inputs(an: Analysis, chunks: list[SlimChunk], n_gop: int, sup: int,
     dk_d0 = an.n_dual + 1 + np.arange(UD, dtype=np.uint32)
     dk_s0 = an.n_sig + np.arange(US, dtype=np.uint32)
     offs = mp._blob_layout_words(layout, NS * sup, NS, UD, US)
-    blob = np.zeros((G_pad, offs[-1]), np.uint32)
-    blob[:, offs[12]:offs[13]] = np.tile(dk_d0, NS)
-    blob[:, offs[13]:offs[14]] = np.tile(dk_s0, NS)
-    sc = np.zeros((G_pad, 6), np.int32)
-    sc[:, 5] = UD  # pad chunks: no slot shift
-    dual0 = np.ones((G_pad, an.n_dual, 4), np.int32)
-    n_arr = np.zeros(G_pad, np.int32)
     SK = _bucket_pow2(max(max(len(c.sig0_idx) if c.sig0_idx is not None else 0
                               for c in chunks), 1))
-    sig0_idx = np.full((G_pad, SK), an.n_sig, np.uint32)
-    sig0_val = np.zeros((G_pad, SK, 2), np.uint16)
+    blob, blob_t = _host_array((G_pad, offs[-1]), np.uint32, 0, pin)
+    sc, sc_t = _host_array((G_pad, 6), np.int32, 0, pin)
+    dual0, dual0_t = _host_array((G_pad, an.n_dual, 4), np.uint16, 1, pin)
+    n_arr, n_t = _host_array(G_pad, np.int32, 0, pin)
+    sig0_idx, si_t = _host_array((G_pad, SK), np.uint32, an.n_sig, pin)
+    sig0_val, sv_t = _host_array((G_pad, SK, 2), np.uint16, 0, pin)
+    blob[:, offs[12]:offs[13]] = np.tile(dk_d0, NS)
+    blob[:, offs[13]:offs[14]] = np.tile(dk_s0, NS)
+    sc[:, 5] = UD  # pad chunks: no slot shift
     for g, c in enumerate(chunks):
         dk_d = np.tile(dk_d0, (NS, 1))
         dk_s = np.tile(dk_s0, (NS, 1))
         dk_d[:c.ns, :c.ud] = c.dk_d
         dk_s[:c.ns, :c.us] = c.dk_s
-        blob[g], sc[g] = _build_blob4(an, c, layout, dk_d=dk_d, dk_s=dk_s, ud_mesh=UD)
+        _, sc[g] = _build_blob4(an, c, layout, dk_d=dk_d, dk_s=dk_s, ud_mesh=UD, out=blob[g])
         dual0[g] = c.dual0
         n_arr[g] = c.n
         if c.sig0_idx is not None and len(c.sig0_idx):
@@ -493,8 +572,7 @@ def mesh_inputs(an: Analysis, chunks: list[SlimChunk], n_gop: int, sup: int,
                    slow_w=int(an.slow_w), sig_w=int(an.sig_w), sig_alpha=int(an.sig_alpha),
                    ud=int(UD), us=int(US), ns=int(NS), n_sig=int(an.n_sig), K_total=int(K),
                    layout=layout)
-    return MeshInputs(*(_wire(a) for a in (blob, sc, dual0, sig0_idx, sig0_val, n_arr)),
-                      statics)
+    return MeshInputs(blob_t, sc_t, dual0_t, si_t, sv_t, n_t, statics)
 
 
 def compress_mesh(data: bytes, mesh, lanes: int = 16, chunk_mode: int = 1,
@@ -508,10 +586,17 @@ def compress_mesh(data: bytes, mesh, lanes: int = 16, chunk_mode: int = 1,
     row's chunks and lane-scans each cell's lane slice. The lane outputs
     reassemble into RansInterleaved blobs, and the session packs the same
     container the single-device path writes (with force_lanes, or when
-    pick_lanes agrees), which the host decoder reads back."""
+    pick_lanes agrees), which the host decoder reads back.
+
+    Where the mesh's first device is a card, the call has its own streams
+    (streams.CallStreams): the inputs are packed in pinned memory, which the
+    cells upload from without blocking, the step runs on the compute stream,
+    and its outputs (3 bytes a (step, lane) slot) come back into pinned
+    memory on the copy stream with one wait."""
     from .parallel.pipeline import sharded_v4_compress_step
     if sup <= 0:
         sup = mp.default_sup()
+    first = mesh.devices[0][0]
     lib = host.lib()
     h = lib.artc_session_open(data, len(data), lanes, chunk_mode, batch_size, 2)
     if not h:
@@ -531,10 +616,13 @@ def compress_mesh(data: bytes, mesh, lanes: int = 16, chunk_mode: int = 1,
             prev = _parse_slim_chunk(np.frombuffer(_fetch(rc, out, out_len), np.uint8), an,
                                      prev)
             chunks.append(prev)
-        inputs = mesh_inputs(an, chunks, mesh.shape["gop"], sup, force_lanes)
+        inputs = mesh_inputs(an, chunks, mesh.shape["gop"], sup, force_lanes,
+                             pin=first.type == "cuda")
         step = sharded_v4_compress_step(mesh, **inputs.statics)
-        x_final, words, emits, _, total_words = step(*inputs.tensors())
-        x_final, words, emits = (t.cpu().numpy() for t in (x_final, words, emits))
+        with cs.for_call(first) as streams, torch.cuda.stream(streams and streams.compute):
+            x_final, words, emits, _, total_words = step(*inputs.tensors())
+            x_final, words, emits, total_words = cs.to_host(
+                [x_final, words, emits, total_words], streams)
         if int(total_words) <= 0:
             raise RuntimeError("mesh step emitted no payload words")
         K = inputs.statics["K_total"]

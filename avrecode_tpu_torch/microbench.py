@@ -16,18 +16,22 @@ largest chunk with its inputs resident, it times:
                    (ops.lanes.encode_interleaved_start)
   dense_chain_ms   model_pass_v4 and the lane scan on clones of the expand's
                    outputs: the chain without the wire expand
-  dense_upload_ms  the upload of those dense planes from host memory
+  dense_upload_ms  the upload of those dense planes from pinned host
+                   memory on a copy stream, as device.compress uploads
                    (dense_mb of them), the cost of shipping them instead of
                    the wire
   wire_upload_ms   the upload of the same chunk's wire (the fused blob and
-                   its scalars, wire_chunk_mb); the shared dual0 / sig0
-                   tables, which both forms need, are in neither
+                   its scalars, wire_chunk_mb), the same way; the shared
+                   dual0 / sig0 tables, which both forms need, are in
+                   neither
 
 Each is the best and the median (`<key>_median`) of --reps runs after a
 warm-up, timed with torch.cuda.Event pairs around one run that starts on an
-idle stream; on --device cpu, with time.perf_counter around the plain
-versions. chain_mbins_s and dense_chain_mbins_s are the chunk's padded bins
-(m) over the best times; wire_mb is every chunk's staged bytes. The pair
+idle card, on one set of call streams (streams.CallStreams) whose copy
+stream the end event waits for; on --device cpu, with time.perf_counter
+around the plain versions. chain_mbins_s and dense_chain_mbins_s are the
+chunk's padded bins (m) over the best times; wire_mb is every chunk's
+staged bytes. The pair
 dense_chain_ms + dense_upload_ms against chain_ms + wire_upload_ms says
 whether the wire expand pays for itself on this card's link.
 
@@ -50,6 +54,7 @@ import numpy as np
 import torch
 
 from . import device as td
+from . import streams as cs
 from .ops import lanes as lx
 from .ops import model_pass as mp
 
@@ -68,10 +73,11 @@ def card(dev: torch.device) -> str:
     return lines[dev.index or 0]
 
 
-def one_ms(fn, dev: torch.device) -> float:
-    """Milliseconds of one fn() that starts on an idle stream: CUDA events
-    on the card (the end waits for every kernel and copy fn enqueued), the
-    host clock on the CPU."""
+def one_ms(fn, dev: torch.device, streams: cs.CallStreams | None = None) -> float:
+    """Milliseconds of one fn() that starts on an idle card: CUDA events on
+    the current stream (the end waits for every kernel and copy fn
+    enqueued there, and for `streams`' copy stream), the host clock on the
+    CPU."""
     if dev.type != "cuda":
         t0 = time.perf_counter()
         fn()
@@ -81,6 +87,8 @@ def one_ms(fn, dev: torch.device) -> float:
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     fn()
+    if streams is not None:
+        torch.cuda.current_stream(dev).wait_stream(streams.copy)
     end.record()
     end.synchronize()
     return start.elapsed_time(end)
@@ -90,16 +98,28 @@ def best_median(runs: list[float]) -> tuple[float, float]:
     return min(runs), statistics.median(runs)
 
 
-def timed(fn, dev: torch.device, reps: int) -> tuple[float, float]:
+def timed(fn, dev: torch.device, reps: int, streams: cs.CallStreams | None = None
+          ) -> tuple[float, float]:
     """(best, median) ms of `reps` runs of fn after one warm-up run."""
     fn()
-    return best_median([one_ms(fn, dev) for _ in range(reps)])
+    return best_median([one_ms(fn, dev, streams) for _ in range(reps)])
 
 
-def stage_all(an, dev: torch.device) -> list:
-    """Every chunk staged on dev, the shared tables uploaded once."""
+def stage_all(an, dev: torch.device, streams: cs.CallStreams | None = None) -> list:
+    """Every chunk staged on dev, the shared tables uploaded once (through
+    `streams` as device.compress stages, where given)."""
     cache: dict = {}
-    return [td.to_torch_staged(an, c, dev, cache) for c in an.chunks]
+    return [td.to_torch_staged(an, c, dev, cache, streams) for c in an.chunks]
+
+
+def _uploads(hosts, dev: torch.device, streams: cs.CallStreams | None) -> list:
+    """Host tensors on dev: on the copy stream (the compute stream waiting
+    for them) where there are streams."""
+    if streams is None:
+        return [t.to(dev) for t in hosts]
+    out = [streams.upload(t) for t in hosts]
+    streams.uploaded()
+    return out
 
 
 def probs_mismatch(an, staged) -> str | None:
@@ -140,12 +160,16 @@ def measure(an, staged, dev: torch.device, reps: int) -> dict:
     dense_host = [t.cpu() for t in dense]
     blob, sc = td._build_blob4(an, c, td._chunk_layout(c))
     wire_host = [td._wire(blob), td._wire(sc)]
+    if dev.type == "cuda":
+        dense_host, wire_host = ([cs.pinned(t.shape, t.dtype).copy_(t) for t in hosts]
+                                 for hosts in (dense_host, wire_host))
     out = {"chunk": big, "chunk_bins": st.n, "m": st.m, "lanes": K, "reps": reps}
-    for key, fn in (("expand_ms", expand), ("expand_model_ms", lambda: td._exec_v4(st)),
-                    ("chain_ms", chain), ("dense_chain_ms", dense_chain),
-                    ("dense_upload_ms", lambda: [t.to(dev) for t in dense_host]),
-                    ("wire_upload_ms", lambda: [t.to(dev) for t in wire_host])):
-        out[key], out[key + "_median"] = timed(fn, dev, reps)
+    with cs.for_call(dev) as streams, torch.cuda.stream(streams and streams.compute):
+        for key, fn in (("expand_ms", expand), ("expand_model_ms", lambda: td._exec_v4(st)),
+                        ("chain_ms", chain), ("dense_chain_ms", dense_chain),
+                        ("dense_upload_ms", lambda: _uploads(dense_host, dev, streams)),
+                        ("wire_upload_ms", lambda: _uploads(wire_host, dev, streams))):
+            out[key], out[key + "_median"] = timed(fn, dev, reps, streams)
     out["chain_mbins_s"] = st.m / out["chain_ms"] / 1e3
     out["dense_chain_mbins_s"] = st.m / out["dense_chain_ms"] / 1e3
     out["dense_mb"] = sum(t.nbytes for t in dense_host) / 1e6

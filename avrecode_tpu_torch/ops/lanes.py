@@ -12,7 +12,13 @@ path), `lane_scan` ([T, K] planes with an explicit valid mask: the profile-0
 path's `encode_interleaved`, and per chunk and lane slice the mesh steps of
 parallel/pipeline.py) and `lane_compact` each have a plain PyTorch version,
 taken only for CPU tensors, and a CUDA kernel (csrc/lanes.cu) for CUDA
-tensors.
+tensors. Their outputs have the JAX functions' widths, in the dtypes that
+carry them (device._wire's mapping): x_final u32 as int32 bit patterns,
+words u16 as int16 bit patterns, emits bool, counts int32.
+
+With a `streams.CallStreams` (a compress call on the card) the counts
+readback and the bulk downloads go through pinned memory on the call's
+copy stream, each waiting only on the event of the kernel it reads.
 
 The scan kernels run each step as a short chain of multiplies fed by
 per-step records (csrc/lanes.cu's note). `_magic_table` proves the exact
@@ -25,11 +31,13 @@ for the CPU tests (nothing on the main path calls those four).
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import _native
+from .. import streams as cs
 
 PROB_BITS = 15
 PROB_SCALE = 1 << PROB_BITS
@@ -101,11 +109,15 @@ def _magic_words() -> np.ndarray:
 
 
 def _magic_on(device: torch.device) -> torch.Tensor:
-    """_magic_words as int32 on `device`, uploaded once; the upload ends
-    before any stream can read it."""
+    """_magic_words as int32 on `device`, uploaded once from pinned memory;
+    the upload ends before any stream can read it, and the table is never
+    freed."""
     t = _MAGIC_ON.get(device)
     if t is None:
-        t = torch.from_numpy(_magic_words().view(np.int32)).to(device)
+        words = _magic_words().view(np.int32)
+        t = cs.pinned(words.shape, torch.int32)
+        t.numpy()[:] = words
+        t = t.to(device)
         torch.cuda.current_stream(device).synchronize()
         _MAGIC_ON[device] = t
     return t
@@ -147,24 +159,25 @@ def _chain_step(x, rec: dict):
 def _lane_scan_chain(bits_tk, probs_tk, valid_tk):
     """The masked scan ([T, K] or [G, T, K]) through _pack_steps and
     _chain_step, as the kernels run it; returns what _lane_scan_plain
-    returns, as numpy arrays (x_final int64, words, emits, counts int32)."""
+    returns, as numpy arrays of the same dtypes."""
     rec = _pack_steps(bits_tk, probs_tk, valid_tk)
     *lead, T, K = rec["m"].shape
     x = np.full((*lead, K), RANS_L, np.int64)
-    words = np.empty((*lead, T, K), np.int32)
-    emits = np.empty((*lead, T, K), np.int32)
+    words = np.empty((*lead, T, K), np.uint16)
+    emits = np.empty((*lead, T, K), bool)
     for t in range(T - 1, -1, -1):
         words[..., t, :] = x & 0xFFFF
-        x, e = _chain_step(x, {k: r[..., t, :] for k, r in rec.items()})
-        emits[..., t, :] = e
-    return x, words, emits, emits.sum(-2, dtype=np.int32)
+        x, emits[..., t, :] = _chain_step(x, {k: r[..., t, :] for k, r in rec.items()})
+    return (x.astype(np.uint32).view(np.int32), words.view(np.int16), emits,
+            emits.sum(-2, dtype=np.int32))
 
 
 def lane_scan_dev(bits_m: torch.Tensor, probs_m: torch.Tensor, n: int, T: int, K: int):
     """Reverse rANS scan of bins [0, n) over K lanes and T steps (bin t*K+l
     is lane l's step t). bits_m/probs_m: int32[>= n]. Returns x_final
-    int64[K] (u32 states), words int32[T, K] (u16 values), emits int32[T, K]
-    (0/1) and counts int32[K] (emissions per lane)."""
+    int32[K] (u32 states' bit patterns), words int16[T, K] (u16 values' bit
+    patterns), emits bool[T, K] and counts int32[K] (emissions per lane), as
+    JAX's _lane_scan_dev."""
     if _native.on_cpu("lane_scan_dev", bits_m):
         return _lane_scan_dev_plain(bits_m, probs_m, n, T, K)
     return _lane_scan_dev_cuda(bits_m, probs_m, n, T, K)
@@ -193,12 +206,12 @@ def _lane_scan_dev_cuda(bits_m, probs_m, n: int, T: int, K: int):
         raise ValueError(f"lane_scan_dev: T={T} K={K} cannot hold n={n}")
     dev = bits_m.device
     x_final = torch.empty(K, dtype=torch.int32, device=dev)
-    words = torch.empty((T, K), dtype=torch.int32, device=dev)
-    emits = torch.empty((T, K), dtype=torch.int32, device=dev)
+    words = torch.empty((T, K), dtype=torch.int16, device=dev)
+    emits = torch.empty((T, K), dtype=torch.bool, device=dev)
     counts = torch.empty(K, dtype=torch.int32, device=dev)
     _native.launch("lane_scan_dev", "artc_lane_scan_dev", dev, bits_m, probs_m,
                    _magic_on(dev), x_final, words, emits, counts, n, T, K)
-    return x_final.to(torch.int64) & 0xFFFFFFFF, words, emits, counts
+    return x_final, words, emits, counts
 
 
 def lane_scan(bits_tk: torch.Tensor, probs_tk: torch.Tensor, valid_tk: torch.Tensor):
@@ -206,9 +219,10 @@ def lane_scan(bits_tk: torch.Tensor, probs_tk: torch.Tensor, valid_tk: torch.Ten
     _lane_scan): step [t, l] encodes bin t*K + l where valid_tk[t, l] is
     true, and an invalid step neither emits nor changes the state. The mask
     need not be a prefix. bits_tk/probs_tk: int32[T, K], valid probabilities
-    in [1, 32767]; valid_tk: bool[T, K]. Returns x_final int64[K] (u32
-    states), words int32[T, K] (u16 values), emits int32[T, K] (0/1) and
-    counts int32[K] (emissions per lane).
+    in [1, 32767]; valid_tk: bool[T, K]. Returns x_final int32[K] (u32
+    states' bit patterns), words int16[T, K] (u16 values' bit patterns),
+    emits bool[T, K] and counts int32[K] (emissions per lane): JAX's
+    widths (its counts come from _lane_scan_dev).
 
     A leading chunk axis ([G, T, K] planes, the mesh's vmap written out)
     scans G chunks at once, and every output gains it. The three planes may
@@ -234,7 +248,7 @@ def _lane_scan_plain(bits_tk, probs_tk, valid_tk):
     for t in range(T - 1, -1, -1):
         words[..., t, :] = x & 0xFFFF
         x, emits[..., t, :] = _plain_step(x, b[..., t, :], p[..., t, :], valid[..., t, :])
-    return x, words, emits.to(torch.int32), emits.sum(-2, dtype=torch.int32)
+    return _as_i32(x), _as_i16(words), emits, emits.sum(-2, dtype=torch.int32)
 
 
 def _plain_step(x, b, p, v):
@@ -269,12 +283,12 @@ def _lane_scan_cuda(bits_tk, probs_tk, valid_tk):
     if not 1 <= K <= 1024:
         raise ValueError(f"lane_scan: K={K} outside [1, 1024]")
     x_final = torch.empty((G, K), dtype=torch.int32, device=dev)
-    words = torch.empty((G, T, K), dtype=torch.int32, device=dev)
-    emits = torch.empty((G, T, K), dtype=torch.int32, device=dev)
+    words = torch.empty((G, T, K), dtype=torch.int16, device=dev)
+    emits = torch.empty((G, T, K), dtype=torch.bool, device=dev)
     counts = torch.empty((G, K), dtype=torch.int32, device=dev)
     _native.launch("lane_scan", "artc_lane_scan", dev, *planes, _magic_on(dev), x_final, words,
                    emits, counts, G, T, K, strides[0], strides[1])
-    out = (x_final.to(torch.int64) & 0xFFFFFFFF, words, emits, counts)
+    out = (x_final, words, emits, counts)
     return tuple(o[0] for o in out) if one else out
 
 
@@ -283,7 +297,8 @@ def lane_compact(words: torch.Tensor, emits: torch.Tensor, maxW: int) -> torch.T
     int16[maxW, K] holding the u16 words' bit patterns (JAX's uint16),
     zeros past each lane's count; emissions at positions >= maxW drop. The
     download is then about the compressed payload instead of the full [T,
-    K] planes. words/emits: int32 [T, K] (u16 words, 0/1)."""
+    K] planes. words: int16 [T, K] (u16 bit patterns), emits: bool [T, K],
+    as the scans return them."""
     if _native.on_cpu("lane_compact", words):
         return _lane_compact_plain(words, emits, maxW)
     return _lane_compact_cuda(words, emits, maxW)
@@ -295,6 +310,12 @@ def _as_i16(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 15, x - (1 << 16), x).to(torch.int16)
 
 
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """u32 values (int64) -> int32 bit patterns."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
 def _lane_compact_plain(words, emits, maxW: int):
     T, K = words.shape
     e = emits.to(torch.int64)
@@ -302,7 +323,7 @@ def _lane_compact_plain(words, emits, maxW: int):
     lane = torch.arange(K, device=words.device).expand(T, K)
     keep = (e != 0) & (pos < maxW)
     out = torch.zeros(maxW * K, dtype=torch.int16, device=words.device)
-    out[(pos * K + lane)[keep]] = _as_i16(words[keep])
+    out[(pos * K + lane)[keep]] = words[keep]
     return out.reshape(maxW, K)
 
 
@@ -363,7 +384,7 @@ def _compact_mirror(words, emits, maxW: int):
 
 
 def _lane_compact_cuda(words, emits, maxW: int):
-    _native.check_cuda("lane_compact", words, emits)
+    _native.check_cuda("lane_compact", words, emits, dtype=(torch.int16, torch.bool))
     if words.dim() != 2 or emits.shape != words.shape:
         raise ValueError("lane_compact: words/emits must both be [T, K]")
     T, K = words.shape
@@ -389,16 +410,18 @@ def _empty_blob(K: int) -> bytes:
 def assemble_blob(x_final: np.ndarray, words: np.ndarray, emits: np.ndarray,
                   n: int, K: int) -> bytes:
     """Builds the RansInterleaved wire blob from raw scan outputs on the host
-    (x_final u32[K], words u16[T, K], emits bool[T, K])."""
+    (x_final u32[K], words u16[T, K], emits bool[T, K]; the port's int32 and
+    int16 bit patterns are read as those)."""
+    x_final = np.asarray(x_final).view(np.uint32)
+    words = np.asarray(words).view(np.uint16)
     out = bytearray()
     out += np.uint32(K).tobytes()
     out += np.uint32(n).tobytes()
     lane_words = []
     for lane in range(K):
-        tail = words[:, lane][emits[:, lane].astype(bool)]
+        tail = words[:, lane][emits[:, lane]]
         lane_words.append(np.concatenate([
-            np.array([x_final[lane] >> 16, x_final[lane] & 0xFFFF], np.uint16),
-            tail.astype(np.uint16)]))
+            np.array([x_final[lane] >> 16, x_final[lane] & 0xFFFF], np.uint16), tail]))
     for lw in lane_words:
         out += np.uint32(len(lw)).tobytes()
     for lw in lane_words:
@@ -406,37 +429,84 @@ def assemble_blob(x_final: np.ndarray, words: np.ndarray, emits: np.ndarray,
     return bytes(out)
 
 
+class ScanHandle(NamedTuple):
+    """A chunk's lane scan in flight (phase 1's result): its outputs on the
+    device and, on a call's streams, the event after the scan."""
+    x_final: torch.Tensor | None
+    words: torch.Tensor | None
+    emits: torch.Tensor | None
+    counts: torch.Tensor | None
+    n: int
+    K: int
+    scanned: torch.cuda.Event | None = None
+
+
+class CompactHandle(NamedTuple):
+    """A chunk's compaction in flight (phase 2's result): the final states
+    and compacted words on the device, the counts on the host, and, on a
+    call's streams, the event after the counts' copy."""
+    x_final: torch.Tensor | None
+    tail: torch.Tensor | None
+    counts: np.ndarray | None
+    n: int
+    K: int
+    ready: torch.cuda.Event | None = None
+
+
 def encode_interleaved_start(bits_dev: torch.Tensor, probs_dev: torch.Tensor,
-                             n: int, K: int):
+                             n: int, K: int, streams: cs.CallStreams | None = None
+                             ) -> ScanHandle:
     """Phase 1: launches a chunk's lane scan on the device-resident bits and
-    probs, with no readback; returns an opaque handle."""
+    probs, with no readback. With `streams` the scan runs on their compute
+    stream (the caller's current stream) and the handle keeps the event
+    after it."""
     if n == 0:
-        return (None, None, None, None, n, K)
+        return ScanHandle(None, None, None, None, n, K)
     T = _bucket(-(-n // K))
-    x_final, words, emits, counts = lane_scan_dev(bits_dev, probs_dev, n, T, K)
-    return (x_final, words, emits, counts, n, K)
+    scan = lane_scan_dev(bits_dev, probs_dev, n, T, K)
+    scanned = None
+    if streams is not None:
+        scanned = torch.cuda.Event(enable_timing=True)
+        scanned.record(streams.compute)
+    return ScanHandle(*scan, n, K, scanned)
 
 
-def encode_interleaved_compact(handle):
-    """Phase 2: reads back the K per-lane counts (one tiny sync that ends
-    when the scan does) and launches the compaction they size."""
-    x_final, words, emits, counts, n, K = handle
+def encode_interleaved_compact(handle: ScanHandle, streams: cs.CallStreams | None = None
+                               ) -> CompactHandle:
+    """Phase 2: reads back the K per-lane counts and launches the compaction
+    they size. With `streams` the counts go into pinned memory on the copy
+    stream once the scan's event has passed, and the host waits for that
+    copy only, not for the kernels queued after the scan; else the readback
+    is a `.cpu()` that ends when the scan does."""
+    x_final, words, emits, counts, n, K, scanned = handle
     if n == 0:
-        return (None, None, None, n, K)
-    counts_h = counts.cpu().numpy()
+        return CompactHandle(None, None, None, n, K)
+    ready = None
+    if streams is None:
+        counts_h = counts.cpu().numpy()
+    else:
+        (counts_p,), ready = streams.download([counts], scanned, timing=True)
+        ready.synchronize()
+        counts_h = counts_p.numpy()
     maxW = _bucket(max(int(counts_h.max()), 1))
-    return (x_final, lane_compact(words, emits, maxW), counts_h, n, K)
+    return CompactHandle(x_final, lane_compact(words, emits, maxW), counts_h, n, K, ready)
 
 
-def encode_interleaved_emit(chandle) -> bytes:
-    """Phase 3: downloads the compacted words and final states and writes
-    the RansInterleaved blob: K, n, per-lane word counts (count + 2), then
-    per lane the final state (hi, lo) and its words."""
-    x_final, tail_dev, counts_h, n, K = chandle
+def emit_tensors(chandle: CompactHandle) -> list[torch.Tensor]:
+    """The device tensors phase 3 downloads: the compacted words and the
+    final states (none for an empty chunk)."""
+    return [] if chandle.n == 0 else [chandle.tail, chandle.x_final]
+
+
+def encode_interleaved_emit(chandle: CompactHandle, host: list | None = None) -> bytes:
+    """Phase 3: the RansInterleaved blob: K, n, per-lane word counts (count
+    + 2), then per lane the final state (hi, lo) and its words. `host`: the
+    numpy copies of emit_tensors(chandle), downloaded here when not given."""
+    x_final, tail_dev, counts_h, n, K, _ = chandle
     if n == 0:
         return _empty_blob(K)
-    tail = tail_dev.cpu().numpy()
-    x_final = x_final.cpu().numpy()
+    tail, x_final = host if host is not None else cs.to_host(emit_tensors(chandle), None)
+    tail, x_final = tail.view(np.uint16), x_final.view(np.uint32)
     out = bytearray()
     out += np.uint32(K).tobytes()
     out += np.uint32(n).tobytes()
@@ -449,7 +519,7 @@ def encode_interleaved_emit(chandle) -> bytes:
     return bytes(out)
 
 
-def encode_interleaved_finish(handle) -> bytes:
+def encode_interleaved_finish(handle: ScanHandle) -> bytes:
     return encode_interleaved_emit(encode_interleaved_compact(handle))
 
 
@@ -476,4 +546,4 @@ def encode_interleaved(bits: np.ndarray, probs: np.ndarray, K: int, *,
               for a, dt, fill in ((bits, np.int32, 0), (probs, np.int32, 1),
                                   (np.ones(n, bool), bool, False))]
     b, p, v = (torch.from_numpy(a).to(device) for a in planes)
-    return encode_interleaved_finish((*lane_scan(b, p, v), n, K))
+    return encode_interleaved_finish(ScanHandle(*lane_scan(b, p, v), n, K))

@@ -15,7 +15,10 @@ shard_map instance computes:
     which the JAX psum adds over both axes: the controller adds the cells'
     per-lane counts, each cell once, even where cells share a card.
 All launches of all cells are issued first, and only then are the outputs
-gathered on the first cell's device. A cell on a CUDA device issues its
+gathered on the first cell's device, at the JAX step's widths (u32 as int32
+and u16 as int16 bit patterns, bool as bool). A cell takes its rows of host
+inputs without blocking: from pinned memory (device.compress_mesh pins
+them) the copy runs on the cell's stream. A cell on a CUDA device issues its
 launches on a stream of its own (made once per built step), which first
 waits on the controller's current streams, so cells that share a card
 overlap their work as JAX's cells on their own devices do; the gather waits
@@ -89,15 +92,16 @@ def _joined(dev: torch.device, outputs, stream):
 
 def _gather(mesh: Mesh, cells: dict, G: int, N: int, T: int, K_total: int):
     """Assembles the cells' (probs, x_final, words, emits, counts) on the
-    first cell's device: probs [G, N] from each row's lane-0 cell, the lane
-    outputs by (rows, lane slice), and the payload-word total."""
+    first cell's device at the JAX step's widths: probs int16 [G, N] (u16
+    bit patterns) from each row's lane-0 cell, the lane outputs by (rows,
+    lane slice), and the payload-word total int32."""
     out = mesh.devices[0][0]
     G_l, k_local = _grid(mesh, G, K_total)
-    probs = torch.empty((G, N), dtype=torch.int32, device=out)
-    x_final = torch.empty((G, K_total), dtype=torch.int64, device=out)
-    words = torch.empty((G, T, K_total), dtype=torch.int32, device=out)
-    emits = torch.empty((G, T, K_total), dtype=torch.int32, device=out)
-    total = torch.zeros((), dtype=torch.int64, device=out)
+    probs = torch.empty((G, N), dtype=torch.int16, device=out)
+    x_final = torch.empty((G, K_total), dtype=torch.int32, device=out)
+    words = torch.empty((G, T, K_total), dtype=torch.int16, device=out)
+    emits = torch.empty((G, T, K_total), dtype=torch.bool, device=out)
+    total = torch.zeros((), dtype=torch.int32, device=out)
     for (g, l), (outputs, stream) in cells.items():
         p, x, w, e, counts = _joined(mesh.devices[g][l], outputs, stream)
         rows, cols = slice(g * G_l, (g + 1) * G_l), slice(l * k_local, (l + 1) * k_local)
@@ -106,7 +110,7 @@ def _gather(mesh: Mesh, cells: dict, G: int, N: int, T: int, K_total: int):
         x_final[rows, cols] = x.to(out)
         words[rows, :, cols] = w.to(out)
         emits[rows, :, cols] = e.to(out)
-        total += counts.sum(dtype=torch.int64).to(out) + 2 * G_l * k_local
+        total += counts.sum(dtype=torch.int32).to(out) + 2 * G_l * k_local
     return probs, x_final, words, emits, total
 
 
@@ -130,12 +134,14 @@ def sharded_v4_compress_step(mesh: Mesh, *, batch: int, sup: int, fast_w: int, s
       blob: int32[G, W] fused ANL5 planes (pad chunks: zero planes but live,
         distinct dk scratch rows)
       sc: int32[G, 6] = [wa, wb, wcs, n, n_coo, ud_real] per chunk
-      dual0: int32[G, n_dual, 4]
-      sig0_idx: int32[G, SK]; sig0_val: int32[G, SK, 2] (pad rows = n_sig)
+      dual0: int16[G, n_dual, 4] (u16 bit patterns, JAX's uint16; the cell
+        widens it to int32 on its device before v3_core)
+      sig0_idx: int32[G, SK]; sig0_val: int16[G, SK, 2] (pad rows = n_sig)
       n_arr: int32[G] live bins per chunk
-    Returns, on the mesh's first device, (x_final int64[G, K] (u32 states),
-    words int32[G, T, K] (u16 values), emits int32[G, T, K] (0/1), probs
-    int32[G, M], total_words int64[])."""
+    Returns, on the mesh's first device, JAX's outputs at its widths:
+    (x_final int32[G, K] (u32 bit patterns), words int16[G, T, K] (u16 bit
+    patterns), emits bool[G, T, K], probs int16[G, M] (u16 bit patterns),
+    total_words int32[])."""
     M = ns * sup * batch
     if M % K_total:
         raise ValueError(f"M={M} bins do not split into {K_total} lanes")
@@ -146,8 +152,9 @@ def sharded_v4_compress_step(mesh: Mesh, *, batch: int, sup: int, fast_w: int, s
                  sig_alpha=sig_alpha, ud=ud, us=us, n_sig=n_sig)
 
     def cell(dev, rows, cols, blob, sc, dual0, sig0_idx, sig0_val, n_arr):
-        bl, s, d0, si, sv, n = (t[rows].to(dev) for t in (blob, sc, dual0, sig0_idx,
-                                                          sig0_val, n_arr))
+        bl, s, d0, si, sv, n = (t[rows].to(dev, non_blocking=True)
+                                for t in (blob, sc, dual0, sig0_idx, sig0_val, n_arr))
+        d0 = d0.to(torch.int32) & 0xFFFF  # u16 -> the int32 table v3_core takes
         bit, kind, slot, prior, deltas, dk_d, dk_s = mp.wire_expand4_blob(bl, s, **expand)
         probs = mp.v3_core(bit, kind, slot, prior, dk_d, dk_s, deltas, d0, sig0_idx=si,
                            sig0_val=sv, **model)
@@ -183,16 +190,17 @@ def sharded_recompress_step(mesh: Mesh, batch: int, fast_w: int = 48, slow_w: in
     pairs per chunk, a multiple of batch and K):
       bits, kinds, keys, priors: int32[G, N]
       dual0: int32[G, n_dual, 4]   sig0: int32[G, n_sig, 2]
-    Returns, on the mesh's first device: probs int32[G, N]; x_final
-    int64[G, K] (u32 states), words int32[G, T, K] (u16 values), emits
-    int32[G, T, K] (0/1); total_words int64[] (over the whole mesh)."""
+    Returns, on the mesh's first device, JAX's outputs at its widths: probs
+    int16[G, N] (u16 bit patterns); x_final int32[G, K] (u32 bit patterns),
+    words int16[G, T, K] (u16 bit patterns), emits bool[G, T, K];
+    total_words int32[] (over the whole mesh)."""
     kw = dict(batch=batch, fast_w=fast_w, slow_w=slow_w, sig_w=sig_w, sig_alpha=sig_alpha,
               impl="sort")
 
     def build(K_total: int):
         def cell(dev, rows, cols, bits, kinds, keys, priors, dual0, sig0):
-            b, k, y, p, d, s = (t[rows].to(dev) for t in (bits, kinds, keys, priors, dual0,
-                                                          sig0))
+            b, k, y, p, d, s = (t[rows].to(dev, non_blocking=True)
+                                for t in (bits, kinds, keys, priors, dual0, sig0))
             G_l, N = b.shape
             probs = mp.model_pass(*(t.contiguous() for t in (b, k, y, p, d, s)), **kw)
             valid = torch.ones((G_l, N), dtype=torch.bool, device=dev)

@@ -135,13 +135,14 @@ def empty_coo_blob(seed: int):
 
 
 def lane_planes(rng, T: int, K: int):
-    """words / emits int32 [T, K]: emissions at about 12%, a silent lane and
-    a lane that emits at every step (K > 1)."""
-    emits = (rng.random((T, K)) < 0.12).astype(np.int32)
+    """words int16 [T, K] (u16 bit patterns) and emits bool [T, K], as the
+    lane scans return them: emissions at about 12%, a silent lane and a lane
+    that emits at every step (K > 1)."""
+    emits = rng.random((T, K)) < 0.12
     if K > 1:
-        emits[:, K // 2] = 0
-        emits[:, -1] = 1
-    return rng.integers(0, 65536, (T, K)).astype(np.int32), emits
+        emits[:, K // 2] = False
+        emits[:, -1] = True
+    return rng.integers(0, 65536, (T, K)).astype(np.uint16).view(np.int16), emits
 
 
 # name -> (seed, n_dual, dictionary rows, live escapes, where they lie):
@@ -187,3 +188,16 @@ def dual0_case(case: str):
     ev = np.zeros((ned, 4), np.uint16)
     ev[:n_esc] = rng.integers(0, 1 << 16, (n_esc, 4))
     return rows, idx, ei, ev
+
+
+def assert_same_array(got, want, what: str = "") -> None:
+    """`got` (a tensor or an array) holds exactly `want` (an array, a JAX
+    array through numpy): the same shape, the same itemsize and nbytes, and
+    the same bytes, so an int16 holds a uint16's bit patterns and a bool a
+    bool. Nothing is converted or widened first."""
+    g = np.asarray(got.numpy() if hasattr(got, "numpy") else got)
+    w = np.asarray(want)
+    assert g.shape == w.shape, f"{what}: shape {g.shape} != {w.shape}"
+    assert g.itemsize == w.itemsize and g.nbytes == w.nbytes, (
+        f"{what}: {g.dtype} ({g.nbytes} B) != {w.dtype} ({w.nbytes} B)")
+    assert g.tobytes() == w.tobytes(), f"{what}: values differ"

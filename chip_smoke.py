@@ -77,6 +77,15 @@ Phases; any failure ends the script with a nonzero exit code:
      against the analysis header and ops/intmath.py, the microbench
      (--reps 5) and the bench (--reps 3 --host-reps 3) with their gates
      passing; their JSON lines are printed, with the phase's seconds;
+   - the transfers (each call's own compute and copy streams, pinned host
+     memory): a torch.profiler pass over one compress on bench.mp4 and one
+     compress_mesh on multigop720.mp4 (1x1) prints every memcpy kind with
+     its count and bytes, and fails on a pageable one or on a mesh
+     download other than 3 bytes a (step, lane) slot (plus the final states
+     and the total); chunk i-1's counts readback must end before chunk i's
+     lane scan does (CUDA events); two compress calls at once from two
+     threads must each equal the call alone, and multigop720.mp4 at chunk
+     mode 1, three times, the single-device container;
    - the corpus: two processes joined over gloo, each `cli corpus --device
      cuda --chunk-mode 1` over benchdata/*.mp4: both report the same merged stats, no
      failures, and every output roundtrips.
@@ -422,8 +431,7 @@ def kernel_phase(K: Kernels, an, chunks, dev) -> None:
             K.ms["lane_scan_dev"] = cuda_ms(
                 lambda: lx.lane_scan_dev(bit, probs, n, T, lanes), 3)
             K.plain_ms["lane_scan_dev"] = plain_scan_s * 1e3
-            K.work["lane_scan_dev"] = (8 * n + 4 * sum(o.numel() for o in scan),
-                                       RANS_STEP_OPS * n)
+            K.work["lane_scan_dev"] = (8 * n + nbytes(*scan), RANS_STEP_OPS * n)
             K.steps["lane_scan_dev"] = -(-n // lanes)  # lane 0's bins below n
             print(f"lane_scan_dev plain version: one run of its Python step loop "
                   f"(T={T} steps, K={lanes}), timed once on the host clock: "
@@ -964,8 +972,7 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
         K.check("lane_scan", g, w, what)
     K.ms["lane_scan"] = cuda_ms(lambda: lx.lane_scan(*lane_planes, valid), 3)
     K.plain_ms["lane_scan"] = plain_s * 1e3
-    K.work["lane_scan"] = (nbytes(*lane_planes, valid) + 4 * sum(o.numel() for o in scan),
-                           RANS_STEP_OPS * n)
+    K.work["lane_scan"] = (nbytes(*lane_planes, valid) + nbytes(*scan), RANS_STEP_OPS * n)
     K.steps["lane_scan"] = chain_steps(valid)
     print(f"lane_scan == plain on {what} (T={T}, K={lanes}); plain version: one run of "
           f"its Python step loop, timed once on the host clock: {plain_s:.3f} s", flush=True)
@@ -1017,7 +1024,8 @@ def mesh_kernel_phase(K: Kernels, an, dev) -> None:
     G, M, T = inp.blob.shape[0], NS * SUP * BATCH, NS * SUP * BATCH // MESH_LANES
     what = (f"{MESH_CLIP} mesh shapes (G={G}, M={M}, ud={UD}, us={US}, "
             f"{len(shapes)} chunk shapes)")
-    blob, sc, dual0, si, sv, n_arr = (t.to(dev) for t in inp.tensors())
+    blob, sc, dual0_u16, si, sv, n_arr = (t.to(dev) for t in inp.tensors())
+    dual0 = dual0_u16.to(torch.int32) & 0xFFFF  # widened as the step's cells widen it
     ekw = dict(m=M, nsub=NS * SUP, U=UD + US, ud=UD, us=US, ns=NS, batch=BATCH, layout=layout,
                mesh=True)
     planes = mp.wire_expand4_blob(blob, sc, **ekw)
@@ -1081,7 +1089,7 @@ def mesh_kernel_phase(K: Kernels, an, dev) -> None:
     # The whole step on the 2 x 2 grid against the plain step on 2 x 2 CPUs.
     grid = mesh_grids(dev)["2x2"]
     step = pipeline.sharded_v4_compress_step(grid, **st)
-    staged = (blob, sc, dual0, si, sv, n_arr)
+    staged = (blob, sc, dual0_u16, si, sv, n_arr)
     got = step(*staged)
     t0 = time.perf_counter()
     want = pipeline.sharded_v4_compress_step(make_mesh(2, 2, ["cpu"] * 4), **st)(
@@ -1147,6 +1155,7 @@ def recompress_kernel_phase(K: Kernels, dev):
     import numpy as np
     import torch
     from avrecode_tpu_torch import _native
+    from avrecode_tpu_torch.ops import lanes as lx
     from avrecode_tpu_torch.ops import model_pass as mp
     from avrecode_tpu_torch.parallel import pipeline
     from avrecode_tpu_torch.parallel.mesh import make_mesh
@@ -1166,7 +1175,8 @@ def recompress_kernel_phase(K: Kernels, dev):
         K.check(name, g, w, f"{what}: {label}")
     for g in range(G):
         one = mp.model_pass(*(t[g] for t in staged), **kw)
-        K.check(name, got[0][g], one, f"{what}: chunk {g} probs vs single-device model_pass")
+        K.check(name, got[0][g], lx._as_i16(one),  # the step's probs: u16 bit patterns
+                f"{what}: chunk {g} probs vs single-device model_pass")
     K.ms[name] = cuda_ms(lambda: step(*staged), 3)
     K.plain_ms[name] = plain_s * 1e3
     # The same step with its four chunks on a 4x2 grid of this one card:
@@ -1354,6 +1364,115 @@ def mesh_main_path_phase(data: bytes, single: bytes, dev) -> dict:
         print(f"main path compress_mesh {MESH_CLIP} {name}: e2e best {best:.3f} s of "
               f"{['%.3f' % t for t in times]} = {len(data) / 1e6 / best:.3f} MB/s, "
               f"{st.n_chunks} chunks; container == single-device, roundtrip exact", flush=True)
+    return report
+
+
+def memcpy_kinds(prof) -> dict:
+    """{memcpy name: [count, bytes]} of a torch.profiler run's device trace
+    (its chrome trace: events of category gpu_memcpy, bytes in their args):
+    the name says the kind, e.g. "Memcpy HtoD (Pinned -> Device)"."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    kinds = {}
+    for e in events:
+        if e.get("cat") == "gpu_memcpy":
+            k = kinds.setdefault(e["name"], [0, 0])
+            k[0] += 1
+            k[1] += int(e.get("args", {}).get("bytes", 0))
+    return kinds
+
+
+def transfers_phase(clips: dict, single_mesh: bytes, dev) -> dict:
+    """The main path's transfers (streams.CallStreams: a compute and a copy
+    stream per call, pinned host memory):
+    - a torch.profiler pass over one compress(device=dev) on bench.mp4 and
+      one compress_mesh on multigop720.mp4 (1x1): every memcpy kind with its
+      count and bytes; none may be pageable, and the mesh download must be
+      3 bytes a (step, lane) slot plus the final states and the total;
+    - the counts readback of chunk i-1 ends before chunk i's lane scan ends
+      (CUDA event times of compress(info=...)): it waits on its own scan;
+    - two compress calls at once from two threads (bench.mp4 and
+      multigop720.mp4) each write the container of the same call alone;
+    - multigop720.mp4 at chunk mode 1 (the mesh's chunks, 16 lanes) three
+      times: each container == the single-device one of the mesh phase."""
+    import threading
+    import torch
+    from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch.parallel.mesh import make_mesh
+    from torch.profiler import ProfilerActivity, profile
+    bench, mesh_data = clips[CLIPS[0]], clips[MESH_CLIP]
+    report = {}
+    alone = {c: td.compress(d, batch_size=BATCH, device=dev)[0] for c, d in clips.items()}
+    mesh = make_mesh(1, 1, [dev])
+
+    def mesh_run():
+        return td.compress_mesh(mesh_data, mesh, chunk_mode=1, batch_size=BATCH, sup=SUP,
+                                force_lanes=MESH_LANES)
+
+    mesh_run()
+    for name, fn in (("compress", lambda: td.compress(bench, batch_size=BATCH, device=dev)),
+                     ("compress_mesh", mesh_run)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            comp, _ = fn()
+            torch.cuda.synchronize()
+        kinds = memcpy_kinds(prof)
+        print(f"transfers: {name} memcpy kinds (count, bytes) {kinds}", flush=True)
+        if not kinds:
+            raise AssertionError(f"{name}: the profiler traced no memcpy on the card")
+        pageable = {k: v for k, v in kinds.items() if "Pageable" in k}
+        if pageable:
+            raise AssertionError(f"{name}: pageable copies in the call: {pageable}")
+        report[name] = {k: {"count": v[0], "bytes": v[1]} for k, v in kinds.items()}
+        want = alone[CLIPS[0]] if name == "compress" else single_mesh
+        if comp != want:
+            raise AssertionError(f"{name}: the traced call's container differs")
+    an = td.analyze(mesh_data, chunk_mode=1, batch_size=BATCH, model_profile=2, sup=SUP)
+    G, NS = len(an.chunks), max(c.ns for c in an.chunks)
+    T = NS * SUP * BATCH // MESH_LANES
+    want_down = 3 * G * T * MESH_LANES + 4 * G * MESH_LANES + 4
+    down = sum(v[1] for k, v in kinds.items() if "DtoH" in k)
+    print(f"transfers: compress_mesh downloaded {down} B for G={G} chunks x T={T} steps x "
+          f"{MESH_LANES} lanes (3 B a slot, the final states and the total: {want_down} B)",
+          flush=True)
+    if down != want_down:
+        raise AssertionError(f"compress_mesh downloaded {down} B, not {want_down}")
+    report["mesh_download_bytes"] = down
+    info = {}
+    td.compress(bench, batch_size=BATCH, device=dev, info=info)
+    ready, scan = info["counts_ready_ms"], info["scan_end_ms"]
+    print(f"transfers: bench.mp4 lane scans end at {scan} ms, their counts' copies at "
+          f"{ready} ms (from the call's first event)", flush=True)
+    for i in range(1, len(scan)):
+        if not ready[i - 1] < scan[i]:
+            raise AssertionError(f"chunk {i - 1}'s counts readback ended at {ready[i - 1]} "
+                                 f"ms, after chunk {i}'s lane scan ({scan[i]} ms)")
+    report["counts_ready_ms"], report["scan_end_ms"] = ready, scan
+    got = {}
+
+    def run(clip):
+        got[clip] = td.compress(clips[clip], batch_size=BATCH, device=dev)[0]
+
+    threads = [threading.Thread(target=run, args=(c,)) for c in CLIPS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if got != alone:
+        raise AssertionError("two concurrent compress calls differ from the calls alone: "
+                             f"{[c for c in CLIPS if got.get(c) != alone[c]]}")
+    for r in range(3):
+        comp, _ = td.compress(mesh_data, chunk_mode=1, batch_size=BATCH,
+                              force_lanes=MESH_LANES, device=dev)
+        if comp != single_mesh:
+            raise AssertionError(f"{MESH_CLIP} chunk mode 1, run {r}: container differs")
+    print(f"transfers: no pageable copy in either call; two concurrent calls == each call "
+          f"alone; {MESH_CLIP} at chunk mode 1 three times == the single-device container",
+          flush=True)
     return report
 
 
@@ -1758,6 +1877,8 @@ def main() -> int:
             clips[MESH_CLIP], single_mesh_ref, dev)),
         ("recompress", RECOMPRESS_KERNELS, lambda: {
             "total_words": int(recompress_step(*recompress_in)[4])}),
+        ("transfers", PROFILE2_KERNELS + MESH_KERNELS, lambda: transfers_phase(
+            clips, single_mesh_ref, dev)),
         ("modules", PROFILE2_KERNELS, lambda: modules_phase(
             clips[CLIPS[0]], refs[CLIPS[0]], card, dev)),
     )

@@ -6,6 +6,7 @@ device. On a machine with the card:
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ _native.ensure_host_lib()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIP = os.path.join(REPO, "benchdata", "multigop720.mp4")
+BENCH = os.path.join(REPO, "benchdata", "bench.mp4")
 
 
 @pytest.fixture(scope="module")
@@ -324,6 +326,7 @@ def test_mesh_expand_and_chunk_axis_kernels_match_plain(cuda, mesh_inputs):
     UD, US, NS = st["ud"], st["us"], st["ns"]
     M = NS * 128 * 4096
     blob, sc, dual0, si, sv, _ = (t.to(cuda) for t in inp.tensors())
+    dual0 = dual0.to(torch.int32) & 0xFFFF  # mesh_inputs ships u16; the cells widen it so
     ex = dict(m=M, nsub=NS * 128, U=UD + US, ud=UD, us=US, ns=NS, batch=4096,
               layout=st["layout"], mesh=True)
     _native.reset_launches()
@@ -493,3 +496,90 @@ def test_model_pass_over_more_chunks_than_a_launch_holds(cuda):
     torch.cuda.synchronize()
     assert _native.pass_launches() > 7
     _equal(got.cpu(), tmp.model_pass(*stacked, batch=batch, **PASS_KW))
+
+
+def test_lane_outputs_have_jax_widths_on_the_card(cuda):
+    """The scan kernels return JAX's widths (x_final u32 as int32, words u16
+    as int16, emits bool, counts int32), the compaction takes them, and the
+    pre-ANL5 mesh step on a 2 x 2 grid of the card returns the CPU grid's
+    outputs at its widths: kernel == plain, dtype for dtype."""
+    from avrecode_tpu_torch.parallel import pipeline as tpipe
+    from avrecode_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(11)
+    n, K = 20011, 16
+    bits, probs = _random_biased_stream(rng, n)
+    b, p = (torch.from_numpy(a.astype(np.int32)) for a in (bits, probs))
+    T = tl._bucket(-(-n // K))
+    got = tl.lane_scan_dev(b.to(cuda), p.to(cuda), n, T, K)
+    assert [t.dtype for t in got] == [torch.int32, torch.int16, torch.bool, torch.int32]
+    for g, w in zip(got, tl._lane_scan_dev_plain(b, p, n, T, K)):
+        _equal(g.cpu(), w)
+    planes = [x.view(T, K)[:, :8] for x in (b[:T * K // 2].repeat(2), p[:T * K // 2].repeat(2),
+                                          torch.ones(T * K, dtype=torch.bool))]
+    for g, w in zip(tl.lane_scan(*(x.to(cuda) for x in planes)), tl._lane_scan_plain(*planes)):
+        _equal(g.cpu(), w)
+    maxW = tl._bucket(int(got[3].max()))
+    _equal(tl.lane_compact(got[1], got[2], maxW).cpu(),
+           tl._lane_compact_plain(got[1].cpu(), got[2].cpu(), maxW))
+    G, N = 4, 8192
+    kinds = rng.integers(0, 3, (G, N)).astype(np.int32)
+    inputs = [torch.from_numpy(a) for a in (
+        rng.integers(0, 2, (G, N)).astype(np.int32), kinds,
+        np.where(kinds == 2, rng.integers(0, 128, (G, N)),
+                 rng.integers(0, 63, (G, N))).astype(np.int32),
+        rng.integers(1, 32767, (G, N)).astype(np.int32),
+        np.full((G, 64, 4), 3, np.int32), np.zeros((G, 128, 2), np.int32))]
+    step = tpipe.sharded_recompress_step(make_mesh(2, 2, [cuda] * 4), batch=4096)(K_total=16)
+    plain = tpipe.sharded_recompress_step(make_mesh(2, 2, ["cpu"] * 4), batch=4096)(
+        K_total=16)
+    out = step(*(x.to(cuda) for x in inputs))
+    assert [t.dtype for t in out] == [torch.int16, torch.int32, torch.int16, torch.bool,
+                                      torch.int32]
+    for g, w in zip(out, plain(*inputs)):
+        _equal(g.cpu(), w)
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def test_concurrent_compress_calls_match_single_calls(cuda):
+    """Two compress calls at once from two threads (each on its own compute
+    and copy streams) write the containers of the same calls alone."""
+    clips = [_read(BENCH), _read(CLIP)]
+    alone = [td.compress(d, device=cuda)[0] for d in clips]
+    got = [None, None]
+
+    def run(i):
+        got[i] = td.compress(clips[i], device=cuda)[0]
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert got == alone
+
+
+def test_multigop_chunk_mode_1_three_runs_match_the_cpu_path(cuda):
+    """multigop720.mp4 at chunk mode 1 (its 10 GOP chunks, 16 lanes), three
+    runs on the card: each container equals the CPU path's (the plain
+    versions), and the host decoder reads it back."""
+    data = _read(CLIP)
+    want, _ = td.compress(data, chunk_mode=1, force_lanes=16, device="cpu")
+    for _ in range(3):
+        assert td.compress(data, chunk_mode=1, force_lanes=16, device=cuda)[0] == want
+    assert pipeline.decompress(want)[0] == data
+
+
+def test_counts_readback_does_not_wait_for_the_next_scan(cuda):
+    """On bench.mp4's three chunks, chunk i-1's counts copy (copy stream,
+    after chunk i-1's scan event) ends before chunk i's lane scan ends, by
+    the CUDA event times compress(info=...) reports."""
+    info = {}
+    td.compress(_read(BENCH), device=cuda, info=info)
+    ready, scan = info["counts_ready_ms"], info["scan_end_ms"]
+    assert len(scan) == info["n_chunks"] == 3
+    for i in range(1, len(scan)):
+        assert ready[i - 1] < scan[i], (i, ready, scan)

@@ -21,7 +21,8 @@ from avrecode_tpu_torch import _native
 from avrecode_tpu_torch import device as td
 from avrecode_tpu_torch.ops import lanes as tl
 from avrecode_tpu_torch.ops import model_pass as tmp
-from avrecode_tpu_torch.testing import EXPAND_CASES, empty_coo_blob, lane_planes, synthetic_blob
+from avrecode_tpu_torch.testing import (EXPAND_CASES, assert_same_array, empty_coo_blob,
+                                        lane_planes, synthetic_blob)
 
 # Built here, under the port's lock, before any test of any module can reach
 # the host library's unlocked build (see _native.ensure_host_lib).
@@ -156,10 +157,10 @@ def test_compact_mirror_and_plain_match_jax(K):
         words, emits = lane_planes(rng, T, K)
         top = max(int(emits.sum(0).max()), 1)
         for maxW in (tl._bucket(top), top, max(top // 3, 1)):
-            want = np.asarray(jl._lane_compact(jnp.asarray(words.astype(np.uint16)),
-                                               jnp.asarray(emits.astype(bool)), maxW))
+            want = jl._lane_compact(jnp.asarray(words.view(np.uint16)), jnp.asarray(emits),
+                                    maxW)
             plain = tl.lane_compact(torch.from_numpy(words), torch.from_numpy(emits), maxW)
             assert plain.dtype == torch.int16
-            assert np.array_equal(plain.numpy().view(np.uint16), want), (T, maxW)
+            assert_same_array(plain, want, f"plain, T={T} maxW={maxW}")
             mirror = tl._compact_mirror(words, emits, maxW)
-            assert np.array_equal(mirror.view(np.uint16), want), (T, maxW)
+            assert_same_array(mirror, want, f"mirror, T={T} maxW={maxW}")

@@ -12,6 +12,7 @@ from test_coder import _c_decode, _c_encode, _random_biased_stream
 from avrecode_tpu.ops import lanes as jl
 from avrecode_tpu_torch import _native
 from avrecode_tpu_torch.ops import lanes as tl
+from avrecode_tpu_torch.testing import assert_same_array
 
 # Built here, under the port's lock, before any test of any module can reach
 # the host library's unlocked build (see _native.ensure_host_lib).
@@ -45,14 +46,11 @@ def test_lane_scan_and_compact_match_jax():
                            jnp.pad(jnp.asarray(probs), (0, T * K - n), constant_values=1),
                            n, T=T, K=K)
     tx = tl.lane_scan_dev(_t(bits), _t(probs), n, T, K)
-    x_final, words, emits, counts = (np.asarray(a) for a in jx)
-    assert np.array_equal(tx[0].numpy(), x_final.astype(np.int64))
-    assert np.array_equal(tx[1].numpy(), words.astype(np.int32))
-    assert np.array_equal(tx[2].numpy(), emits.astype(np.int32))
-    assert np.array_equal(tx[3].numpy(), counts)
-    maxW = tl._bucket(int(counts.max()))
-    assert np.array_equal(tl.lane_compact(tx[1], tx[2], maxW).numpy().view(np.uint16),
-                          np.asarray(jl._lane_compact(jx[1], jx[2], maxW)))
+    for name, got, want in zip(("x_final", "words", "emits", "counts"), tx, jx):
+        assert_same_array(got, want, name)
+    maxW = tl._bucket(int(tx[3].max()))
+    assert_same_array(tl.lane_compact(tx[1], tx[2], maxW), jl._lane_compact(jx[1], jx[2], maxW),
+                      "compacted")
     assert (tl.assemble_blob(tx[0].numpy(), tx[1].numpy(), tx[2].numpy(), n, K)
             == _c_encode(bits, probs, K))
 
@@ -194,19 +192,19 @@ def test_chain_scan_matches_plain_scan(K):
     got = tl._lane_scan_chain(bits, probs, valid)
     want = tl._lane_scan_plain(_t(bits), _t(probs), torch.from_numpy(valid))
     for g, w in zip(got, want):
-        assert np.array_equal(g, w.numpy())
+        assert_same_array(g, w)
     jx = jax.vmap(jl._lane_scan)(*(jnp.asarray(a) for a in (bits.astype(np.int32),
                                                              probs.astype(np.int32), valid)))
-    for g, w in zip(got, jx):  # x_final, words, emits
-        assert np.array_equal(g, np.asarray(w).astype(np.int64))
+    for name, g, w in zip(("x_final", "words", "emits"), got, jx):
+        assert_same_array(g, w, name)
     n = T * K - K // 2 - 1
     flat_p = np.where(rng.random(T * K) < 0.1, 0, probs[0].reshape(-1))  # floored to 1
     dense_valid = (np.arange(T * K) < n).reshape(T, K)
     got = tl._lane_scan_chain(bits[0], np.maximum(flat_p, 1).reshape(T, K), dense_valid)
     want = tl._lane_scan_dev_plain(_t(bits[0].reshape(-1)), _t(flat_p), n, T, K)
     for g, w in zip(got, want):
-        assert np.array_equal(g, w.numpy())
+        assert_same_array(g, w)
     jx = jl._lane_scan_dev(jnp.asarray(bits[0].reshape(-1).astype(np.int32)),
                            jnp.asarray(flat_p.astype(np.int32)), n, T=T, K=K)
-    for g, w in zip(got, jx):  # x_final, words, emits, counts
-        assert np.array_equal(g, np.asarray(w).astype(np.int64))
+    for name, g, w in zip(("x_final", "words", "emits", "counts"), got, jx):
+        assert_same_array(g, w, name)

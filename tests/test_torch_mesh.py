@@ -23,6 +23,7 @@ from avrecode_tpu_torch.ops import lanes as tl
 from avrecode_tpu_torch.ops import model_pass as tmp
 from avrecode_tpu_torch.parallel import mesh as tmesh
 from avrecode_tpu_torch.parallel import pipeline as tpipe
+from avrecode_tpu_torch.testing import assert_same_array
 
 # Built here, under the port's lock, before any test of any module can reach
 # the host library's unlocked build (see _native.ensure_host_lib).
@@ -74,7 +75,7 @@ def test_mesh_inputs_match_jax_packing(corpus_dir, clip):
         want, sc = jd._build_blob4(an, c, layout, dk_d=dk_d, dk_s=dk_s, ud_mesh=UD)
         assert np.array_equal(blob[g], want)
         assert np.array_equal(inp.sc[g].numpy(), sc)
-        assert np.array_equal(inp.dual0[g].numpy(), c.dual0.astype(np.int32))
+        assert_same_array(inp.dual0[g], c.dual0, f"dual0 of chunk {g}")
         assert int(inp.n_arr[g]) == c.n
     offs = tmp._blob_layout_words(layout, NS * 4, NS, UD, US)
     for g in range(len(an.chunks), blob.shape[0]):  # pad chunks
@@ -128,18 +129,19 @@ def test_chunk_batched_model_pass_matches_single_and_jax_vmap(corpus_dir):
     bit, kind, slot, prior, deltas, dk_d, dk_s = _expanded(inp, an)
     mkw = dict(batch=an.batch, sup=4, fast_w=an.fast_w, slow_w=an.slow_w, sig_w=an.sig_w,
                sig_alpha=an.sig_alpha, ud=st["ud"], us=st["us"], n_sig=an.n_sig)
-    got = tmp.v3_core(bit, kind, slot, prior, dk_d, dk_s, deltas, inp.dual0,
+    dual0 = inp.dual0.to(torch.int32) & 0xFFFF  # the u16 input widened, as the mesh cell does
+    got = tmp.v3_core(bit, kind, slot, prior, dk_d, dk_s, deltas, dual0,
                       sig0_idx=inp.sig0_idx, sig0_val=inp.sig0_val, **mkw)
     for g in range(bit.shape[0]):
         one = tmp.v3_core(bit[g], kind[g], slot[g], prior[g], dk_d[g], dk_s[g], deltas[g],
-                          inp.dual0[g], sig0_idx=inp.sig0_idx[g], sig0_val=inp.sig0_val[g],
+                          dual0[g], sig0_idx=inp.sig0_idx[g], sig0_val=inp.sig0_val[g],
                           **mkw)
         assert torch.equal(got[g], one), f"chunk {g}"
     j = [jnp.asarray(a) for a in (
         bit.numpy(), kind.numpy(), slot.numpy(), prior.numpy(),
         dk_d.numpy().view(np.uint32), dk_s.numpy().view(np.uint32), deltas.numpy(),
-        inp.dual0.numpy().astype(np.uint16), inp.sig0_idx.numpy().view(np.uint32),
-        inp.sig0_val.numpy().astype(np.uint16))]
+        inp.dual0.numpy().view(np.uint16), inp.sig0_idx.numpy().view(np.uint32),
+        inp.sig0_val.numpy().view(np.uint16))]
     want = jax.vmap(lambda b, k, s, p, dd, ds, de, d0, si, sv: jmp.v3_core(
         b, k, s, p, dd, ds, de, d0, sig0_idx=si, sig0_val=sv, **mkw))(*j)
     assert np.array_equal(_np(got.numpy()), _np(want))
@@ -181,7 +183,7 @@ def test_lane_scan_on_lane_slices_matches_jax(lead):
                                                 != torch.bool else x.numpy()) for x in sl))
             out = [o[g] if lead else o for o in got]
             for name, o, w in zip(("x_final", "words", "emits"), out, want):
-                assert np.array_equal(_np(o.numpy()), _np(w)), f"slice {l} chunk {g}: {name}"
+                assert_same_array(o, w, f"slice {l} chunk {g}: {name}")
             assert torch.equal(out[3], out[2].sum(0, dtype=torch.int32))
 
 
@@ -193,12 +195,12 @@ def test_sharded_v4_compress_step_matches_jax(corpus_dir):
     an, inp = _mesh_inputs(corpus_dir, "ipb_high.mp4", n_gop=4)
     got = tpipe.sharded_v4_compress_step(tmesh.make_mesh(4, 2, ["cpu"] * 8),
                                          **inp.statics)(*inp.tensors())
-    jin = (inp.blob.numpy().view(np.uint32), inp.sc.numpy(), inp.dual0.numpy().astype(
-        np.uint16), inp.sig0_idx.numpy().view(np.uint32), inp.sig0_val.numpy().astype(
-            np.uint16), inp.n_arr.numpy())
+    jin = (inp.blob.numpy().view(np.uint32), inp.sc.numpy(), inp.dual0.numpy().view(np.uint16),
+           inp.sig0_idx.numpy().view(np.uint32), inp.sig0_val.numpy().view(np.uint16),
+           inp.n_arr.numpy())
     want = jpipe.sharded_v4_compress_step(jm, **inp.statics)(*(jnp.asarray(a) for a in jin))
     for name, g, w in zip(("x_final", "words", "emits", "probs", "total_words"), got, want):
-        assert np.array_equal(_np(g.numpy()), _np(w)), name
+        assert_same_array(g, w, name)
     assert int(got[4]) == int(got[2].sum()) + 2 * inp.blob.shape[0] * inp.statics["K_total"]
 
 
@@ -254,11 +256,11 @@ def test_sharded_recompress_step_matches_jax():
     want = jpipe.sharded_recompress_step(jm, batch=256)(K_total=8)(
         *(jnp.asarray(a) for a in inputs))
     for name, g, w in zip(("probs", "x_final", "words", "emits", "total_words"), got, want):
-        assert np.array_equal(_np(g.numpy()), _np(w)), name
+        assert_same_array(g, w, name)
     for g in range(4):
         one = tmp.model_pass(*(torch.from_numpy(a[g]) for a in inputs), batch=256, fast_w=48,
                              slow_w=640, sig_w=80, sig_alpha=1)
-        assert torch.equal(got[0][g], one)
+        assert torch.equal(got[0][g], tl._as_i16(one))  # the step's probs: u16 bit patterns
 
 
 def test_make_mesh():

@@ -23,6 +23,7 @@ from avrecode_tpu_torch import device as td
 from avrecode_tpu_torch.ops import intmath as im
 from avrecode_tpu_torch.ops import lanes as tl
 from avrecode_tpu_torch.ops import model_pass as tmp
+from avrecode_tpu_torch.testing import assert_same_array
 
 # Built here, under the port's lock, before any test of any module can reach
 # the host library's unlocked build (see _native.ensure_host_lib).
@@ -222,10 +223,9 @@ def test_lane_scan_matches_jax(K, extremes, prefix):
         jnp.asarray(bits.astype(np.uint32)), jnp.asarray(probs.astype(np.uint32)),
         jnp.asarray(valid)))
     x, w, e, counts = tl.lane_scan(*(torch.from_numpy(a) for a in (bits, probs, valid)))
-    assert np.array_equal(x.numpy(), jx.astype(np.int64))
-    assert np.array_equal(w.numpy(), jw.astype(np.int32))
-    assert np.array_equal(e.numpy(), je.astype(np.int32))
-    assert np.array_equal(counts.numpy(), je.sum(0))
+    for name, got, want in (("x_final", x, jx), ("words", w, jw), ("emits", e, je),
+                            ("counts", counts, je.sum(0, dtype=np.int32))):
+        assert_same_array(got, want, name)
     assert not e.numpy()[~valid].any()
 
 

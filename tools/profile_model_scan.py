@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Device time of the port's device kernels on one card, split by kernel:
 the frozen-batch model scans (rows 3 and 6 of PERF.md's kernel table:
-v3_core, model_pass_v2), the wire expand (row 1), the dual0 expand (row 2)
-and the lane compaction (row 5).
+v3_core, model_pass_v2), the wire expand (row 1), the dual0 expand (row 2),
+the lane scans (rows 4 and 7) and the lane compaction (row 5).
 
-    python3 tools/profile_model_scan.py [--repo PATH] [--rows 1,2,3,5,6,10,11] [--check]
+    python3 tools/profile_model_scan.py [--repo PATH] [--rows 1,2,3,4,5,6,7,10,11]
+        [--check]
 
 Runs the kernels of the avrecode_tpu_torch package found under PATH
 (default: this checkout; a `git archive` of another commit times that
 commit's kernels) at these shapes: benchdata/bench.mp4 chunk 0 under
-profile 2 (batch 4096, sup 128: the expand, v3_core, and the compaction of
-its lane scan's words), the same chunk under profile 0 (model_pass_v2),
+profile 2 (batch 4096, sup 128: the expand, v3_core, its lane scan,
+the masked scan on the same bins as [T, K] planes with a prefix mask, and
+the compaction of the scan's words), the same chunk under profile 0 (model_pass_v2),
 the dual0 expand of bench.mp4's chunks 0 and 1 on the dictionary as the
 checkout stages it (with, where the checkout has it, the launch floor: an
 empty kernel through the same wrapper path),
@@ -193,6 +195,34 @@ def compact_cases(p2):
            lambda: lx._lane_compact_plain(words, emits, maxW))
 
 
+def lane_cases(p2, rows: set):
+    """Rows 4 and 7: bench chunk 0's lane scan (lane_scan_dev on the model
+    pass's bits and probs) and the masked scan of the same bins as [T, K]
+    planes, padded with invalid steps (encode_interleaved's layout)."""
+    import torch
+    from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch.ops import lanes as lx
+    from avrecode_tpu_torch.ops import model_pass as mp
+    _, c, st, planes = p2
+    bit, kind, slot, prior, deltas, dk_d, dk_s = planes
+    probs = mp.v3_core(bit, kind, slot, prior, dk_d, dk_s, deltas, st.dual0,
+                       sig0_idx=st.s_idx, sig0_val=st.s_val, **st.statics["model"])
+    n, lanes = c.n, td.pick_lanes(c.n)
+    T = 1 << (-(-n // lanes) - 1).bit_length()
+    if 4 in rows:
+        yield (f"lane_scan_dev bench.mp4 chunk 0 (n={n}, T={T}, K={lanes})",
+               lambda: lx.lane_scan_dev(bit, probs, n, T, lanes),
+               lambda: lx._lane_scan_dev_plain(bit, probs, n, T, lanes), 4)
+    if 7 in rows:
+        b = torch.zeros(T * lanes, dtype=torch.int32, device=bit.device)
+        p = torch.ones(T * lanes, dtype=torch.int32, device=bit.device)
+        b[:n], p[:n] = bit[:n], probs[:n].clamp_min(1)
+        tk = (b.view(T, lanes), p.view(T, lanes),
+              (torch.arange(T * lanes, device=bit.device) < n).view(T, lanes))
+        yield (f"lane_scan bench.mp4 chunk 0 as [T, K] planes (T={T}, K={lanes})",
+               lambda: lx.lane_scan(*tk), lambda: lx._lane_scan_plain(*tk), 7)
+
+
 def scan_cases(dev, p2, mesh):
     """Rows 3, 6 and 10: the scans at bench chunk 0 (both profiles), v3_core
     over the mesh's chunk axis, and the mesh step on 1x1 and 2x2 grids."""
@@ -236,6 +266,7 @@ def scan_cases(dev, p2, mesh):
     s = inp.statics
     UD, US, NS = s["ud"], s["us"], s["ns"]
     blob, sc, dual0, si, sv, _ = staged
+    dual0 = dual0.to(torch.int32) & 0xFFFF  # mesh_inputs ships u16; the cells widen it
     bit, kind, slot, prior, deltas, dk_d, dk_s = mp.wire_expand4_blob(blob, sc, **ekw)
     mkw = dict(batch=BATCH, sup=SUP, fast_w=anm.fast_w, slow_w=anm.slow_w, sig_w=anm.sig_w,
                sig_alpha=anm.sig_alpha, ud=UD, us=US, n_sig=anm.n_sig)
@@ -290,13 +321,15 @@ def cases(rows: set):
     if 2 in rows:
         for case in dual0_cases(dev):
             yield (*case, 2)
-    if not rows & {1, 3, 5, 6, 10}:
+    if not rows & {1, 3, 4, 5, 6, 7, 10}:
         return
     p2 = _bench_p2(dev)
     mesh = _mesh(dev) if rows & {1, 3, 6, 10} else None
     if 1 in rows:
         for case in expand_cases(p2, mesh):
             yield (*case, 1)
+    if rows & {4, 7}:
+        yield from lane_cases(p2, rows)
     if 5 in rows:
         for case in compact_cases(p2):
             yield (*case, 5)
@@ -309,10 +342,10 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--repo", default=HERE, help="checkout whose port is timed")
-    p.add_argument("--rows", default="1,2,3,5,6,10,11",
-                   help="kernel table rows to time: 1 (expand), 2 (dual0 expand), 5 "
-                        "(compaction), 3, 6 or 10 (the scans and the mesh step), 11 (the "
-                        "pre-ANL5 mesh step)")
+    p.add_argument("--rows", default="1,2,3,4,5,6,7,10,11",
+                   help="kernel table rows to time: 1 (expand), 2 (dual0 expand), 4 and 7 "
+                        "(the lane scans), 5 (compaction), 3, 6 or 10 (the model scans and "
+                        "the mesh step), 11 (the pre-ANL5 mesh step)")
     p.add_argument("--check", action="store_true", help="hold each result against plain")
     args = p.parse_args()
     rows = {int(r) for r in args.rows.split(",")}
@@ -329,7 +362,7 @@ def main() -> int:
     inside = {1: getattr(_native, "expand_launches", None),
               5: getattr(_native, "compact_launches", None),
               3: getattr(_native, "pass_launches", None),
-              2: getattr(_native, "dual0_launches", None), 11: None}
+              2: getattr(_native, "dual0_launches", None), 4: None, 7: None, 11: None}
     for name, fn, plain, row in cases(rows):
         kernels = by_kernel(fn)
         out = {"case": name, "repo": os.path.relpath(os.path.abspath(args.repo), HERE),
