@@ -37,6 +37,16 @@ LIB_PATH = os.path.join(BUILD, "libartc_cuda.so")
 NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "avrecode_tpu", "native")
 HOST_BUILD = os.path.join(NATIVE_DIR, "build")
 HOST_LIB_PATH = os.path.join(HOST_BUILD, "libartc.so")
+# The host library's g++ flags: CMakeLists.txt's release flags, and
+# -fno-unswitch-loops. native/model.h's sig_pos_class reads
+# kSigCoeffFlagOffset8x8[0][63], one past its row, for the level bins of an
+# 8x8 block's last coefficient; g++ 13's loop unswitching at -O3 compiles the
+# decoder's copy of that read differently from the encoder's, and 4:2:2
+# CABAC containers (c422.264, c422.mp4, mbaff422.mp4 of the test corpus)
+# then fail to decode ("mb address out of range"). g++ 12 is not affected;
+# with the pass off, both give the same bytes.
+HOST_CXXFLAGS = ["-std=c++17", "-O3", "-DNDEBUG", "-march=native", "-fno-unswitch-loops",
+                 "-fPIC", "-shared", "-pthread"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -288,9 +298,28 @@ def ensure_host_lib() -> str:
     the JAX package finds the library current and never calls cmake."""
     def gxx(tmp: str) -> None:
         build_id = _git_rev(NATIVE_DIR)
-        subprocess.run(["g++", "-std=c++17", "-O3", "-DNDEBUG", "-march=native", "-fPIC",
-                        "-shared", "-pthread", f'-DARTC_BUILD_ID="{build_id}"',
+        subprocess.run(["g++", *HOST_CXXFLAGS, f'-DARTC_BUILD_ID="{build_id}"',
                         "-I", NATIVE_DIR, "-o", tmp, os.path.join(NATIVE_DIR, "recode.cc")],
                        check=True)
 
-    return _locked_build(HOST_LIB_PATH, "libartc.lock", _host_sources(), gxx)
+    return _locked_build(HOST_LIB_PATH, "libartc.lock", _host_sources() + [_flags_stamp()],
+                         gxx)
+
+
+def _flags_stamp() -> str:
+    """A file beside the host library holding HOST_CXXFLAGS, rewritten (and
+    so newer than the library, which is then rebuilt) when they change."""
+    path = os.path.join(HOST_BUILD, "libartc.flags")
+    text = " ".join(HOST_CXXFLAGS) + "\n"
+    try:
+        with open(path) as f:
+            if f.read() == text:
+                return path
+    except FileNotFoundError:
+        pass
+    os.makedirs(HOST_BUILD, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+    return path

@@ -186,6 +186,13 @@ def lane_scan_dev(bits_m: torch.Tensor, probs_m: torch.Tensor, n: int, T: int, K
 def _lane_scan_dev_plain(bits_m, probs_m, n: int, T: int, K: int):
     """Plain version: the bins as [T, K] planes (probabilities floored at 1,
     as JAX's _lane_scan_dev does), the steps past n invalid."""
+    return _lane_scan_plain(*_dev_planes(bits_m, probs_m, n, T, K))
+
+
+def _dev_planes(bits_m, probs_m, n: int, T: int, K: int):
+    """The [T, K] planes the plain lane_scan_dev scans: bits and probs
+    (int64, probabilities floored at 1) and the valid mask, bins past n
+    invalid."""
     size = T * K
     dev = bits_m.device
     b = torch.zeros(size, dtype=torch.int64, device=dev)
@@ -194,7 +201,7 @@ def _lane_scan_dev_plain(bits_m, probs_m, n: int, T: int, K: int):
     b[:k] = bits_m[:k]
     p[:k] = probs_m[:k]
     valid = (torch.arange(size, device=dev) < n).reshape(T, K)
-    return _lane_scan_plain(b.reshape(T, K), p.reshape(T, K).clamp_min(1), valid)
+    return b.reshape(T, K), p.reshape(T, K).clamp_min(1), valid
 
 
 def _lane_scan_dev_cuda(bits_m, probs_m, n: int, T: int, K: int):
@@ -540,10 +547,18 @@ def encode_interleaved(bits: np.ndarray, probs: np.ndarray, K: int, *,
     n = len(bits)
     if n == 0:
         return _empty_blob(K)
+    return encode_interleaved_finish(ScanHandle(*lane_scan(*interleaved_planes(
+        bits, probs, K, device)), n, K))
+
+
+def interleaved_planes(bits: np.ndarray, probs: np.ndarray, K: int, device):
+    """encode_interleaved's lane_scan arguments for n > 0 bins: bits, probs
+    and the valid mask as [T, K] planes on `device`, T = pow2(ceil(n / K)),
+    the steps past n invalid (bit 0, probability 1)."""
+    n = len(bits)
     T = _bucket(-(-n // K))
     pad = T * K - n
     planes = [np.concatenate([a.astype(dt), np.full(pad, fill, dt)]).reshape(T, K)
               for a, dt, fill in ((bits, np.int32, 0), (probs, np.int32, 1),
                                   (np.ones(n, bool), bool, False))]
-    b, p, v = (torch.from_numpy(a).to(device) for a in planes)
-    return encode_interleaved_finish(ScanHandle(*lane_scan(b, p, v), n, K))
+    return tuple(torch.from_numpy(a).to(device) for a in planes)

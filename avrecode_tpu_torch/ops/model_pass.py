@@ -777,12 +777,26 @@ def run_chunk_v2_tables(kind, prior, pre_ones, pre_tot, v2_m, bin_u, dk_d, dk_s,
                         dual0, batch, sup, fast_w, slow_w, sig_w, sig_alpha, n_sig,
                         sig0=None, *, device):
     """model_pass_v2 over one chunk with the native export's tables (numpy
-    in, uint16 probs[n] out): pads the bin stream to v2_m with kind-3 no-ops,
-    extends the tables (dual0 + 1 + ud rows of ones, sig0 or zeros + us rows
-    of ones), uploads to `device` and runs the pass."""
+    in, uint16 probs[n] out): the inputs v2_tables_inputs stages, through
+    the pass."""
     n = len(kind)
     if n == 0:
         return np.zeros(0, np.uint16)
+    args, kw = v2_tables_inputs(kind, prior, pre_ones, pre_tot, v2_m, bin_u, dk_d, dk_s, dd,
+                                ds, dual0, batch, sup, fast_w, slow_w, sig_w, sig_alpha, n_sig,
+                                sig0, device=device)
+    return model_pass_v2(*args, **kw)[:n].cpu().numpy().astype(np.uint16)
+
+
+def v2_tables_inputs(kind, prior, pre_ones, pre_tot, v2_m, bin_u, dk_d, dk_s, dd, ds, dual0,
+                     batch, sup, fast_w, slow_w, sig_w, sig_alpha, n_sig, sig0=None, *,
+                     device):
+    """model_pass_v2's arguments for one chunk of n > 0 bins, as
+    run_chunk_v2_tables passes them: the bin stream padded to v2_m with
+    kind-3 no-ops, the tables extended (dual0 + 1 + ud rows of ones, sig0 or
+    zeros + us rows of ones), uploaded to `device`. Returns (tensors,
+    keywords)."""
+    n = len(kind)
     m = int(v2_m)
     pad = m - n
     ns = m // (sup * batch)
@@ -794,12 +808,10 @@ def run_chunk_v2_tables(kind, prior, pre_ones, pre_tot, v2_m, bin_u, dk_d, dk_s,
     sig_ext = np.concatenate([sig_base, np.ones((us, 2), np.int32)])
     planes = [_padded(a, pad, v).reshape(sh) for a, v in (
         (kind, 3), (prior, 1), (pre_ones, 0), (pre_tot, 0))]
-    probs = model_pass_v2(
-        *(_upload(a, device) for a in planes), _upload(bin_u.reshape(sh), device),
-        *(_upload(a, device) for a in (dk_d, dk_s, dd, ds, dual_ext, sig_ext)),
-        batch=int(batch), sup=int(sup), fast_w=int(fast_w), slow_w=int(slow_w),
-        sig_w=int(sig_w), sig_alpha=int(sig_alpha))
-    return probs[:n].cpu().numpy().astype(np.uint16)
+    args = (*(_upload(a, device) for a in planes), _upload(bin_u.reshape(sh), device),
+            *(_upload(a, device) for a in (dk_d, dk_s, dd, ds, dual_ext, sig_ext)))
+    return args, dict(batch=int(batch), sup=int(sup), fast_w=int(fast_w), slow_w=int(slow_w),
+                      sig_w=int(sig_w), sig_alpha=int(sig_alpha))
 
 
 def build_v2_inputs(bit_p, kind_p, key_p, n_dual_ext, n_sig, batch, sup):
@@ -859,22 +871,28 @@ def build_v2_inputs(bit_p, kind_p, key_p, n_dual_ext, n_sig, batch, sup):
 def run_chunk_v2(bit, kind, key, prior, pre_ones, pre_tot, dual0, batch, sup, fast_w,
                  slow_w, sig_w, sig_alpha, n_sig, sig0=None, *, device):
     """model_pass_v2 over one chunk whose export has no v2 tables (numpy in,
-    uint16 probs[n] out), as avrecode_tpu.ops.model_pass.run_chunk_v2: pads
-    the stream to whole super-steps (a power of two of them; pad bins are
-    kind-3 no-ops), builds the tables on the host (build_v2_inputs) and runs
-    them through run_chunk_v2_tables on `device`."""
-    n = len(bit)
-    if n == 0:
+    uint16 probs[n] out), as avrecode_tpu.ops.model_pass.run_chunk_v2: the
+    tables v2_host_tables builds, through run_chunk_v2_tables on `device`."""
+    if len(bit) == 0:
         return np.zeros(0, np.uint16)
+    return run_chunk_v2_tables(kind, prior, pre_ones, pre_tot,
+                               *v2_host_tables(bit, kind, key, dual0, batch, sup, n_sig),
+                               dual0, batch, sup, fast_w, slow_w, sig_w, sig_alpha, n_sig,
+                               sig0=sig0, device=device)
+
+
+def v2_host_tables(bit, kind, key, dual0, batch, sup, n_sig):
+    """run_chunk_v2's tables for n > 0 bins: the stream padded to whole
+    super-steps (a power of two of them; pad bins are kind-3 no-ops) and
+    build_v2_inputs over it. Returns (m, bin_u, dk_d, dk_s, dd, ds)."""
+    n = len(bit)
     span = sup * batch
     m = _bucket(-(-n // span)) * span
     pad = m - n
     bin_u, dk_d, dk_s, dd, ds, _, _ = build_v2_inputs(
         _padded(bit, pad, 0), _padded(kind, pad, 3), _padded(key, pad, 0),
         dual0.shape[0] + 1, n_sig, batch, sup)  # + the scratch row ext bins target
-    return run_chunk_v2_tables(kind, prior, pre_ones, pre_tot, m, bin_u, dk_d, dk_s, dd, ds,
-                               dual0, batch, sup, fast_w, slow_w, sig_w, sig_alpha, n_sig,
-                               sig0=sig0, device=device)
+    return m, bin_u, dk_d, dk_s, dd, ds
 
 
 # ---------------------------------------------- model_pass_dict / model_pass
@@ -1457,17 +1475,31 @@ def build_dicts(kind_p, key_p, n_dual_ext, batch):
 def run_chunk(bit, kind, key, prior, dual0, batch, fast_w, slow_w, sig_w, sig_alpha, n_sig,
               impl=None, sig0=None, *, device):
     """The dict / sort / mm pass over one chunk (numpy in, uint16 probs[n]
-    out): pads the stream to a power-of-two count of batches (padding bins:
-    kind 0, the scratch key, bit 0, prior 0), appends the dual scratch row
-    (ones) and, for dict, the sig scratch row (zeros), uploads to `device`
-    and runs the pass. `impl` defaults to default_impl(); any other value than
-    "dict", "sort" or "mm" raises."""
+    out): the inputs run_chunk_inputs stages, through the pass `impl`
+    (default default_impl()) names; any other value than "dict", "sort" or
+    "mm" raises."""
     impl = impl or default_impl()
     if impl != "dict" and impl not in _IMPLS:
         raise ValueError(f"run_chunk impl must be 'dict', 'sort' or 'mm', got {impl!r}")
     n = len(bit)
     if n == 0:
         return np.zeros(0, np.uint16)
+    args, kw = run_chunk_inputs(bit, kind, key, prior, dual0, batch, fast_w, slow_w, sig_w,
+                                sig_alpha, n_sig, impl, sig0, device=device)
+    probs = model_pass_dict(*args, **kw) if impl == "dict" else model_pass(*args, impl=impl,
+                                                                           **kw)
+    return probs[:n].cpu().numpy().astype(np.uint16)
+
+
+def run_chunk_inputs(bit, kind, key, prior, dual0, batch, fast_w, slow_w, sig_w, sig_alpha,
+                     n_sig, impl, sig0=None, *, device):
+    """The arguments run_chunk gives model_pass_dict (impl "dict") or
+    model_pass (any other) for one chunk of n > 0 bins: the stream padded
+    to a power-of-two count of batches (padding bins: kind 0, the scratch
+    key, bit 0, prior 0), the dual scratch row (ones) appended and, for
+    dict, the sig scratch row (zeros), uploaded to `device`. Returns
+    (tensors, keywords)."""
+    n = len(bit)
     n_dual = dual0.shape[0]
     m = _bucket(-(-n // batch)) * batch
     pad = m - n
@@ -1484,11 +1516,7 @@ def run_chunk(bit, kind, key, prior, dual0, batch, fast_w, slow_w, sig_w, sig_al
         nb = m // batch
         bin_u, dict_keys = build_dicts(kind_p, key_p, n_dual + 1, batch)
         sig_ext = np.concatenate([sig_base, np.zeros((1, 2), np.int32)])
-        probs = model_pass_dict(
-            *(_upload(a.reshape(nb, batch), device) for a in (bit_p, kind_p, prior_p)),
-            *(_upload(a, device) for a in (bin_u, dict_keys, dual_ext, sig_ext)), **kw)
-    else:
-        probs = model_pass(*(_upload(a, device) for a in (bit_p, kind_p, key_p, prior_p,
-                                                           dual_ext, sig_base)),
-                           impl=impl, **kw)
-    return probs[:n].cpu().numpy().astype(np.uint16)
+        return (*(_upload(a.reshape(nb, batch), device) for a in (bit_p, kind_p, prior_p)),
+                *(_upload(a, device) for a in (bin_u, dict_keys, dual_ext, sig_ext))), kw
+    return tuple(_upload(a, device) for a in (bit_p, kind_p, key_p, prior_p, dual_ext,
+                                              sig_base)), kw

@@ -88,7 +88,18 @@ Phases; any failure ends the script with a nonzero exit code:
      mode 1, three times, the single-device container;
    - the corpus: two processes joined over gloo, each `cli corpus --device
      cuda --chunk-mode 1` over benchdata/*.mp4: both report the same merged stats, no
-     failures, and every output roundtrips.
+     failures, and every output roundtrips;
+   - corpus_clips: every clip of the frozen test corpus
+     (avrecode_tpu_torch/testdata/corpus: 4:2:2, 4:4:4, 10-bit, mono,
+     MBAFF, PAFF, PCM, CAVLC, SP, separate planes, eight containers) in
+     every mode of its manifest entry (profile 2 at batch 4096 and 512, GOP
+     chunks, 4 lanes, profile 0, the mesh on a 2x2 grid, warm sections): the
+     container's SHA-256 == the JAX package's in the manifest (or the same
+     error), per chunk probs == host model and lane blob == C++ encoder,
+     exact roundtrip, profile 0's dict, sort and mm == v2; then every kernel
+     those runs launched against its plain version on each chunk's staged
+     inputs (avrecode_tpu_torch/testcorpus.py), one line a clip and a
+     totals line.
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, the per-kernel JSON and the result JSON.
@@ -117,6 +128,11 @@ PROFILE0_KERNELS = ("model_pass_v2", "model_pass_dict", "model_pass", "lane_scan
                     "lane_compact")
 MESH_KERNELS = ("wire_expand", "model_pass_v4", "lane_scan", "sharded_v4_compress_step")
 RECOMPRESS_KERNELS = ("model_pass", "lane_scan", "sharded_recompress_step")
+# The corpus_clips phase's plain versions run in this many processes on the
+# host CPU, beside this one.
+CORPUS_WORKERS = max(1, (os.cpu_count() or 4) - 2)
+CORPUS_CLIPS_KERNELS = (*PROFILE2_KERNELS, "model_pass_v2", "model_pass_dict", "model_pass",
+                        "lane_scan", "sharded_v4_compress_step")
 IMPLS = ("v2", "dict", "sort", "mm")
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, taken for the kernels' int32
@@ -828,7 +844,6 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
     the analysis's chunk 0 (bench.mp4 at batch 4096, sup 128), timed there;
     every kernel's probs also equal the host model's."""
     import numpy as np
-    import torch
     from avrecode_tpu_torch import _native
     from avrecode_tpu_torch import device as td
     from avrecode_tpu_torch.ops import lanes as lx
@@ -839,34 +854,22 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
     us = c.v2_dk_s.shape[1]
     what = f"profile-0 bench chunk 0 (n={n}, m={c.v2_m}, ns={ns}, ud={ud}, us={us})"
 
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-
-    def padded(a, total, v):
-        return np.concatenate([a.astype(np.int32), np.full(total - n, v, np.int32)])
-
     def host_equal(name, probs):
         if not np.array_equal(probs[:n].cpu().numpy(), c.host_probs.astype(np.int32)):
             raise AssertionError(f"{name}: probs != host probs on {what}")
 
-    # model_pass_v2 on the native export's tables
-    sh = (ns, an.sup, an.batch)
-    planes = [up(padded(a, c.v2_m, v).reshape(sh)) for a, v in (
-        (c.kind, 3), (c.prior, 1), (c.pre_ones, 0), (c.pre_tot, 0))]
-    tables = [up(c.v2_bin_u.reshape(sh)), up(c.v2_dk_d), up(c.v2_dk_s), up(c.v2_dd),
-              up(c.v2_ds),
-              up(np.concatenate([c.dual0, np.ones((1 + ud, 4), np.int32)])),
-              up(np.concatenate([np.zeros((an.n_sig, 2), np.int32),
-                                 np.ones((us, 2), np.int32)]))]
-    kw = dict(batch=an.batch, sup=an.sup, fast_w=an.fast_w, slow_w=an.slow_w,
-              sig_w=an.sig_w, sig_alpha=an.sig_alpha)
+    # model_pass_v2 on the native export's tables, staged as the main path does
+    v2_args, kw = mp.v2_tables_inputs(
+        c.kind, c.prior, c.pre_ones, c.pre_tot, c.v2_m, c.v2_bin_u, c.v2_dk_d, c.v2_dk_s,
+        c.v2_dd, c.v2_ds, c.dual0, an.batch, an.sup, an.fast_w, an.slow_w, an.sig_w,
+        an.sig_alpha, an.n_sig, device=dev)
     statics = [kw[k] for k in ("batch", "sup", "fast_w", "slow_w", "sig_w", "sig_alpha")]
 
     def v2():
-        return mp.model_pass_v2(*planes, *tables, **kw)
+        return mp.model_pass_v2(*v2_args, **kw)
 
     def v2_plain():
-        return mp._model_pass_v2_plain(*planes, *tables, *statics)
+        return mp._model_pass_v2_plain(*v2_args, *statics)
 
     got, plain = v2(), v2_plain()
     K.check("model_pass_v2", got, plain, what)
@@ -875,7 +878,7 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
     K.ms["model_pass_v2"] = cuda_ms(v2, 5)
     K.plain_ms["model_pass_v2"] = cuda_ms(v2_plain, 1)
     # v4's work plus the per-bin prefix adders on six columns
-    K.work["model_pass_v2"] = (nbytes(*planes, *tables, got),
+    K.work["model_pass_v2"] = (nbytes(*v2_args, got),
                                model_ops(c.v2_m, ns * an.sup, ud + us) + 6 * c.v2_m)
     print(f"model_pass_v2 == plain == host on {what}", flush=True)
 
@@ -895,21 +898,16 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
           f"run_chunk_v2_tables on {what}: {fallback_s:.3f} s on the host clock", flush=True)
 
     # model_pass_dict and model_pass on run_chunk's padded layout
-    nb = bucket(-(-n // an.batch))
+    common = (c.bit, c.kind, c.key, c.prior, c.dual0, an.batch, an.fast_w, an.slow_w,
+              an.sig_w, an.sig_alpha, an.n_sig)
+    dargs, pkw = mp.run_chunk_inputs(*common, "dict", device=dev)
+    sargs, _ = mp.run_chunk_inputs(*common, "sort", device=dev)
+    pstatics = [pkw[k] for k in ("batch", "fast_w", "slow_w", "sig_w", "sig_alpha")]
+    nb, U = dargs[4].shape
     m = nb * an.batch
     n_dual = c.dual0.shape[0]
-    bit_p, kind_p, key_p, prior_p = (padded(a, m, v) for a, v in (
-        (c.bit, 0), (c.kind, 0), (c.key, n_dual), (c.prior, 0)))
-    dual_ext = np.concatenate([c.dual0.astype(np.int32), np.ones((1, 4), np.int32)])
-    pkw = {k: kw[k] for k in ("batch", "fast_w", "slow_w", "sig_w", "sig_alpha")}
-    pstatics = [pkw[k] for k in ("batch", "fast_w", "slow_w", "sig_w", "sig_alpha")]
-    bin_u, dict_keys = mp.build_dicts(kind_p, key_p, n_dual + 1, an.batch)
-    U = dict_keys.shape[1]
-    dargs = [up(a.reshape(nb, an.batch)) for a in (bit_p, kind_p, prior_p)] + [
-        up(bin_u), up(dict_keys), up(dual_ext),
-        up(np.zeros((an.n_sig + 1, 2), np.int32))]
-    sargs = [up(a) for a in (bit_p, kind_p, key_p, prior_p, dual_ext,
-                             np.zeros((an.n_sig, 2), np.int32))]
+    dict_keys = dargs[4].cpu().numpy()
+    kind_p, key_p = (sargs[i].cpu().numpy() for i in (1, 2))
     # The least work of the function, whatever the implementation: a
     # sort-sized count of earlier equal keys per batch (log2(batch)
     # compare-exchanges of 2 operations a bin), one probability a bin (20),
@@ -962,10 +960,8 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
 
     # lane_scan at this chunk's K and T, the encode_interleaved layout
     lanes = td.pick_lanes(n)
-    T = bucket(-(-n // lanes))
-    lane_planes = [up(padded(a, T * lanes, v).reshape(T, lanes))
-                   for a, v in ((c.bit, 0), (c.host_probs, 1))]
-    valid = (torch.arange(T * lanes, device=dev) < n).reshape(T, lanes)
+    *lane_planes, valid = lx.interleaved_planes(c.bit, c.host_probs, lanes, dev)
+    T = valid.shape[0]
     scan = lx.lane_scan(*lane_planes, valid)
     plain, plain_s = host_timed(lambda: lx._lane_scan_plain(*lane_planes, valid))
     for g, w in zip(scan, plain):
@@ -1570,6 +1566,44 @@ def modules_phase(data: bytes, an, card: str, dev) -> dict:
     return {"seconds": seconds, "microbench": micro, "bench": rep_bench}
 
 
+def corpus_clips_phase(K: Kernels, dev) -> dict:
+    """Every clip of the frozen test corpus (avrecode_tpu_torch/testdata/
+    corpus) in every mode its manifest entry names, through the port on
+    `dev` (testcorpus.check_clip): per chunk probs == host model and lane
+    blob == C++ encoder, the container's digest == the JAX package's (or the
+    same error), exact roundtrip, under profile 0 dict, sort and mm == v2,
+    the mesh on a 2x2 grid of `dev`. Every kernel those runs launch is held
+    against its plain version on each chunk's staged inputs
+    (testcorpus.KernelCheck: uncounted launches; the plain versions on the
+    host CPU in CORPUS_WORKERS processes while the clips run, the lane scans
+    at the end over a chunk axis). One line a clip, then the totals."""
+    from avrecode_tpu_torch import testcorpus as tc
+    t0 = time.perf_counter()
+    man = tc.manifest()
+    runs = {}
+    with tc.KernelCheck(K.check, workers=CORPUS_WORKERS) as kc:
+        for name in tc.clip_names():
+            runs[name] = tc.check_clip(name, dev, man, kernels=kc)
+        clips_s = time.perf_counter() - t0
+        kc.flush()
+    seconds = time.perf_counter() - t0
+    for name, r in runs.items():
+        print(f"corpus_clips {name}: {len(r['modes'])} modes ({','.join(r['modes'])}; "
+              f"{r['errors']} raise the JAX package's error), {r['chunks']} chunks, "
+              f"{kc.clips[name]} kernel == plain checks, {r['seconds']:.2f} s", flush=True)
+    total = {k: sum(r[k] for r in runs.values()) for k in ("chunks", "errors")}
+    n_runs = sum(len(r["modes"]) for r in runs.values())
+    plain = {k: round(v, 3) for k, v in kc.seconds.items()}
+    print(f"corpus_clips totals: {len(runs)} clips, {n_runs} (clip, mode) runs ("
+          f"{total['errors']} where the JAX package raises: the same error), {total['chunks']} "
+          f"chunks; containers == the JAX package's, probs == host, blobs == C++ encoder, "
+          f"roundtrips exact; kernel == plain (max abs err 0) on {dict(kc.counts)} chunks; "
+          f"plain versions {plain} s in {CORPUS_WORKERS} processes; clips {clips_s:.1f} s, "
+          f"phase {seconds:.1f} s", flush=True)
+    return {"clips": len(runs), "runs": n_runs, **total, "kernel_checks": dict(kc.counts),
+            "plain_s": plain, "clips_s": clips_s, "seconds": seconds}
+
+
 _CORPUS_CHILD = """
 import json, os, sys, time
 import torch
@@ -1881,6 +1915,7 @@ def main() -> int:
             clips, single_mesh_ref, dev)),
         ("modules", PROFILE2_KERNELS, lambda: modules_phase(
             clips[CLIPS[0]], refs[CLIPS[0]], card, dev)),
+        ("corpus_clips", CORPUS_CLIPS_KERNELS, lambda: corpus_clips_phase(K, dev)),
     )
     for path, kernels, run in paths:
         _native.reset_launches()

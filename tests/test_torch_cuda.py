@@ -18,6 +18,7 @@ from test_torch_batch_passes import N_DUAL, N_SIG, _dict_inputs, _stream, _table
 from avrecode_tpu import pipeline
 from avrecode_tpu_torch import _native
 from avrecode_tpu_torch import device as td
+from avrecode_tpu_torch import testcorpus as tc
 from avrecode_tpu_torch.ops import lanes as tl
 from avrecode_tpu_torch.ops import model_pass as tmp
 from avrecode_tpu_torch.testing import (DUAL0_CASES, EXPAND_CASES, dual0_case, expand_case,
@@ -583,3 +584,30 @@ def test_counts_readback_does_not_wait_for_the_next_scan(cuda):
     assert len(scan) == info["n_chunks"] == 3
     for i in range(1, len(scan)):
         assert ready[i - 1] < scan[i], (i, ready, scan)
+
+
+@pytest.fixture(scope="module")
+def corpus_kernels(cuda):
+    """One testcorpus.KernelCheck for the corpus cases: its plain versions
+    run in worker processes on the host CPU."""
+    def check(kernel, got, want, what):
+        assert got.shape == want.shape and got.dtype == want.dtype, (kernel, what)
+        assert torch.equal(got, want.to(got.device)), (kernel, what)
+
+    with tc.KernelCheck(check, workers=max(1, (os.cpu_count() or 4) - 2)) as kc:
+        yield kc
+
+
+@pytest.mark.parametrize("name", tc.clip_names())
+def test_corpus_clip_on_cuda(cuda, corpus_kernels, name):
+    """One clip of the frozen test corpus in every mode of its manifest
+    entry (testcorpus.check_clip on the card, the mesh on a 2x2 grid of it):
+    per chunk probs == host model and blob == C++ encoder, the container's
+    digest == the JAX package's (or the same error), exact roundtrip; and
+    every kernel those modes launch == its plain version on each chunk's
+    staged inputs. The 4:2:2 clips failed to decode before the host library
+    was built with -fno-unswitch-loops (_native.HOST_CXXFLAGS)."""
+    r = tc.check_clip(name, cuda, kernels=corpus_kernels)
+    before = corpus_kernels.clips[name]
+    corpus_kernels.flush()
+    assert r["chunks"] > 0 and corpus_kernels.clips[name] > before, r

@@ -6,6 +6,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 
 from avrecode_tpu_torch import _native
 
@@ -55,3 +56,36 @@ def test_concurrent_host_lib_builds(corpus_dir, tmp_path):
     assert lines[0][1] == lines[1][1], lines  # one build: the same file
     leftovers = [f for f in os.listdir(os.path.dirname(want_lib)) if f.endswith(".tmp")]
     assert not leftovers
+
+
+def test_host_library_flags_and_rebuild_when_they_change(tmp_path, monkeypatch):
+    """The host library is built with -fno-unswitch-loops: g++ 13's loop
+    unswitching at -O3 compiles native/model.h's one-past-the-row read of
+    kSigCoeffFlagOffset8x8 differently in the decoder than in the encoder,
+    and the test corpus's 4:2:2 CABAC containers then fail to decode. A
+    library built with other flags is stale: the flags live in a stamp file
+    beside it, and a change rebuilds it once."""
+    assert "-fno-unswitch-loops" in _native.HOST_CXXFLAGS
+    lib = tmp_path / "build" / "libartc.so"
+    monkeypatch.setattr(_native, "HOST_BUILD", str(lib.parent))
+    monkeypatch.setattr(_native, "HOST_LIB_PATH", str(lib))
+    monkeypatch.setitem(_native._BUILD_LOCKS, str(lib), threading.Lock())
+    real_run = subprocess.run
+    builds = []
+
+    def run(cmd, *args, **kw):
+        if cmd[0] != "g++":
+            return real_run(cmd, *args, **kw)
+        builds.append(cmd)
+        with open(cmd[cmd.index("-o") + 1], "w") as f:
+            f.write("library")
+
+    monkeypatch.setattr(_native.subprocess, "run", run)
+    assert _native.ensure_host_lib() == str(lib)
+    assert len(builds) == 1 and "-fno-unswitch-loops" in builds[0]
+    _native.ensure_host_lib()  # the same flags: the stamp is not rewritten
+    assert len(builds) == 1
+    monkeypatch.setattr(_native, "HOST_CXXFLAGS", [f for f in _native.HOST_CXXFLAGS
+                                                   if f != "-fno-unswitch-loops"])
+    _native.ensure_host_lib()
+    assert len(builds) == 2 and "-fno-unswitch-loops" not in builds[1]
