@@ -1,5 +1,4 @@
-"""Builds and binds the port's CUDA kernels, and makes sure the shared host
-library exists.
+"""Builds and binds the port's CUDA kernels, and builds its host library.
 
 csrc/*.cu compile with nvcc for sm_90a into build/libartc_cuda.so, a shared
 library with a plain C interface loaded through ctypes, on first use and
@@ -7,14 +6,15 @@ again whenever a source is newer than the library. Every C entry launches on
 the stream it is given and returns cudaGetLastError(); `launch` raises on a
 nonzero code and counts the launch under its kernel's name.
 
+The C++ host engine (the syntax walkers, the prior model, CABAC, rANS, the
+container) is the port's own copy, under native/; g++ compiles it into
+build/libartc_host.so, which host.py loads. Its linker version script
+exports the artc_* entries only.
+
 Both builds run under an exclusive flock on a lock file beside their
 library (and, within a process, under a thread lock per library), through a private
 temporary file renamed over the library: threads of a corpus run and
 processes on one machine never see a partial library.
-
-The host engine's sources live beside the JAX package
-(avrecode_tpu/native); the port finds them by path and compiles them, and
-imports nothing of that package.
 """
 from __future__ import annotations
 
@@ -32,21 +32,22 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD, "libartc_cuda.so")
-# The shared C++ host engine: the same sources and the same library file as
-# the JAX package's (its tests find the library current once this built it).
-NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "avrecode_tpu", "native")
-HOST_BUILD = os.path.join(NATIVE_DIR, "build")
-HOST_LIB_PATH = os.path.join(HOST_BUILD, "libartc.so")
-# The host library's g++ flags: CMakeLists.txt's release flags, and
-# -fno-unswitch-loops. native/model.h's sig_pos_class reads
-# kSigCoeffFlagOffset8x8[0][63], one past its row, for the level bins of an
-# 8x8 block's last coefficient; g++ 13's loop unswitching at -O3 compiles the
-# decoder's copy of that read differently from the encoder's, and 4:2:2
-# CABAC containers (c422.264, c422.mp4, mbaff422.mp4 of the test corpus)
-# then fail to decode ("mb address out of range"). g++ 12 is not affected;
-# with the pass off, both give the same bytes.
+# The host engine: the port's copy of its sources, and the library built
+# from them beside the kernels' library.
+NATIVE_DIR = os.path.join(_PKG, "native")
+HOST_LIB_PATH = os.path.join(BUILD, "libartc_host.so")
+VERSION_SCRIPT = os.path.join(NATIVE_DIR, "libartc_host.map")
+# The host library's g++ flags: the JAX package's CMakeLists.txt release
+# flags, the version script, and -fno-unswitch-loops. Without that flag, g++
+# 13.3 at -O3 builds a library that cannot decode its own 4:2:2 CABAC
+# containers (c422.264, c422.mp4, mbaff422.mp4 of the test corpus: "mb
+# address out of range"); g++ 12 does not. Making the read one past a table
+# row in native/model.h's sig_pos_class defined did not cure it
+# (tools/host_flags.py: still 9 of 129 host roundtrips fail without the
+# flag); -fno-strict-aliasing cures it too and -fwrapv does not, and UBSan
+# finds nothing, so the cause is open.
 HOST_CXXFLAGS = ["-std=c++17", "-O3", "-DNDEBUG", "-march=native", "-fno-unswitch-loops",
-                 "-fPIC", "-shared", "-pthread"]
+                 "-fPIC", "-shared", "-pthread", f"-Wl,--version-script={VERSION_SCRIPT}"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -73,9 +74,9 @@ _SIGNATURES = {
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_longlong}
 
 _lib = None
-# Threads of one process: one lock per library (so the two builds can run at
-# once) and one for loading; the flock covers processes.
-_BUILD_LOCKS = {LIB_PATH: threading.Lock(), HOST_LIB_PATH: threading.Lock()}
+# Threads of one process: one lock per library path (so two builds can run
+# at once; made on first use) and one for loading; the flock covers processes.
+_BUILD_LOCKS: dict[str, threading.Lock] = {}
 _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 
@@ -112,7 +113,7 @@ def _locked_build(lib_path: str, lock_name: str, deps, compile_to) -> str:
     if not _stale(lib_path, deps):
         return lib_path
     build_dir = os.path.dirname(lib_path)
-    with _BUILD_LOCKS[lib_path]:
+    with _BUILD_LOCKS.setdefault(lib_path, threading.Lock()):
         os.makedirs(build_dir, exist_ok=True)
         with open(os.path.join(build_dir, lock_name), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
@@ -272,52 +273,43 @@ def _git_rev(cwd: str) -> str:
 
 
 def _host_sources() -> list[str]:
-    """The host engine's build inputs (the files whose change makes the JAX
-    package's build_native rebuild): .h, .cc and .txt under NATIVE_DIR,
-    outside its build directory."""
+    """The host engine's build inputs: .h, .cc and the version script under
+    NATIVE_DIR."""
     found = []
     for root, _dirs, files in os.walk(NATIVE_DIR):
-        if root.startswith(HOST_BUILD):
-            continue
-        found += [os.path.join(root, f) for f in files if f.endswith((".h", ".cc", ".txt"))]
+        found += [os.path.join(root, f) for f in files if f.endswith((".h", ".cc", ".map"))]
     return found
 
 
 def ensure_host_lib() -> str:
-    """Makes sure the shared native host library HOST_LIB_PATH is built and
-    current, safely against other threads and processes doing the same;
-    returns its path.
-
-    The JAX package's own build (avrecode_tpu/host.py build_native) runs
-    cmake + ninja in the same build directory with no lock, so concurrent
-    callers (pytest-xdist workers, two scripts) can link a library from an
-    object file another compile is still writing, and then load it. Here
-    the holder of the lock compiles native/recode.cc with g++ and
-    CMakeLists.txt's flags into a private temporary path and renames it over
-    the library, so no process ever sees a partial file; once this has run,
-    the JAX package finds the library current and never calls cmake."""
+    """Makes sure the host library HOST_LIB_PATH is built from NATIVE_DIR
+    with HOST_CXXFLAGS and current, safely against other threads and
+    processes doing the same; returns its path. The holder of the lock
+    compiles native/recode.cc with g++ into a private temporary path and
+    renames it over the library, so no process ever sees a partial file."""
     def gxx(tmp: str) -> None:
         build_id = _git_rev(NATIVE_DIR)
         subprocess.run(["g++", *HOST_CXXFLAGS, f'-DARTC_BUILD_ID="{build_id}"',
                         "-I", NATIVE_DIR, "-o", tmp, os.path.join(NATIVE_DIR, "recode.cc")],
                        check=True)
 
-    return _locked_build(HOST_LIB_PATH, "libartc.lock", _host_sources() + [_flags_stamp()],
-                         gxx)
+    deps = _host_sources() + [_flags_stamp(HOST_LIB_PATH, HOST_CXXFLAGS)]
+    return _locked_build(HOST_LIB_PATH, "libartc_host.lock", deps, gxx)
 
 
-def _flags_stamp() -> str:
-    """A file beside the host library holding HOST_CXXFLAGS, rewritten (and
-    so newer than the library, which is then rebuilt) when they change."""
-    path = os.path.join(HOST_BUILD, "libartc.flags")
-    text = " ".join(HOST_CXXFLAGS) + "\n"
+def _flags_stamp(lib_path: str, flags: list[str]) -> str:
+    """A file beside `lib_path` (its name with .flags) holding `flags`,
+    rewritten (and so newer than the library, which is then rebuilt) when
+    they change."""
+    path = os.path.splitext(lib_path)[0] + ".flags"
+    text = " ".join(flags) + "\n"
     try:
         with open(path) as f:
             if f.read() == text:
                 return path
     except FileNotFoundError:
         pass
-    os.makedirs(HOST_BUILD, exist_ok=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         f.write(text)

@@ -1,9 +1,9 @@
-"""ctypes bindings to the shared native host library (libartc.so).
+"""ctypes bindings to the port's native host library (libartc_host.so).
 
-The C++ engine (avrecode_tpu/native: the syntax walkers, the prior model,
-the CABAC engines, the rANS codec and the container) is host code shared by
-both packages: `_native.ensure_host_lib` compiles it, and this module binds
-its C ABI for the port. It is a copy of avrecode_tpu/host.py's bindings plus
+The C++ engine (the syntax walkers, the prior model, the CABAC engines, the
+rANS codec and the container) is the port's own copy, under native/:
+`_native.ensure_host_lib` compiles it into build/libartc_host.so, and this
+module binds its C ABI. It is a copy of avrecode_tpu/host.py's bindings plus
 the analysis-session entries of avrecode_tpu/device.py (`_session_lib`,
 `_pack_session`), so the port imports nothing of the JAX package.
 Decompression runs here, on the host: every container the port writes is

@@ -1,7 +1,7 @@
 """K-lane interleaved binary rANS encoding on the card (PyTorch + CUDA).
 
 Counterpart of avrecode_tpu/ops/lanes.py, byte-identical to the host codec
-(avrecode_tpu/native/rans.h RansInterleaved::encode). Lane l owns bins l,
+(native/rans.h RansInterleaved::encode). Lane l owns bins l,
 l+K, l+2K, ...; each lane encodes its subsequence in reverse, and every
 step emits at most one u16 word per lane. The encode is staged in three
 phases, as in the JAX package: the scan, a tiny per-lane counts readback

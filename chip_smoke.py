@@ -8,7 +8,9 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 Phases; any failure ends the script with a nonzero exit code:
 
 1. build: the port's CUDA kernels (one nvcc per source under
-   avrecode_tpu_torch/csrc, sm_90a) and the native host library, all at once;
+   avrecode_tpu_torch/csrc, sm_90a) and the port's own host library (g++
+   over its copy of the C++ engine, avrecode_tpu_torch/native, into
+   avrecode_tpu_torch/build/libartc_host.so), all at once;
 2. kernels: every kernel against its plain PyTorch version on the same
    inputs, timed with CUDA events, with its bound (bytes or operations over
    the card's peak rates, and for the two lane scans their serial chain:
@@ -99,7 +101,11 @@ Phases; any failure ends the script with a nonzero exit code:
      exact roundtrip, profile 0's dict, sort and mm == v2; then every kernel
      those runs launched against its plain version on each chunk's staged
      inputs (avrecode_tpu_torch/testcorpus.py), one line a clip and a
-     totals line.
+     totals line;
+4. the JAX package untouched: no file or directory under avrecode_tpu/
+   created or changed during the run (paths, sizes and mtimes before the
+   build and after the last phase), and no file under it mapped by this
+   process (/proc/self/maps) after the last phase.
 
 The last lines are the card's name and power limit as nvidia-smi reports
 them, the per-kernel JSON and the result JSON.
@@ -122,6 +128,8 @@ CLIPS = ("benchdata/bench.mp4", "benchdata/multigop720.mp4")
 MESH_CLIP = "benchdata/multigop720.mp4"
 BATCH, SUP = 4096, 128  # the compress path's defaults
 MESH_LANES = 16  # force_lanes of the mesh gate (__graft_entry__.py)
+# The JAX package's directory: watched, never read (phase 4).
+JAX_PKG = os.path.join(REPO, "avrecode_tpu")
 PROFILE2_KERNELS = ("wire_expand", "dual0_expand", "model_pass_v4", "lane_scan_dev",
                     "lane_compact")
 PROFILE0_KERNELS = ("model_pass_v2", "model_pass_dict", "model_pass", "lane_scan",
@@ -1845,8 +1853,39 @@ def build_all() -> None:
         host_lib = ex.submit(timed, _native.ensure_host_lib)
         t_nvcc, t_host = kern.result(), host_lib.result()
     print(f"build (at once): kernels (one nvcc per source, sm_90a) {t_nvcc:.1f} s -> "
-          f"{os.path.relpath(_native.LIB_PATH, REPO)}; host library {t_host:.1f} s",
-          flush=True)
+          f"{os.path.relpath(_native.LIB_PATH, REPO)}; host library {t_host:.1f} s -> "
+          f"{os.path.relpath(_native.HOST_LIB_PATH, REPO)} (g++ "
+          f"{' '.join(_native.HOST_CXXFLAGS)})", flush=True)
+
+
+def tree_snapshot(root: str) -> dict:
+    """{path: (size, mtime_ns)} of every file and directory under root
+    (os.stat only: nothing is opened)."""
+    snap = {}
+    for d, dirs, files in os.walk(root):
+        for name in dirs + files:
+            st = os.stat(os.path.join(d, name))
+            snap[os.path.join(d, name)] = (st.st_size, st.st_mtime_ns)
+    return snap
+
+
+def jax_package_phase(before: dict) -> str:
+    """Fails if a file or directory under the JAX package was created,
+    changed or removed since `before`, or if this process maps a file under
+    it; returns the report line."""
+    after = tree_snapshot(JAX_PKG)
+    changed = sorted(p for p in before.keys() | after.keys() if before.get(p) != after.get(p))
+    jax_dir = os.path.realpath(JAX_PKG) + os.sep
+    with open("/proc/self/maps") as f:
+        rows = [line.split(None, 5) for line in f]
+    paths = {os.path.realpath(r[5].strip()) for r in rows if len(r) == 6}
+    mapped = sorted(p for p in paths if p.startswith(jax_dir))
+    if changed or mapped:
+        fail(f"the run touched the JAX package: created or changed {changed[:20]}, "
+             f"mapped {mapped}")
+    return (f"jax package untouched: {len(after)} paths under "
+            f"{os.path.relpath(JAX_PKG, REPO)}/ unchanged (size, mtime), none created; "
+            f"{len(rows)} mappings of this process, none under it")
 
 
 def main() -> int:
@@ -1863,6 +1902,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this script measures the GPU only")
 
     t_start = time.perf_counter()
+    jax_before = tree_snapshot(JAX_PKG)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
@@ -1937,6 +1977,7 @@ def main() -> int:
         fail(f"no main path launched {missing}")
     report["seconds"] = time.perf_counter() - t_start
     print(json.dumps({"main_path": report}), flush=True)
+    print(jax_package_phase(jax_before), flush=True)
     print(card, flush=True)
     print(K.json_line(launches, step_launched, report["corpus"]["collective"]), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

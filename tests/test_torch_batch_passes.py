@@ -10,14 +10,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu.ops import model_pass as jmp
 from avrecode_tpu_torch import _native
 from avrecode_tpu_torch.ops import model_pass as tmp
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 KW = dict(fast_w=48, slow_w=640, sig_w=80, sig_alpha=(24 << 16) | 12)
 N_DUAL, N_SIG = 96, 160  # N_DUAL counts the scratch row; both small, so keys repeat

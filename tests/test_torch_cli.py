@@ -10,14 +10,17 @@ import json
 import os
 
 import pytest
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import cli as jcli
 from avrecode_tpu import device as jd
 from avrecode_tpu_torch import _native, cli, host, pipeline
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 CLIP = "i_main.264"
 

@@ -13,15 +13,18 @@ import textwrap
 import time
 
 import pytest
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import device as jd
 from avrecode_tpu import host as jhost
 from avrecode_tpu_torch import _native, cli, host
 from avrecode_tpu_torch.parallel import distributed as dist
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIPS = ["i_main.264", "cavlc.mp4", "mbaff.264"]

@@ -31,14 +31,17 @@ if __name__ == "__main__":  # a script: the repository root, and JAX on the CPU 
     import conftest  # noqa: F401
 
 import pytest
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import device as jd
 from avrecode_tpu_torch import _native
 from avrecode_tpu_torch import testcorpus as tc
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 PARTS = 3
 GENERATOR = ("tests/conftest.py corpus_dir: tools/make_corpus.cc (libx264 through the "

@@ -11,14 +11,17 @@ roundtrip.
 import copy
 
 import pytest
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu_torch import _native
 from avrecode_tpu_torch import testcorpus as tc
 from avrecode_tpu_torch.testing import assert_same_array
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 CLIPS = ["c444p10i.264", "hi10.264", "mono.264", "cav444.264", "pcm_cabac.264",
          "mbaff422.mp4", "stress_wpred.264", "paff_ip.264", "sp_cavlc.264", "sepplanes.264"]

@@ -14,6 +14,7 @@ import torch
 from test_coder import _c_encode, _random_biased_stream
 from test_torch_batch_passes import KW as PASS_KW
 from test_torch_batch_passes import N_DUAL, N_SIG, _dict_inputs, _stream, _tables
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import pipeline
 from avrecode_tpu_torch import _native
@@ -26,9 +27,11 @@ from avrecode_tpu_torch.testing import (DUAL0_CASES, EXPAND_CASES, dual0_case, e
 
 pytestmark = pytest.mark.cuda
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIP = os.path.join(REPO, "benchdata", "multigop720.mp4")

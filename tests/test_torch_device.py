@@ -11,6 +11,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import device as jd
 from avrecode_tpu import pipeline
@@ -18,9 +19,11 @@ from avrecode_tpu_torch import _native, cli
 from avrecode_tpu_torch import device as td
 from avrecode_tpu_torch.ops import lanes as tl
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -141,9 +144,10 @@ def test_port_analysis_matches_jax(corpus_dir, monkeypatch, clip, kw):
 
 
 def test_port_host_decoder_matches_jax_package(corpus_dir):
-    """The port's own host bindings (avrecode_tpu_torch.host) load the same
-    library file the JAX package builds, and compress / decompress as the
-    JAX package's bindings do."""
+    """The port's own host bindings (avrecode_tpu_torch.host) load the
+    port's own library, built under avrecode_tpu_torch/build and not the
+    JAX package's file, and compress / decompress as the JAX package's
+    bindings do."""
     from avrecode_tpu import host as jhost
     from avrecode_tpu_torch import host as thost
     data = _read(corpus_dir, "ipb_high.mp4")
@@ -152,7 +156,9 @@ def test_port_host_decoder_matches_jax_package(corpus_dir):
     assert comp == want and vars(st) == vars(want_st)
     assert thost.decompress(comp)[0] == jhost.decompress(comp)[0] == data
     assert thost.container_version() == jhost.container_version() == comp[4]
-    assert _native.HOST_LIB_PATH == os.path.abspath(jhost._LIB_PATH)
+    assert _native.HOST_LIB_PATH == os.path.join(REPO, "avrecode_tpu_torch", "build",
+                                                 "libartc_host.so")
+    assert not os.path.samefile(_native.HOST_LIB_PATH, jhost._LIB_PATH)
 
 
 def test_port_never_imports_jax(corpus_dir, tmp_path):
@@ -161,7 +167,8 @@ def test_port_never_imports_jax(corpus_dir, tmp_path):
     pass, compress_mesh on a CPU grid, corpus_compress through the port,
     pipeline.roundtrip, the CLI's info, the microbench on the CPU) leaves
     jax and every module of the JAX package (avrecode_tpu, avrecode_tpu.*)
-    out of sys.modules. Checked in a subprocess: this test process has
+    out of sys.modules, and no file under avrecode_tpu/ (the JAX package's
+    host library) mapped. Checked in a subprocess: this test process has
     imported jax already (conftest)."""
     clip = os.path.join(corpus_dir, "i_main.264")
     container = str(tmp_path / "i_main.atrc")
@@ -197,6 +204,10 @@ def test_port_never_imports_jax(corpus_dir, tmp_path):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'avrecode_tpu'))\n"
         "assert not bad, bad\n"
+        f"jax_dir = os.path.realpath({os.path.join(REPO, 'avrecode_tpu')!r}) + os.sep\n"
+        "maps = [line.split(None, 5) for line in open('/proc/self/maps')]\n"
+        "mapped = sorted({os.path.realpath(m[5].strip()) for m in maps if len(m) == 6})\n"
+        "assert not [m for m in mapped if m.startswith(jax_dir)], mapped\n"
         "print('no-jax-ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

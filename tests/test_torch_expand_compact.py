@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import device as jd
 from avrecode_tpu.ops import lanes as jl
@@ -24,9 +25,11 @@ from avrecode_tpu_torch.ops import model_pass as tmp
 from avrecode_tpu_torch.testing import (EXPAND_CASES, assert_same_array, empty_coo_blob,
                                         lane_planes, synthetic_blob)
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 # clip -> sub-batch size (test_torch_model_pass.py's clips that need no
 # environment: the pack widths, the CAVLC transport, kind-3 bins).

@@ -8,15 +8,18 @@ import numpy as np
 import pytest
 import torch
 from test_coder import _c_decode, _c_encode, _random_biased_stream
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu.ops import lanes as jl
 from avrecode_tpu_torch import _native
 from avrecode_tpu_torch.ops import lanes as tl
 from avrecode_tpu_torch.testing import assert_same_array
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 
 def _t(a):

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import device as jd
 from avrecode_tpu.ops import model_pass as jmp
@@ -19,9 +20,11 @@ from avrecode_tpu_torch.ops import intmath as im
 from avrecode_tpu_torch.ops import model_pass as tmp
 from avrecode_tpu_torch.testing import DUAL0_CASES, dual0_case
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 # clip -> (sub-batch size, environment for the analysis). q51/q6 stress the
 # pack widths, cavlc_b8 the CAVLC transport, pcm_mixed the kind-3 bins;

@@ -1,18 +1,22 @@
-"""The port's build of the shared native host library
+"""The port's build of its own native host library
 (avrecode_tpu_torch._native.ensure_host_lib) under concurrency: processes
 that build it at once from an empty build directory all end up loading one
-complete library."""
+complete library; and its flags."""
 import os
 import shutil
 import subprocess
 import sys
 import threading
 
+from test_torch_jaxlib import ensure_jax_lib
+
 from avrecode_tpu_torch import _native
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,13 +37,14 @@ def test_concurrent_host_lib_builds(corpus_dir, tmp_path):
     the packages whose build directory is empty. Both must load a library
     that runs an analysis whose probs equal the port's model pass, and the
     library must be built once (one file, no second replace after a load).
-    An unlocked build in the shared directory (cmake + ninja from two
-    processes) can link a library from a half-written object file."""
+    An unlocked build (cmake + ninja from two processes, as the JAX
+    package's build_native) can link a library from a half-written object
+    file."""
     root = tmp_path / "repo"
     skip = shutil.ignore_patterns("build", "__pycache__", "*.so", "*.pyc")
     for pkg in ("avrecode_tpu", "avrecode_tpu_torch"):
         shutil.copytree(os.path.join(REPO, pkg), root / pkg, ignore=skip)
-    assert not (root / "avrecode_tpu" / "native" / "build").exists()
+    assert not (root / "avrecode_tpu_torch" / "build").exists()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(root)
     clip = os.path.join(corpus_dir, "i_main.264")
@@ -50,7 +55,7 @@ def test_concurrent_host_lib_builds(corpus_dir, tmp_path):
     for p, (out, err) in zip(procs, results):
         assert p.returncode == 0, err[-2000:]
     lines = [out.split() for out, _ in results]
-    want_lib = str(root / "avrecode_tpu" / "native" / "build" / "libartc.so")
+    want_lib = str(root / "avrecode_tpu_torch" / "build" / "libartc_host.so")
     for path, _, ok in lines:
         assert path == want_lib and ok == "True", lines
     assert lines[0][1] == lines[1][1], lines  # one build: the same file
@@ -59,15 +64,15 @@ def test_concurrent_host_lib_builds(corpus_dir, tmp_path):
 
 
 def test_host_library_flags_and_rebuild_when_they_change(tmp_path, monkeypatch):
-    """The host library is built with -fno-unswitch-loops: g++ 13's loop
-    unswitching at -O3 compiles native/model.h's one-past-the-row read of
-    kSigCoeffFlagOffset8x8 differently in the decoder than in the encoder,
-    and the test corpus's 4:2:2 CABAC containers then fail to decode. A
-    library built with other flags is stale: the flags live in a stamp file
-    beside it, and a change rebuilds it once."""
+    """The host library is built with -fno-unswitch-loops (without it, g++
+    13 at -O3 builds a library that cannot decode the test corpus's 4:2:2
+    CABAC containers) and with the version script that exports artc_*
+    only. A library built with other flags is stale: the flags live in a
+    stamp file beside it, and a change rebuilds it once."""
     assert "-fno-unswitch-loops" in _native.HOST_CXXFLAGS
-    lib = tmp_path / "build" / "libartc.so"
-    monkeypatch.setattr(_native, "HOST_BUILD", str(lib.parent))
+    script = f"-Wl,--version-script={_native.VERSION_SCRIPT}"
+    assert script in _native.HOST_CXXFLAGS and os.path.exists(_native.VERSION_SCRIPT)
+    lib = tmp_path / "build" / "libartc_host.so"
     monkeypatch.setattr(_native, "HOST_LIB_PATH", str(lib))
     monkeypatch.setitem(_native._BUILD_LOCKS, str(lib), threading.Lock())
     real_run = subprocess.run
@@ -82,7 +87,8 @@ def test_host_library_flags_and_rebuild_when_they_change(tmp_path, monkeypatch):
 
     monkeypatch.setattr(_native.subprocess, "run", run)
     assert _native.ensure_host_lib() == str(lib)
-    assert len(builds) == 1 and "-fno-unswitch-loops" in builds[0]
+    assert len(builds) == 1 and "-fno-unswitch-loops" in builds[0] and script in builds[0]
+    assert (tmp_path / "build" / "libartc_host.flags").exists()
     _native.ensure_host_lib()  # the same flags: the stamp is not rewritten
     assert len(builds) == 1
     monkeypatch.setattr(_native, "HOST_CXXFLAGS", [f for f in _native.HOST_CXXFLAGS

@@ -6,6 +6,7 @@ import dataclasses
 import os
 
 import pytest
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import pipeline as jpipeline
 from avrecode_tpu.models import refprior as jrefprior
@@ -15,9 +16,11 @@ from avrecode_tpu_torch.models import refprior
 from avrecode_tpu_torch.ops import intmath
 from avrecode_tpu_torch.utils import billing
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 CLIPS = ["i_main.264", "cavlc.mp4", "mbaff.264"]
 

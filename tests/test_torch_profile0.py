@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from test_coder import _c_encode
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import device as jd
 from avrecode_tpu import pipeline
@@ -25,9 +26,11 @@ from avrecode_tpu_torch.ops import lanes as tl
 from avrecode_tpu_torch.ops import model_pass as tmp
 from avrecode_tpu_torch.testing import assert_same_array
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 # v16 warm-started sections on a small clip, as test_device_model.py's
 # warm profile-0 differential forces them.

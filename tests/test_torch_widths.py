@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import device as jd
 from avrecode_tpu.ops import lanes as jl
@@ -26,9 +27,11 @@ from avrecode_tpu_torch.parallel import mesh as tmesh
 from avrecode_tpu_torch.parallel import pipeline as tpipe
 from avrecode_tpu_torch.testing import assert_same_array
 
-# Built here, under the port's lock, before any test of any module can reach
-# the host library's unlocked build (see _native.ensure_host_lib).
+# Both host libraries, each built here under its own lock, before any test
+# of any module can reach the JAX package's unlocked build (see
+# test_torch_jaxlib.py).
 _native.ensure_host_lib()
+ensure_jax_lib()
 
 SCAN_OUT = ("x_final", "words", "emits", "counts")
 STEP_OUT = ("x_final", "words", "emits", "probs", "total_words")

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""The shared host library under several g++ flag sets: does each build
+"""The port's host library under several g++ flag sets: does each build
 decode what it writes, and how fast is its host engine.
 
     python3 tools/host_flags.py [--flags "-O2" ...] [--rounds 2]
 
-Builds native/recode.cc once per flag set (the port's HOST_CXXFLAGS, the
+Builds the port's copy of the engine, avrecode_tpu_torch/native/recode.cc
+(_native.NATIVE_DIR), once per flag set (the port's HOST_CXXFLAGS, the
 same without -fno-unswitch-loops, and any --flags given in their place),
 all at once, into avrecode_tpu_torch/build/host_flags/. Then, in turns (the
 sets in order, then reversed, --rounds times), a fresh process per set
