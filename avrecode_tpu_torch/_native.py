@@ -38,15 +38,14 @@ NATIVE_DIR = os.path.join(_PKG, "native")
 HOST_LIB_PATH = os.path.join(BUILD, "libartc_host.so")
 VERSION_SCRIPT = os.path.join(NATIVE_DIR, "libartc_host.map")
 # The host library's g++ flags: the JAX package's CMakeLists.txt release
-# flags, the version script, and -fno-unswitch-loops. Without that flag, g++
-# 13.3 at -O3 builds a library that cannot decode its own 4:2:2 CABAC
-# containers (c422.264, c422.mp4, mbaff422.mp4 of the test corpus: "mb
-# address out of range"); g++ 12 does not. Making the read one past a table
-# row in native/model.h's sig_pos_class defined did not cure it
-# (tools/host_flags.py: still 9 of 129 host roundtrips fail without the
-# flag); -fno-strict-aliasing cures it too and -fwrapv does not, and UBSan
-# finds nothing, so the cause is open.
-HOST_CXXFLAGS = ["-std=c++17", "-O3", "-DNDEBUG", "-march=native", "-fno-unswitch-loops",
+# flags (less -g and -Wall, which change no instruction), the version script
+# and what a shared library needs. g++ 13.3 at -O3 miscompiles one loop of
+# the engine, decode_coeffs's significance map (native/h264_slice.h:1082),
+# when it unswitches it: 4:2:2 CABAC containers then fail to decode. That
+# function alone carries `optimize("no-unswitch-loops")`; the cause and
+# its standalone reproducer are at the site and in
+# native/repro_unswitch.cc.
+HOST_CXXFLAGS = ["-std=c++17", "-O3", "-DNDEBUG", "-march=native",
                  "-fPIC", "-shared", "-pthread", f"-Wl,--version-script={VERSION_SCRIPT}"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

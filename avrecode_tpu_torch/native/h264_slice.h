@@ -1059,7 +1059,28 @@ class SliceWalker {
 
   // Significance map + levels (9.3.3.1.3); cat may be any ctxBlockCat 0..13
   // (cats 6-13 = the ChromaArrayType==3 Cb/Cr banks).
-  void decode_coeffs(int cat, int max_coeff) {
+  //
+  // Built without loop unswitching. g++ 13.3 at -O3 miscompiles the
+  // significance-map loop below once it is inlined into decode_block: it
+  // unswitches the loop on the switch that sig_ctx's and last_ctx's tests
+  // of cat become (cases 5, 9, 13: cat_is_8x8; case 3: kCatChromaDC), and
+  // in the copy for cat outside {5, 9, 13} it drops case 3. A 4:2:2 chroma
+  // DC block (NumC8x8 2) then gets the contexts base + pos instead of
+  // base + Min(pos / 2, 2) and the decoder loses sync; 4:2:0 is spared
+  // only because there pos < 3 and NumC8x8 is 1, where both agree. The
+  // code is well defined: native/repro_unswitch.cc reduces it to a
+  // standalone program that g++ 13.3 -O3 gets wrong. The attribute also
+  // keeps the function out of line, so no caller's unswitching reaches the
+  // loop. Defining ARTC_NO_UNSWITCH empty builds the engine without it
+  // (tools/host_unswitch.py).
+#ifndef ARTC_NO_UNSWITCH
+#if defined(__GNUC__) && !defined(__clang__)
+#define ARTC_NO_UNSWITCH __attribute__((optimize("no-unswitch-loops")))
+#else
+#define ARTC_NO_UNSWITCH
+#endif
+#endif
+  ARTC_NO_UNSWITCH void decode_coeffs(int cat, int max_coeff) {
     uint8_t sig[64] = {0};
     int last_pos = -1;
     int i = 0;

@@ -160,7 +160,7 @@ def outcome(fn) -> dict:
     return {"digest": container_digest(comp)}
 
 
-def port_container(data: bytes, mode: CorpusMode, device="cpu", info: dict | None = None):
+def port_container(data: bytes, mode: CorpusMode, device="cuda", info: dict | None = None):
     """The port's (container, stats) for `mode`: compress on `device`, or
     compress_mesh on the mode's grid with `device` in every cell, in the
     mode's environment."""

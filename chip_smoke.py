@@ -10,7 +10,8 @@ Phases; any failure ends the script with a nonzero exit code:
 1. build: the port's CUDA kernels (one nvcc per source under
    avrecode_tpu_torch/csrc, sm_90a) and the port's own host library (g++
    over its copy of the C++ engine, avrecode_tpu_torch/native, into
-   avrecode_tpu_torch/build/libartc_host.so), all at once;
+   avrecode_tpu_torch/build/libartc_host.so), all at once, after a line
+   that names the host compiler (`g++ --version`) and its flags;
 2. kernels: every kernel against its plain PyTorch version on the same
    inputs, timed with CUDA events, with its bound (bytes or operations over
    the card's peak rates, and for the two lane scans their serial chain:
@@ -1909,6 +1910,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}; card {torch.cuda.get_device_name(0)} "
           f"x{torch.cuda.device_count()}", flush=True)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    print(f"host library toolchain: {gxx}; HOST_CXXFLAGS {' '.join(_native.HOST_CXXFLAGS)}",
+          flush=True)
     build_all()
 
     clips = {c: open(os.path.join(REPO, c), "rb").read() for c in CLIPS}

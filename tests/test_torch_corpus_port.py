@@ -69,7 +69,8 @@ def test_container_digest_leaves_out_only_the_build_provenance():
     host library's build id, "nogit" outside a git checkout), so its raw
     bytes differ between two builds of the same sources: the digest cuts
     out exactly that field and nothing else."""
-    comp, _ = tc.port_container(tc.clip_bytes("sp_cavlc.264"), tc.CORPUS_MODES["p2_b512"])
+    comp, _ = tc.port_container(tc.clip_bytes("sp_cavlc.264"), tc.CORPUS_MODES["p2_b512"],
+                                device="cpu")
     build = tc.build_field(comp)
     assert build == tc.library_build() and len(build) > 0
     other = comp[:5] + bytes([5]) + b"nogit" + comp[6 + len(build):]

@@ -5,7 +5,10 @@ device. On a machine with the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
+import ctypes
 import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -17,7 +20,7 @@ from test_torch_batch_passes import N_DUAL, N_SIG, _dict_inputs, _stream, _table
 from test_torch_jaxlib import ensure_jax_lib
 
 from avrecode_tpu import pipeline
-from avrecode_tpu_torch import _native
+from avrecode_tpu_torch import _native, host
 from avrecode_tpu_torch import device as td
 from avrecode_tpu_torch import testcorpus as tc
 from avrecode_tpu_torch.ops import lanes as tl
@@ -34,6 +37,9 @@ _native.ensure_host_lib()
 ensure_jax_lib()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tools"))
+from host_flags import MODES as HOST_MODES  # noqa: E402
+
 CLIP = os.path.join(REPO, "benchdata", "multigop720.mp4")
 BENCH = os.path.join(REPO, "benchdata", "bench.mp4")
 
@@ -608,9 +614,59 @@ def test_corpus_clip_on_cuda(cuda, corpus_kernels, name):
     per chunk probs == host model and blob == C++ encoder, the container's
     digest == the JAX package's (or the same error), exact roundtrip; and
     every kernel those modes launch == its plain version on each chunk's
-    staged inputs. The 4:2:2 clips failed to decode before the host library
-    was built with -fno-unswitch-loops (_native.HOST_CXXFLAGS)."""
+    staged inputs. The 4:2:2 clips decode here only because decode_coeffs
+    (native/h264_slice.h) is built without loop unswitching, which g++ 13.3
+    gets wrong there; the rest of the host library is built with
+    _native.HOST_CXXFLAGS, which turn no optimization off."""
     r = tc.check_clip(name, cuda, kernels=corpus_kernels)
     before = corpus_kernels.clips[name]
     corpus_kernels.flush()
     assert r["chunks"] > 0 and corpus_kernels.clips[name] > before, r
+
+
+# The port's host engine under the shipped flags and two variations of
+# them: every one must decode what it encodes on the card machine's g++.
+HOST_FLAG_SETS = {"shipped": _native.HOST_CXXFLAGS,
+                  "O2": ["-O2" if f == "-O3" else f for f in _native.HOST_CXXFLAGS],
+                  "no_strict_aliasing": [*_native.HOST_CXXFLAGS, "-fno-strict-aliasing"]}
+CLIPS_422 = ("c422.264", "c422.mp4", "mbaff422.mp4", "cav422.264", "cavmbaff422.264")
+
+
+@pytest.fixture(scope="module")
+def host_builds(cuda, tmp_path_factory):
+    """The port's native/recode.cc built under each of HOST_FLAG_SETS, all
+    at once, into a temporary directory."""
+    out = tmp_path_factory.mktemp("host_builds")
+    procs = {name: subprocess.Popen(
+        ["g++", *flags, '-DARTC_BUILD_ID="nogit"', "-I", _native.NATIVE_DIR,
+         "-o", str(out / f"libartc_{name}.so"), os.path.join(_native.NATIVE_DIR, "recode.cc")],
+        stderr=subprocess.PIPE, text=True) for name, flags in HOST_FLAG_SETS.items()}
+    for name, p in procs.items():
+        err = p.communicate()[1]
+        assert p.returncode == 0, (name, err[-2000:])
+    return out
+
+
+@pytest.mark.parametrize("flags", list(HOST_FLAG_SETS))
+def test_host_engine_roundtrips_the_422_clips_under_each_flag_set(host_builds, flags,
+                                                                  monkeypatch):
+    """The corpus's five 4:2:2 clips, compressed by the host engine in each
+    of tools/host_flags.MODES, decode exactly with the same build. Before
+    decode_coeffs carried its attribute, the shipped flags failed 9 of
+    these 15 (c422.264, c422.mp4, mbaff422.mp4: "mb address out of range")
+    on g++ 13.3."""
+    lib = ctypes.CDLL(str(host_builds / f"libartc_{flags}.so"))
+    host._bind(lib)
+    monkeypatch.setattr(host, "_lib", lib)
+    failed = []
+    for clip in CLIPS_422:
+        data = tc.clip_bytes(clip)
+        for kw in HOST_MODES:
+            comp, _ = host.compress(data, **kw)
+            try:
+                out = host.decompress(comp)[0]
+            except host.NativeError as e:
+                out = str(e)
+            if out != data:
+                failed.append((clip, kw, out if isinstance(out, str) else "wrong bytes"))
+    assert not failed

@@ -1,6 +1,7 @@
 """The port's own copy of the C++ host engine (avrecode_tpu_torch/native)
 against the JAX package's (avrecode_tpu/native): the copy differs only by
-the defined read in sig_pos_class; the port's library exports only the
+the defined read in sig_pos_class and decode_coeffs's guard against g++
+13.3's unswitching; the port's library exports only the
 artc_* entries; both libraries, loaded in one process, write the same
 containers and read each other's; building the port's library reads,
 writes and names nothing under avrecode_tpu/."""
@@ -25,11 +26,12 @@ ensure_jax_lib()
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_NATIVE = os.path.join(REPO, "avrecode_tpu_torch", "native")
 # Files of the JAX tree that are not copied (the build is the port's own;
-# the npz tables are read only by the JAX side), and the one file of the
-# copy that has no original.
+# the npz tables are read only by the JAX side), and the files of the copy
+# that have no original: the version script and the reproducer of the
+# miscompile that h264_slice.h's guard avoids (built by no library).
 NOT_COPIED = {"CMakeLists.txt", "gen/cabac_tables.npz"}
-PORT_ONLY = {"libartc_host.map"}
-# The one change to the code: sig_pos_class reads kSigCoeffFlagOffset8x8[0][63],
+PORT_ONLY = {"libartc_host.map", "repro_unswitch.cc"}
+# The changes to the code. sig_pos_class reads kSigCoeffFlagOffset8x8[0][63],
 # one past its row, for pos 63 (the level bins of an 8x8 block's last
 # coefficient). The copy reads [1][0], the element the contiguous read gave.
 # The table's other reads stop at pos 62: sig_ctx, last_ctx and
@@ -39,7 +41,34 @@ FIXES = {"model.h": (
     "    return (cat_ == kCatLuma8x8) ? kSigCoeffFlagOffset8x8[0][pos]\n",
     "    // pos 63 (a level bin) is past the [63] row: read [1][0], as contiguity did.\n"
     "    return (cat_ == kCatLuma8x8) ? (pos < 63 ? kSigCoeffFlagOffset8x8[0][pos]\n"
-    "                                             : kSigCoeffFlagOffset8x8[1][0])\n")}
+    "                                             : kSigCoeffFlagOffset8x8[1][0])\n"),
+    # decode_coeffs is built without loop unswitching, which g++ 13.3 gets
+    # wrong there (the comment says how; native/repro_unswitch.cc shows it).
+    "h264_slice.h": (
+        "  void decode_coeffs(int cat, int max_coeff) {\n",
+        "  //\n"
+        "  // Built without loop unswitching. g++ 13.3 at -O3 miscompiles the\n"
+        "  // significance-map loop below once it is inlined into decode_block: it\n"
+        "  // unswitches the loop on the switch that sig_ctx's and last_ctx's tests\n"
+        "  // of cat become (cases 5, 9, 13: cat_is_8x8; case 3: kCatChromaDC), and\n"
+        "  // in the copy for cat outside {5, 9, 13} it drops case 3. A 4:2:2 chroma\n"
+        "  // DC block (NumC8x8 2) then gets the contexts base + pos instead of\n"
+        "  // base + Min(pos / 2, 2) and the decoder loses sync; 4:2:0 is spared\n"
+        "  // only because there pos < 3 and NumC8x8 is 1, where both agree. The\n"
+        "  // code is well defined: native/repro_unswitch.cc reduces it to a\n"
+        "  // standalone program that g++ 13.3 -O3 gets wrong. The attribute also\n"
+        "  // keeps the function out of line, so no caller's unswitching reaches the\n"
+        "  // loop. Defining ARTC_NO_UNSWITCH empty builds the engine without it\n"
+        "  // (tools/host_unswitch.py).\n"
+        "#ifndef ARTC_NO_UNSWITCH\n"
+        "#if defined(__GNUC__) && !defined(__clang__)\n"
+        "#define ARTC_NO_UNSWITCH __attribute__((optimize(\"no-unswitch-loops\")))\n"
+        "#else\n"
+        "#define ARTC_NO_UNSWITCH\n"
+        "#endif\n"
+        "#endif\n"
+        "  ARTC_NO_UNSWITCH void decode_coeffs(int cat, int max_coeff) {\n"),
+}
 
 
 def _tree(root: str) -> set[str]:
@@ -57,7 +86,7 @@ COPIED = sorted(_tree(JAX_NATIVE) - NOT_COPIED)
 
 def test_copy_holds_exactly_the_engine_sources():
     """The copy holds every .h, recode.cc and gen/*.h of the JAX tree and,
-    beside them, only the version script; the JAX tree holds nothing else
+    beside them, only the version script and the reproducer; the JAX tree holds nothing else
     but CMakeLists.txt and the npz tables."""
     assert _tree(PORT_NATIVE) == set(COPIED) | PORT_ONLY
     assert all(f == "recode.cc" or f.endswith(".h") for f in COPIED)

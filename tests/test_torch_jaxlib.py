@@ -23,11 +23,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_NATIVE = os.path.join(REPO, "avrecode_tpu", "native")
 JAX_BUILD = os.path.join(JAX_NATIVE, "build")
 JAX_LIB = os.path.join(JAX_BUILD, "libartc.so")
-# CMakeLists.txt's release flags, and -fno-unswitch-loops: the JAX sources
-# keep native/model.h's one-past-the-row read of kSigCoeffFlagOffset8x8
-# (sig_pos_class, pos 63), which g++ 13's loop unswitching at -O3 compiles
-# differently in the decoder than in the encoder (the test corpus's 4:2:2
-# CABAC containers then fail to decode).
+# CMakeLists.txt's release flags, and -fno-unswitch-loops: g++ 13.3's loop
+# unswitching at -O3 miscompiles the decoder's significance-map loop,
+# decode_coeffs in native/h264_slice.h (it drops the 4:2:2 chroma DC case
+# from the unswitched copy, so the test corpus's 4:2:2 CABAC containers fail
+# to decode). The port's copy confines the workaround to that function
+# (avrecode_tpu_torch/native/h264_slice.h, repro_unswitch.cc beside it); the
+# JAX sources stay as they are and carry the same loop, so their build keeps
+# the flag.
 JAX_CXXFLAGS = ["-std=c++17", "-O3", "-DNDEBUG", "-march=native", "-fno-unswitch-loops",
                 "-fPIC", "-shared", "-pthread"]
 

@@ -5,11 +5,14 @@ decode what it writes, and how fast is its host engine.
     python3 tools/host_flags.py [--flags "-O2" ...] [--rounds 2]
 
 Builds the port's copy of the engine, avrecode_tpu_torch/native/recode.cc
-(_native.NATIVE_DIR), once per flag set (the port's HOST_CXXFLAGS, the
-same without -fno-unswitch-loops, and any --flags given in their place),
-all at once, into avrecode_tpu_torch/build/host_flags/. Then, in turns (the
-sets in order, then reversed, --rounds times), a fresh process per set
-loads its build and
+(_native.NATIVE_DIR), once per flag set, all at once, into
+avrecode_tpu_torch/build/host_flags/: the port's HOST_CXXFLAGS ("port"), the
+same with -fno-unswitch-loops ("no_unswitch", the flag the library carried
+before decode_coeffs got its attribute), the same with -DARTC_NO_UNSWITCH=
+("unguarded": that attribute defined away), and a set for each --flags
+(after -std=c++17 -fPIC -shared -pthread). Then, in turns (the sets in
+order, then reversed, --rounds times), a fresh process per set loads its
+build and
   - compresses every clip of the frozen corpus with the host engine at
     profile 0 and 2 (batch 512) and profile 2 at chunk mode 1, decodes each
     container and counts the ones that fail or differ from the input;
@@ -81,7 +84,8 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     port = _native.HOST_CXXFLAGS
-    sets = {"port": port, "without_no_unswitch": [f for f in port if f != "-fno-unswitch-loops"]}
+    sets = {"port": port, "no_unswitch": [*port, "-fno-unswitch-loops"],
+            "unguarded": [*port, "-DARTC_NO_UNSWITCH="]}
     for i, flags in enumerate(args.flags or []):
         sets[f"set{i}"] = ["-std=c++17", "-fPIC", "-shared", "-pthread", *flags.split()]
     os.makedirs(OUT, exist_ok=True)
