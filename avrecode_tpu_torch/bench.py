@@ -63,11 +63,6 @@ The last line printed is one JSON object. Its keys:
                           chunk's downloads into pinned memory, one wait,
                           encode_interleaved_emit's assembly); their blobs
                           must equal device.compress's
-  device_busy_ms, device_busy_median_ms
-                          the sum of the phases' best (median) times; host
-                          gaps inside a phase count, so it bounds the busy
-                          time from above
-  device_idle_share       1 - device_busy_ms / device_e2e_s
   microbench              microbench.measure on the largest chunk: expand,
                           model and chain times, the dense chain
                           (dense_chain_ms) and the dense planes' upload
@@ -275,7 +270,6 @@ def main(argv=None) -> int:
     phases, phase_blobs = device_phases(an, dev, args.reps)
     if phase_blobs != best_info["blobs"]:
         return _fail(report, "the timed phases' blobs != device.compress's")
-    busy = sum(ph["best"] for ph in phases.values())
     micro = microbench.measure(an, staged, dev, args.reps)
     log(f"bench: device e2e best {dev_best:.3f} s of {[round(t, 3) for t in dev_runs]}")
 
@@ -332,9 +326,6 @@ def main(argv=None) -> int:
             "compact_s", "dispatch_s", "emit_s", "pack_s")},
         "wire_bytes": best_info["wire_bytes"],
         "device_phases_ms": phases,
-        "device_busy_ms": busy,
-        "device_busy_median_ms": sum(ph["median"] for ph in phases.values()),
-        "device_idle_share": 1.0 - busy / 1e3 / dev_best,
         "microbench": micro,
         "host_best_s": host_best,
         "host_median_s": host_med,

@@ -18,7 +18,7 @@ at batch 1, profile 0. With --host, compress and roundtrip run exactly
 that (avrecode_tpu_torch.pipeline) and print the JAX CLI's report, field
 for field. Profile 0 runs the model pass that ARTC_MODEL_IMPL names (v2,
 dict, sort, mm); ARTC_TIMING=1 prints the profile-2 path's per-chunk
-timings and wire bytes.
+timings and wire bytes (the spans of trace.py, read as lines).
 
 Decompression, and the roundtrip's check, run on the host decoder
 (host.decompress). `info` parses an ATRC container's header without

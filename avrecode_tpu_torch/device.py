@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -43,6 +42,7 @@ import torch
 
 from . import host
 from . import streams as cs
+from . import trace
 from .analysis import (Analysis, ChunkAnalysis, SlimChunk, _bucket_pow2, _chunk_layout,
                        _parse_analysis, _parse_header, _parse_slim_chunk, _sig0_dense,
                        _sig0_sparse_padded, analyze, pick_lanes)
@@ -329,54 +329,87 @@ def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
     the kernels, "cpu" their plain versions); writes the container
     avrecode_tpu.device.compress writes for the same parameters.
 
-    `info`, if given, receives n_chunks, the per-chunk lane blobs, pack_s
-    (host seconds of the container pack) and the host-clock phases of the
-    profile's path (see _compress_slim / _compress_dense); with keep_probs
-    also each chunk's probs (uint16[n])."""
+    The call is one `call` span tree (trace.py): recorded while the
+    recorder is on, and read for `info` and the ARTC_TIMING lines. `info`,
+    if given, receives n_chunks, the per-chunk lane blobs, pack_s (host
+    seconds of the container pack, `call.pack`) and the profile's phases
+    (see _compress_slim / _compress_dense), each from the spans' clock
+    readings; with keep_probs also each chunk's probs (uint16[n])."""
     device = _device(device)
     lib = host.lib()
-    t_open = time.monotonic()
-    h = lib.artc_session_open(data, len(data), lanes, chunk_mode, batch_size, model_profile)
-    if not h:
-        raise host.last_error()
-    try:
-        run = _compress_slim if model_profile == 2 else _compress_dense
-        blobs = run(lib, h, device, force_lanes, info, keep_probs, t_open)
-        t_pack = time.monotonic()
-        result = host.pack_session(h, blobs)
-        if info is not None:
-            info["pack_s"] = time.monotonic() - t_pack
-            info["blobs"] = blobs
-        return result
-    finally:
-        lib.artc_session_close(h)
+    timing = os.environ.get("ARTC_TIMING", "") not in ("", "0")
+    with trace.root("call", count=len(data), keep=info is not None or timing) as sc:
+        with sc.span("call.open"):
+            h = lib.artc_session_open(data, len(data), lanes, chunk_mode, batch_size,
+                                      model_profile)
+        if not h:
+            raise host.last_error()
+        try:
+            if model_profile == 2:
+                blobs, extra = _compress_slim(lib, h, device, force_lanes, keep_probs, sc,
+                                              timing)
+            else:
+                blobs, extra = _compress_dense(lib, h, device, force_lanes, keep_probs, sc)
+            with sc.span("call.pack"):
+                result = host.pack_session(h, blobs)
+        finally:
+            if sc.recording:
+                sc.join_native(host.session_trace(h))
+            lib.artc_session_close(h)
+    if info is not None:
+        info.update(extra)
+        info.update(_slim_phases(sc) if model_profile == 2 else _dense_phases(sc))
+        info["pack_s"] = sc.seconds("call.pack")
+        info["blobs"] = blobs
+    return result
 
 
-def _compress_dense(lib, h, device, force_lanes, info, keep_probs, t_open) -> list[bytes]:
+def _dense_phases(sc) -> dict:
+    """Profile 0's info phases from the call's spans."""
+    analyze_ns = sc.first("call.analyze").end_ns - sc.first("call.open").start_ns
+    return {"analyze_s": analyze_ns / 1e9, "model_s": sc.seconds("call.model"),
+            "lanes_s": sc.seconds("call.lanes")}
+
+
+def _slim_phases(sc) -> dict:
+    """Profile 2's info phases from the call's spans."""
+    header, emit = sc.first("call.header"), sc.first("call.emit")
+    out = {"fetch_wait_s": sc.seconds("chunk.fetch", "chunk.take"),
+           "parse_s": sc.seconds("chunk.parse"), "stage_s": sc.seconds("chunk.stage"),
+           "launch_s": sc.seconds("chunk.launch"), "compact_s": sc.seconds("chunk.compact"),
+           "open_s": (header.end_ns - sc.first("call.open").start_ns) / 1e9,
+           "dispatch_s": (emit.start_ns - header.end_ns) / 1e9,
+           "emit_s": sc.seconds("call.emit", "chunk.emit")}
+    out["fetch_s"] = out["fetch_wait_s"] + out["parse_s"]
+    return out
+
+
+def _compress_dense(lib, h, device, force_lanes, keep_probs, sc) -> tuple[list[bytes], dict]:
     """Profile 0: one native export of the whole dense analysis, then per
-    chunk the model pass (ARTC_MODEL_IMPL) and the lane encode. info
-    phases (host clock): analyze_s (native analysis, export and parse),
-    model_s (uploads, model passes, probs downloads), lanes_s (lane
-    encodes)."""
+    chunk the model pass (ARTC_MODEL_IMPL) and the lane encode. Returns the
+    blobs and info's other keys. info phases: analyze_s (`call.open` and
+    `call.analyze`: native analysis, export and parse), model_s
+    (`call.model`: uploads, model passes, probs downloads), lanes_s
+    (`call.lanes`: lane encodes)."""
     out = ctypes.POINTER(ctypes.c_uint8)()
     out_len = ctypes.c_size_t()
-    rc = lib.artc_session_analyze2(h, mp.default_sup(), 0, ctypes.byref(out),
-                                   ctypes.byref(out_len))
-    an = _parse_analysis(_fetch(rc, out, out_len))
-    t_model = time.monotonic()
-    probs = [device_probs(an, c, device) for c in an.chunks]
-    t_lanes = time.monotonic()
-    blobs = [device_blob(an, c, device, probs=p, force_lanes=force_lanes)
-             for c, p in zip(an.chunks, probs)]
-    if info is not None:
-        info.update(n_chunks=len(an.chunks), analyze_s=t_model - t_open,
-                    model_s=t_lanes - t_model, lanes_s=time.monotonic() - t_lanes)
-        if keep_probs:
-            info["probs"] = probs
-    return blobs
+    with sc.span("call.analyze"):
+        rc = lib.artc_session_analyze2(h, mp.default_sup(), 0, ctypes.byref(out),
+                                       ctypes.byref(out_len))
+        an = _parse_analysis(_fetch(rc, out, out_len))
+    with sc.span("call.model"):
+        probs = [device_probs(an, c, device) for c in an.chunks]
+    with sc.span("call.lanes"):
+        blobs = [device_blob(an, c, device, probs=p, force_lanes=force_lanes)
+                 for c, p in zip(an.chunks, probs)]
+    extra = {"n_chunks": len(an.chunks)}
+    if keep_probs:
+        extra["probs"] = probs
+    return blobs, extra
 
 
-def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> list[bytes]:
+def _compress_slim(lib, h, device, force_lanes, keep_probs, sc,
+                   timing) -> tuple[list[bytes], dict]:
     """Profile 2: the native session's workers walk and export chunks while
     the loop fetches chunk i, stages it and launches its expand, model pass
     and lane scan (no readback), then reads chunk i-1's lane counts and
@@ -384,45 +417,42 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
     On the card the loop runs on the call's own streams (streams
     .CallStreams): uploads and downloads on the copy stream through pinned
     memory, the kernels on the compute stream, and chunk i-1's counts
-    readback waits for its own lane scan only.
+    readback waits for its own lane scan only. Returns the blobs and info's
+    keys other than the phases.
 
-    info phases (host clock): wire_bytes (host->device bytes, cached shared
-    tables once), open_s (session open and the start of the native
-    analysis), fetch_s (waiting for and parsing each chunk's export: the
-    sum of fetch_wait_s, the time in artc_session_analyze_chunk, and
-    parse_s, _parse_slim_chunk's), stage_s (blob packing and uploads),
-    launch_s (kernel launches), compact_s (the counts readback, which waits
-    for the lane scan, and the compaction launch), dispatch_s (the whole
-    chunk loop), emit_s (downloads and blob assembly). On the card also,
-    per chunk, scan_end_ms and counts_ready_ms: when its lane scan ended and
-    when its counts' copy ended, in ms from an event recorded before the
-    loop (CUDA events).
+    info phases, each the seconds of its spans: open_s (from `call.open`'s
+    start to `call.header`'s end: the session open and the start of the
+    native analysis), fetch_s (the sum of fetch_wait_s, `chunk.fetch` and
+    `chunk.take`: the time in artc_session_analyze_chunk and the export's
+    copy into bytes, and parse_s, `chunk.parse`), stage_s (`chunk.stage`:
+    blob packing and uploads), launch_s (`chunk.launch`: kernel launches),
+    compact_s (`chunk.compact`: the counts readback, which waits for the
+    lane scan, and the compaction launch), dispatch_s (the whole chunk
+    loop), emit_s (`call.emit` and `chunk.emit`: downloads and blob
+    assembly). Other keys: wire_bytes (host->device bytes, cached shared
+    tables once), n_chunks, and on the card, per chunk, scan_end_ms and
+    counts_ready_ms: when its lane scan ended and when its counts' copy
+    ended, in ms from an event recorded before the loop (CUDA events).
 
-    With ARTC_TIMING set (not "0") it prints the JAX package's lines, in its
-    order and format: per chunk fetch+dispatch with its MiB of wire, the
-    previous chunk's compaction, each emit, and the wire total."""
-    timing = os.environ.get("ARTC_TIMING", "") not in ("", "0")
+    With `timing` (ARTC_TIMING set, not "0") it prints the JAX package's
+    lines, in its order and format, from the spans' readings: per chunk
+    fetch+dispatch with its MiB of wire, the previous chunk's compaction,
+    each emit, and the wire total."""
     out = ctypes.POINTER(ctypes.c_uint8)()
     out_len = ctypes.c_size_t()
-    n_chunks = lib.artc_session_analyze_begin(h, mp.default_sup(), 0)
+    with sc.span("call.begin"):
+        n_chunks = lib.artc_session_analyze_begin(h, mp.default_sup(), 0)
     if n_chunks < 0:
         raise host.last_error()
-    rc = lib.artc_session_analyze_header(h, ctypes.byref(out), ctypes.byref(out_len))
-    an, _ = _parse_header(_fetch(rc, out, out_len))
+    with sc.span("call.header"):
+        rc = lib.artc_session_analyze_header(h, ctypes.byref(out), ctypes.byref(out_len))
+        an, _ = _parse_header(_fetch(rc, out, out_len))
     cache: dict = {}
     handles: list = []
     compacted: list = []
     kept: list = []
     prev = None
     wire_bytes = 0
-    spent = dict.fromkeys(("fetch_wait_s", "parse_s", "stage_s", "launch_s", "compact_s"), 0.0)
-    t_start = clock = time.monotonic()
-
-    def lap(key):
-        nonlocal clock
-        now = time.monotonic()
-        spent[key] += now - clock
-        clock = now
 
     with cs.for_call(device) as streams, torch.cuda.stream(streams and streams.compute):
         origin = None
@@ -430,63 +460,58 @@ def _compress_slim(lib, h, device, force_lanes, info, keep_probs, t_open) -> lis
             origin = torch.cuda.Event(enable_timing=True)
             origin.record(streams.compute)
         for i in range(n_chunks):
-            t_chunk = clock
-            rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out), ctypes.byref(out_len))
-            raw = _fetch(rc, out, out_len)
-            lap("fetch_wait_s")
-            c = _parse_slim_chunk(np.frombuffer(raw, np.uint8), an, prev)
+            with sc.span("chunk.fetch", chunk=i) as fetch:
+                rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out),
+                                                    ctypes.byref(out_len))
+            with sc.span("chunk.take", chunk=i):
+                raw = _fetch(rc, out, out_len)
+            with sc.span("chunk.parse", chunk=i):
+                c = _parse_slim_chunk(np.frombuffer(raw, np.uint8), an, prev)
             prev = c
-            lap("parse_s")
-            st = to_torch_staged(an, c, device, cache, streams)
+            with sc.span("chunk.stage", chunk=i) as stage:
+                st = to_torch_staged(an, c, device, cache, streams)
+                stage.count = st.wire_nbytes
             wire_bytes += st.wire_nbytes
-            lap("stage_s")
-            probs, bits = _exec_v4(st)
-            if keep_probs:
-                kept.append(probs[:c.n])
-            handles.append(lx.encode_interleaved_start(
-                bits, probs, c.n, force_lanes or pick_lanes(c.n), streams))
-            lap("launch_s")
+            with sc.span("chunk.launch", chunk=i) as launch:
+                probs, bits = _exec_v4(st)
+                if keep_probs:
+                    kept.append(probs[:c.n])
+                handles.append(lx.encode_interleaved_start(
+                    bits, probs, c.n, force_lanes or pick_lanes(c.n), streams))
             if timing:
-                print(f"[artc] device chunk {i}: fetch+dispatch {clock - t_chunk:.3f}s "
+                print(f"[artc] device chunk {i}: fetch+dispatch "
+                      f"{(launch.end_ns - fetch.start_ns) / 1e9:.3f}s "
                       f"({st.wire_nbytes >> 20} MiB wire)", flush=True)
             if i > 0:
-                t_compact = clock
-                compacted.append(lx.encode_interleaved_compact(handles[i - 1], streams))
-                lap("compact_s")
+                with sc.span("chunk.compact", chunk=i - 1) as compact:
+                    compacted.append(lx.encode_interleaved_compact(handles[i - 1], streams))
                 if timing:
-                    print(f"[artc] device chunk {i - 1}: compact {clock - t_compact:.3f}s",
+                    print(f"[artc] device chunk {i - 1}: compact {compact.seconds:.3f}s",
                           flush=True)
         if handles:
-            compacted.append(lx.encode_interleaved_compact(handles[-1], streams))
-            lap("compact_s")
-        t_emit = time.monotonic()
-        parts = [lx.emit_tensors(ch) for ch in compacted]
-        arrays = cs.to_host([t for p in parts for t in p] + kept, streams)
+            with sc.span("chunk.compact", chunk=n_chunks - 1):
+                compacted.append(lx.encode_interleaved_compact(handles[-1], streams))
+        with sc.span("call.emit"):
+            parts = [lx.emit_tensors(ch) for ch in compacted]
+            arrays = cs.to_host([t for p in parts for t in p] + kept, streams)
     blobs = []
     for i, (ch, p) in enumerate(zip(compacted, parts)):
-        t0 = time.monotonic()
-        blobs.append(lx.encode_interleaved_emit(ch, arrays[:len(p)]))
+        with sc.span("chunk.emit", chunk=i) as emit:
+            blobs.append(lx.encode_interleaved_emit(ch, arrays[:len(p)]))
         arrays = arrays[len(p):]
         if timing:
-            print(f"[artc] device chunk {i}: emit {time.monotonic() - t0:.3f}s", flush=True)
+            print(f"[artc] device chunk {i}: emit {emit.seconds:.3f}s", flush=True)
     if timing:
         print(f"[artc] device wire total {wire_bytes / 1e6:.1f} MB", flush=True)
-    if info is not None:
-        info.update(spent)
-        info["fetch_s"] = spent["fetch_wait_s"] + spent["parse_s"]
-        info["open_s"] = t_start - t_open
-        info["wire_bytes"] = wire_bytes
-        info["n_chunks"] = n_chunks
-        info["dispatch_s"] = t_emit - t_start
-        info["emit_s"] = time.monotonic() - t_emit
-        if keep_probs:
-            info["probs"] = [a.astype(np.uint16) for a in arrays]
-        if streams is not None:
-            info["scan_end_ms"] = [origin.elapsed_time(hd.scanned) if hd.scanned else None
-                                   for hd in handles]
-            info["counts_ready_ms"] = [origin.elapsed_time(ch.ready) if ch.ready else None
-                                       for ch in compacted]
-    return blobs
+    extra = {"wire_bytes": wire_bytes, "n_chunks": n_chunks}
+    if keep_probs:
+        extra["probs"] = [a.astype(np.uint16) for a in arrays]
+    if streams is not None:
+        extra["scan_end_ms"] = [origin.elapsed_time(hd.scanned) if hd.scanned else None
+                                for hd in handles]
+        extra["counts_ready_ms"] = [origin.elapsed_time(ch.ready) if ch.ready else None
+                                    for ch in compacted]
+    return blobs, extra
 
 
 @dataclass

@@ -91,6 +91,19 @@ class Stats:
         )
 
 
+class ArtcTraceRecordC(ctypes.Structure):
+    """One native span (recode.cc ArtcTraceRecord)."""
+    _fields_ = [
+        ("name", ctypes.c_char * 24),
+        ("start_ns", ctypes.c_int64),
+        ("end_ns", ctypes.c_int64),
+        ("thread", ctypes.c_int64),
+        ("chunk", ctypes.c_int64),
+        ("count", ctypes.c_uint64),
+        ("count2", ctypes.c_uint64),
+    ]
+
+
 class NativeError(RuntimeError):
     pass
 
@@ -122,6 +135,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         "artc_session_pack": (c.c_int, [c.c_void_p, c.c_char_p, c.POINTER(c.c_uint64), c.c_int,
                                         _OUT, _LEN, c.POINTER(ArtcStatsC)]),
         "artc_session_close": (None, [c.c_void_p]),
+        "artc_session_trace": (c.c_int, [c.c_void_p, _OUT, _LEN]),
+        "artc_trace_enable": (None, [c.c_int]),
         "artc_rans_encode": (c.c_int, [c.POINTER(c.c_uint8), c.POINTER(c.c_uint16), c.c_uint64,
                                        c.c_int, _OUT, _LEN]),
     }
@@ -211,3 +226,20 @@ def pack_session(h, blobs: list[bytes]) -> tuple[bytes, Stats]:
     if rc != 0:
         raise last_error()
     return take(out, out_len), Stats.from_c(st)
+
+
+def session_trace(h) -> list[tuple]:
+    """The spans an open session recorded since the last call, as (name,
+    start_ns, end_ns, thread, chunk or -1, count, count2); none unless the
+    recorder was on when it opened (trace.enable)."""
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    out_len = ctypes.c_size_t()
+    if lib().artc_session_trace(h, ctypes.byref(out), ctypes.byref(out_len)) != 0:
+        raise last_error()
+    if not out_len.value:
+        return []
+    raw = take(out, out_len)
+    n = len(raw) // ctypes.sizeof(ArtcTraceRecordC)
+    recs = (ArtcTraceRecordC * n).from_buffer_copy(raw)
+    return [(r.name.decode(), r.start_ns, r.end_ns, r.thread, r.chunk, r.count, r.count2)
+            for r in recs]

@@ -12,6 +12,7 @@
 #include <thread>
 
 #include "bytemodel.h"
+#include "trace.h"
 
 namespace artc {
 namespace {
@@ -86,6 +87,7 @@ struct Pass1 {
   std::vector<SliceRecord> slices;
   std::vector<Segment> segments;
   std::vector<ParamSet> paramsets;
+  unsigned n_threads = 1;  // the phase-B walk's threads
   // MPEG-TS transport (v17): the pipeline codes the reassembled elementary
   // stream `ts_es` (all segment/literal offsets refer to it); `ts_runs` maps
   // ES bytes back to original file extents; everything else (TS/PES headers,
@@ -488,6 +490,7 @@ static void run_pass1(const uint8_t* data, size_t size, const Options& opt, Stat
   unsigned n_workers = std::max(1u, std::thread::hardware_concurrency());
   if (const char* e = getenv("ARTC_PASS1_THREADS")) n_workers = std::max(1, atoi(e));
   n_workers = std::min<size_t>(n_workers, jobs.size() ? jobs.size() : 1);
+  outp->n_threads = n_workers;
   std::atomic<size_t> next{0};
   auto worker = [&] {
     for (size_t i = next.fetch_add(1); i < jobs.size(); i = next.fetch_add(1)) {
@@ -1753,6 +1756,10 @@ static uint32_t bucket_steps(uint32_t x) {
   return (x + 1) & ~1u;
 }
 
+using artc::ArtcTraceRecord;
+using artc::Phase;
+using artc::SessionTrace;
+
 // Streaming analyze state: background workers walk + export chunks as they
 // finish; artc_session_analyze_chunk rendezvouses per chunk so the caller can
 // upload chunk i to the device while the host still walks chunk i+1 — the
@@ -1824,6 +1831,7 @@ struct ArtcSession {
   std::vector<artc::Dual> c0_dual0;
   std::vector<artc::Estimator> c0_sig0;
   std::unique_ptr<AnalyzeState> astate;  // live streaming analyze, if any
+  SessionTrace trace;  // its spans, if g_trace_on at open
   std::thread pipe;    // probe + chunk-0 pre-analyze (outlives the opener)
   std::thread opener;  // pass1 + session field finalization
   ~ArtcSession() {
@@ -1835,8 +1843,10 @@ struct ArtcSession {
 // Blocks until the background opener finished; false (with g_error set) if
 // the session failed to open.
 static bool session_ready(ArtcSession* s) {
+  Phase ph(s->trace, "native.ready_wait");
   std::unique_lock<std::mutex> l(s->smu);
   s->scv.wait(l, [&] { return s->open_done; });
+  ph.end();
   if (!s->open_err.empty()) {
     g_error = s->open_err;
     return false;
@@ -1858,6 +1868,7 @@ void* artc_session_open(const uint8_t* data, size_t size, int lanes, int chunk_m
     s->opt.model_profile = model_profile;
     s->opt.collect_streams = false;
     s->alpha_off = PriorModel::kSigMixAlphaOff;
+    s->trace.on = artc::g_trace_on.load();
     // Pipe: probe as soon as chunk 0's extent is known (mid-pass1 on
     // sectioned files), signal probe_done, then keep going with chunk 0's
     // trace walk + slim export in the background (the opener does NOT wait
@@ -1883,9 +1894,11 @@ void* artc_session_open(const uint8_t* data, size_t size, int lanes, int chunk_m
           }
         }
         if (any) {
+          Phase ph(s->trace, "native.nz_probe", 0);
           const auto& sl = *s->prog.slices;
           modes0 = pick_nz_modes(sl, 0, e0, s->opt, 0, &alpha0);
           s->warm.src_slices = multi ? pick_warm_slices_range(sl, 0, e0) : 0;
+          ph.end();
         }
       } catch (const std::exception& e) {
         perr = e.what();
@@ -1921,22 +1934,24 @@ void* artc_session_open(const uint8_t* data, size_t size, int lanes, int chunk_m
         std::vector<Dual> dual0;
         std::vector<Estimator> sig0;
         Stats tmp;
-        double t0 = timing_enabled() ? now_s() : 0;
+        Phase walk(s->trace, "native.trace_walk", 0);
         run_chunk_model(sl, 0, e0, s->opt, tmp, &trace, &probs, &dual0, modes0,
                         /*encode_blob=*/false,
                         s->warm.src_slices ? &s->warm : nullptr, nullptr, &sig0,
                         alpha0, /*trace_only=*/true);
+        double sec = walk.end(trace.size());
         if (timing_enabled())
           fprintf(stderr, "[artc] analyze chunk 0: trace walk %.3fs (%zu bins, pre)\n",
-                  now_s() - t0, trace.size());
-        t0 = timing_enabled() ? now_s() : 0;
+                  sec, trace.size());
+        Phase xport(s->trace, "native.export", 0);
         Writer cw;
         write_slim_chunk(cw, trace, probs, /*has_probs=*/false, dual0, sig0,
                          s->opt.batch_size ? s->opt.batch_size : 1, s->c0_sup,
                          false, false);
+        sec = xport.end(cw.buf.size());
         if (timing_enabled())
           fprintf(stderr, "[artc] analyze chunk 0: slim export %.3fs (pre, sup %u)\n",
-                  now_s() - t0, s->c0_sup);
+                  sec, s->c0_sup);
         std::lock_guard<std::mutex> l(s->smu);
         s->c0_buf = std::move(cw.buf);
         s->c0_trace = std::move(trace);
@@ -1954,6 +1969,7 @@ void* artc_session_open(const uint8_t* data, size_t size, int lanes, int chunk_m
     });
     s->opener = std::thread([s] {
       std::string err;
+      Phase ph(s->trace, "native.pass1");
       try {
         run_pass1(s->data.data(), s->data.size(), s->opt, s->st, &s->p1, &s->prog);
       } catch (const std::exception& e) {
@@ -1962,6 +1978,7 @@ void* artc_session_open(const uint8_t* data, size_t size, int lanes, int chunk_m
         s->prog.done = true;
         s->prog.cv.notify_all();
       }
+      ph.end(s->p1.slices.size(), s->p1.n_threads);
       bool probed = false;
       size_t e0 = SIZE_MAX;
       uint64_t modes0 = 0;
@@ -2449,16 +2466,17 @@ int artc_session_analyze_begin(void* h, int sup, int flags) {
                   auto dual0 = std::move(se->c0_dual0);
                   auto sig0 = std::move(se->c0_sig0);
                   sl.unlock();
-                  double t0 = timing_enabled() ? now_s() : 0;
+                  Phase xport(se->trace, "native.export", 0);
                   Writer cw;
                   write_slim_chunk(cw, trace, probs, /*has_probs=*/false, dual0,
                                    sig0, se->opt.batch_size ? se->opt.batch_size : 1,
                                    sup_u, false, false);
+                  const double sec = xport.end(cw.buf.size());
                   if (timing_enabled())
                     fprintf(stderr,
                             "[artc] analyze chunk 0: slim export %.3fs (re-render: "
                             "sup %u != pre-produced %u)\n",
-                            now_s() - t0, sup_u, se->c0_sup);
+                            sec, sup_u, se->c0_sup);
                   buf = std::move(cw.buf);
                   sl.lock();
                 }
@@ -2486,16 +2504,17 @@ int artc_session_analyze_begin(void* h, int sup, int flags) {
           std::vector<Dual> dual0;
           std::vector<Estimator> sig0;
           Stats tmp;
-          double t0 = timing_enabled() ? now_s() : 0;
+          Phase walk(se->trace, "native.trace_walk", int64_t(ci));
           run_chunk_model(se->p1.slices, b, e, se->opt, tmp, &trace, &probs, &dual0,
                           se->nz_modes[ci], /*encode_blob=*/false,
                           ci == 0 && se->warm_slices ? &se->warm : nullptr,
                           ci > 0 && se->warm_slices ? &se->warm : nullptr, &sig0,
                           se->alpha_off, /*trace_only=*/!want_probs);
+          double sec = walk.end(trace.size());
           if (timing_enabled())
             fprintf(stderr, "[artc] analyze chunk %zu: trace walk %.3fs (%zu bins)\n",
-                    ci, now_s() - t0, trace.size());
-          t0 = timing_enabled() ? now_s() : 0;
+                    ci, sec, trace.size());
+          Phase xport(se->trace, "native.export", int64_t(ci));
           // All warm chunks start from the same v16 snapshot: chunks >= 2
           // reference chunk 1's dual0/sig0 instead of re-shipping them.
           const bool share = ci >= 2 && se->warm_slices > 0;
@@ -2503,9 +2522,9 @@ int artc_session_analyze_begin(void* h, int sup, int flags) {
           write_slim_chunk(cw, trace, probs, want_probs, dual0, sig0,
                            se->opt.batch_size ? se->opt.batch_size : 1, sup_u,
                            share, share);
+          sec = xport.end(cw.buf.size());
           if (timing_enabled())
-            fprintf(stderr, "[artc] analyze chunk %zu: slim export %.3fs\n",
-                    ci, now_s() - t0);
+            fprintf(stderr, "[artc] analyze chunk %zu: slim export %.3fs\n", ci, sec);
           std::lock_guard<std::mutex> lock(as->mu);
           as->bufs[ci] = std::move(cw.buf);
           as->status[ci] = 1;
@@ -2553,17 +2572,21 @@ int artc_session_analyze_chunk(void* h, uint32_t idx, uint8_t** out, size_t* out
   }
   std::vector<uint8_t> buf;
   {
+    Phase wait(se->trace, "native.rendezvous", idx);
     std::unique_lock<std::mutex> lock(as->mu);
     as->cv.wait(lock, [&] { return as->status[idx] != 0; });
+    wait.end();
     if (as->status[idx] == 2) {
       g_error = as->err;
       return -1;
     }
     buf = std::move(as->bufs[idx]);
   }
+  Phase copy(se->trace, "native.copyout", idx);
   *out = static_cast<uint8_t*>(malloc(buf.size()));
   memcpy(*out, buf.data(), buf.size());
   *out_len = buf.size();
+  copy.end(buf.size());
   return 0;
 }
 
@@ -2613,16 +2636,20 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
       std::vector<Estimator> sig0;
       Stats tmp;
       uint64_t modes = se->nz_modes[ci];
-      double t0 = timing_enabled() ? now_s() : 0;
+      Phase walk(se->trace, "native.trace_walk", int64_t(ci));
       run_chunk_model(p1.slices, b, e, opt, tmp, &trace, &probs, &dual0, modes,
                       /*encode_blob=*/false,
                       ci == 0 && warm.src_slices ? &warm : nullptr,
                       ci > 0 && warm.src_slices ? &warm : nullptr, &sig0,
                       se->alpha_off);
+      const double sec = walk.end(trace.size());
       if (timing_enabled())
         fprintf(stderr, "[artc] analyze chunk %zu: trace walk %.3fs (%zu bins)\n",
-                ci, now_s() - t0, trace.size());
-      t0 = timing_enabled() ? now_s() : 0;
+                ci, sec, trace.size());
+      // The export: the streams and prefix counts, then the v2 tables (an
+      // ARTC_TIMING line each, the first from a reading between them).
+      Phase xport(se->trace, "native.export", int64_t(ci));
+      const size_t w0 = w.buf.size();
       w.u64(trace.size());
       for (const auto& c : trace) w.u8(c.bit);
       for (const auto& c : trace) w.u8(c.kind);
@@ -2658,10 +2685,10 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
         for (uint16_t v : pre1) w.u16(v);
         for (uint16_t v : pret) w.u16(v);
       }
-      if (timing_enabled()) {
-        fprintf(stderr, "[artc] analyze chunk %zu: streams+prefix %.3fs\n", ci, now_s() - t0);
-        t0 = now_s();
-      }
+      if (timing_enabled())
+        fprintf(stderr, "[artc] analyze chunk %zu: streams+prefix %.3fs\n", ci,
+                double(now_ns() - xport.t0) * 1e-9);
+      const int64_t t_mid = timing_enabled() ? now_ns() : 0;
       for (uint16_t p : probs) w.u16(p);
       for (const auto& d : dual0) {
         w.u16(d.fp);
@@ -2747,8 +2774,10 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
         for (uint16_t v : dd) w.u16(v);
         for (uint16_t v : ds) w.u16(v);
       }
+      xport.end(w.buf.size() - w0);
       if (timing_enabled())
-        fprintf(stderr, "[artc] analyze chunk %zu: v2 dicts+serialize %.3fs\n", ci, now_s() - t0);
+        fprintf(stderr, "[artc] analyze chunk %zu: v2 dicts+serialize %.3fs\n", ci,
+                double(now_ns() - t_mid) * 1e-9);
     }
     *out = static_cast<uint8_t*>(malloc(w.buf.size()));
     memcpy(*out, w.buf.data(), w.buf.size());
@@ -2776,6 +2805,7 @@ int artc_session_pack(void* h, const uint8_t* blob_data, const uint64_t* blob_le
       g_error = "blob count != chunk count";
       return -1;
     }
+    Phase ph(se->trace, "native.pack");
     Stats st = se->st;  // copy: pack may run more than once per session
     std::vector<std::vector<uint8_t>> blobs(n_blobs);
     size_t off = 0;
@@ -2791,11 +2821,39 @@ int artc_session_pack(void* h, const uint8_t* blob_data, const uint64_t* blob_le
     memcpy(*out, v.data(), v.size());
     *out_len = v.size();
     fill_stats(st, stats);
+    ph.end(v.size());
     return 0;
   } catch (const std::exception& e) {
     g_error = e.what();
     return -1;
   }
+}
+
+// Switches span recording for the sessions opened from now on (0 off).
+void artc_trace_enable(int on) { artc::g_trace_on.store(on != 0); }
+
+// Hands over the spans the session recorded since the last call, as
+// ArtcTraceRecord[*out_len / sizeof(ArtcTraceRecord)] (freed with
+// artc_free); none (*out null, *out_len 0) when it records none.
+int artc_session_trace(void* h, uint8_t** out, size_t* out_len) {
+  auto* se = static_cast<ArtcSession*>(h);
+  std::vector<ArtcTraceRecord> recs;
+  {
+    std::lock_guard<std::mutex> l(se->trace.mu);
+    recs.swap(se->trace.recs);
+  }
+  *out = nullptr;
+  *out_len = 0;
+  if (recs.empty()) return 0;
+  const size_t n = recs.size() * sizeof(ArtcTraceRecord);
+  *out = static_cast<uint8_t*>(malloc(n));
+  if (!*out) {
+    g_error = "out of memory";
+    return -1;
+  }
+  memcpy(*out, recs.data(), n);
+  *out_len = n;
+  return 0;
 }
 
 // One-shot analysis export (opens and closes a session internally).

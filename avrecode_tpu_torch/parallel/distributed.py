@@ -25,7 +25,7 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
-from .. import _native, host
+from .. import _native, host, trace
 from .. import device as dev
 
 
@@ -66,28 +66,39 @@ class CorpusReport:
 
 
 def _compress_one(path: str, out_dir: str, use_device: bool, chunk_mode: int,
-                  batch_size: int, verify: bool,
-                  device: str | torch.device = "cuda") -> tuple[str, int, int, float]:
-    with open(path, "rb") as f:
-        data = f.read()
-    t0 = time.time()
-    if use_device:
-        comp, _ = dev.compress(data, chunk_mode=chunk_mode, batch_size=batch_size,
-                               device=device)
-    else:
-        comp, _ = host.compress(data, chunk_mode=chunk_mode, batch_size=batch_size)
-    if verify:
-        back, _ = host.decompress(comp)
-        if back != data:
-            raise RuntimeError(f"roundtrip mismatch for {path}")
-    out_path = os.path.join(out_dir, os.path.basename(path) + ".atrc")
-    # Atomic write: an output that exists is complete, so a resumed run can
-    # trust existence (an interrupted write leaves only the .tmp).
-    tmp_path = out_path + ".tmp"
-    with open(tmp_path, "wb") as f:
-        f.write(comp)
-    os.replace(tmp_path, out_path)
-    return out_path, len(data), len(comp), time.time() - t0
+                  batch_size: int, verify: bool, device: str | torch.device = "cuda",
+                  submitted_ns: int = 0) -> tuple[str, int, int, float]:
+    """One file on a worker thread: read, compress, verify, write. Its root
+    span `corpus.file` (trace.py) holds `corpus.queued` from
+    `submitted_ns` (when the recorder is on), `corpus.read`, the `call`
+    tree of device.compress, `corpus.verify` and `corpus.write`."""
+    with trace.root("corpus.file") as sc:
+        if submitted_ns:
+            sc.add("corpus.queued", submitted_ns, sc.root.start_ns)
+        with sc.span("corpus.read"):
+            with open(path, "rb") as f:
+                data = f.read()
+        sc.root.count = len(data)
+        t0 = time.time()
+        if use_device:
+            comp, _ = dev.compress(data, chunk_mode=chunk_mode, batch_size=batch_size,
+                                   device=device)
+        else:
+            comp, _ = host.compress(data, chunk_mode=chunk_mode, batch_size=batch_size)
+        if verify:
+            with sc.span("corpus.verify"):
+                back, _ = host.decompress(comp)
+            if back != data:
+                raise RuntimeError(f"roundtrip mismatch for {path}")
+        out_path = os.path.join(out_dir, os.path.basename(path) + ".atrc")
+        # Atomic write: an output that exists is complete, so a resumed run can
+        # trust existence (an interrupted write leaves only the .tmp).
+        tmp_path = out_path + ".tmp"
+        with sc.span("corpus.write"):
+            with open(tmp_path, "wb") as f:
+                f.write(comp)
+            os.replace(tmp_path, out_path)
+        return out_path, len(data), len(comp), time.time() - t0
 
 
 def _resume_done(path: str, out_dir: str) -> tuple[str, int, int, float] | None:
@@ -140,9 +151,11 @@ def corpus_compress(paths: list[str], out_dir: str, *, use_device: bool = False,
             else:
                 remaining.append(p)
         mine = remaining
-    with _fut.ThreadPoolExecutor(max_workers=max(1, host_workers)) as ex:
+    with trace.root("corpus.pool", count=len(mine)) as sc, \
+            _fut.ThreadPoolExecutor(max_workers=max(1, host_workers)) as ex:
         futs = {ex.submit(_compress_one, p, out_dir, use_device, chunk_mode, batch_size,
-                          verify, device): p for p in mine}
+                          verify, device, time.monotonic_ns() if sc.recording else 0): p
+                for p in mine}
         for fu in _fut.as_completed(futs):
             try:
                 out_path, n_in, n_out, secs = fu.result()

@@ -27,8 +27,8 @@ BENCH_KEYS = {
     "card", "clip", "gop_clip", "batch_size", "reps", "host_reps", "input_mb",
     "compression_ratio", "bins", "device_bins", "device_e2e_s", "device_e2e_median_s",
     "device_e2e_runs_s", "device_e2e_spread", "host_phases_s", "wire_bytes",
-    "device_phases_ms", "device_busy_ms", "device_busy_median_ms", "device_idle_share",
-    "microbench", "host_best_s", "host_median_s", "host_run_spread_s", "host_path_mb_s",
+    "device_phases_ms", "microbench", "host_best_s", "host_median_s", "host_run_spread_s",
+    "host_path_mb_s",
     "host_path_mb_s_median", "vm_loaded", "host_decompress_mb_s", "gop_scaling_1cpu_s",
     "gop_scaling_parallel_s", "gop_scaling_x", "gop_scaling_cpus", "cpu_calib_s"}
 MICRO_KEYS = {
@@ -90,7 +90,7 @@ def test_bench_cpu_prints_every_key(bench_run):
     assert rep["vs_baseline"] == rep["host_best_s"] / rep["device_e2e_s"]
     assert len(rep["device_e2e_runs_s"]) == 1 and len(rep["host_run_spread_s"]) == 1
     assert set(rep["device_phases_ms"]) == set(bench.PHASES)
-    assert rep["device_busy_ms"] == sum(p["best"] for p in rep["device_phases_ms"].values())
+    assert all(0 <= p["best"] <= p["median"] for p in rep["device_phases_ms"].values())
     assert set(rep["host_phases_s"]) >= {"open_s", "dispatch_s", "emit_s", "pack_s"}
     assert MICRO_KEYS <= set(rep["microbench"])
     assert rep["device_bins"] > 0 and rep["bins"] > 0 and rep["wire_bytes"] > 0

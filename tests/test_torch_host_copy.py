@@ -1,8 +1,8 @@
 """The port's own copy of the C++ host engine (avrecode_tpu_torch/native)
 against the JAX package's (avrecode_tpu/native): the copy differs only by
-the defined read in sig_pos_class and decode_coeffs's guard against g++
-13.3's unswitching; the port's library exports only the
-artc_* entries; both libraries, loaded in one process, write the same
+the defined read in sig_pos_class, decode_coeffs's guard against g++
+13.3's unswitching and recode.cc's span recording; the port's library
+exports only the artc_* entries; both libraries, loaded in one process, write the same
 containers and read each other's; building the port's library reads,
 writes and names nothing under avrecode_tpu/."""
 import json
@@ -13,6 +13,7 @@ import sys
 
 import pytest
 from test_torch_jaxlib import JAX_LIB, JAX_NATIVE, ensure_jax_lib
+from torch_native_spans import RECODE_SPANS
 
 from avrecode_tpu_torch import _native
 from avrecode_tpu_torch import testcorpus as tc
@@ -27,24 +28,28 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_NATIVE = os.path.join(REPO, "avrecode_tpu_torch", "native")
 # Files of the JAX tree that are not copied (the build is the port's own;
 # the npz tables are read only by the JAX side), and the files of the copy
-# that have no original: the version script and the reproducer of the
-# miscompile that h264_slice.h's guard avoids (built by no library).
+# that have no original: the version script, the reproducer of the
+# miscompile that h264_slice.h's guard avoids (built by no library) and the
+# span records' header.
 NOT_COPIED = {"CMakeLists.txt", "gen/cabac_tables.npz"}
-PORT_ONLY = {"libartc_host.map", "repro_unswitch.cc"}
-# The changes to the code. sig_pos_class reads kSigCoeffFlagOffset8x8[0][63],
+PORT_ONLY = {"libartc_host.map", "repro_unswitch.cc", "trace.h"}
+# The entries of the port's library that the JAX package's has not: its span
+# records (avrecode_tpu_torch/trace.py).
+PORT_ENTRIES = {"artc_session_trace", "artc_trace_enable"}
+# The changes to the code, as (original text, copy's text) pairs. sig_pos_class reads kSigCoeffFlagOffset8x8[0][63],
 # one past its row, for pos 63 (the level bins of an 8x8 block's last
 # coefficient). The copy reads [1][0], the element the contiguous read gave.
 # The table's other reads stop at pos 62: sig_ctx, last_ctx and
 # refmodel.h's zig_off (through RefModel::sig) take only significance-map
 # positions, which decode_coeffs bounds by max_coeff - 1 (h264_slice.h).
-FIXES = {"model.h": (
+FIXES = {"model.h": [(
     "    return (cat_ == kCatLuma8x8) ? kSigCoeffFlagOffset8x8[0][pos]\n",
     "    // pos 63 (a level bin) is past the [63] row: read [1][0], as contiguity did.\n"
     "    return (cat_ == kCatLuma8x8) ? (pos < 63 ? kSigCoeffFlagOffset8x8[0][pos]\n"
-    "                                             : kSigCoeffFlagOffset8x8[1][0])\n"),
+    "                                             : kSigCoeffFlagOffset8x8[1][0])\n")],
     # decode_coeffs is built without loop unswitching, which g++ 13.3 gets
     # wrong there (the comment says how; native/repro_unswitch.cc shows it).
-    "h264_slice.h": (
+    "h264_slice.h": [(
         "  void decode_coeffs(int cat, int max_coeff) {\n",
         "  //\n"
         "  // Built without loop unswitching. g++ 13.3 at -O3 miscompiles the\n"
@@ -67,7 +72,9 @@ FIXES = {"model.h": (
         "#define ARTC_NO_UNSWITCH\n"
         "#endif\n"
         "#endif\n"
-        "  ARTC_NO_UNSWITCH void decode_coeffs(int cat, int max_coeff) {\n"),
+        "  ARTC_NO_UNSWITCH void decode_coeffs(int cat, int max_coeff) {\n")],
+    # The span records (native/trace.h, torch_native_spans.py).
+    "recode.cc": RECODE_SPANS,
 }
 
 
@@ -86,7 +93,8 @@ COPIED = sorted(_tree(JAX_NATIVE) - NOT_COPIED)
 
 def test_copy_holds_exactly_the_engine_sources():
     """The copy holds every .h, recode.cc and gen/*.h of the JAX tree and,
-    beside them, only the version script and the reproducer; the JAX tree holds nothing else
+    beside them, only the version script, the reproducer and the span
+    header; the JAX tree holds nothing else
     but CMakeLists.txt and the npz tables."""
     assert _tree(PORT_NATIVE) == set(COPIED) | PORT_ONLY
     assert all(f == "recode.cc" or f.endswith(".h") for f in COPIED)
@@ -96,14 +104,13 @@ def test_copy_holds_exactly_the_engine_sources():
 
 @pytest.mark.parametrize("name", COPIED)
 def test_copied_file_equals_its_original(name):
-    """Byte for byte, but for the listed fix (whose old text occurs once in
-    the original)."""
+    """Byte for byte, but for the listed fixes (applied in order, each old
+    text found once)."""
     with open(os.path.join(JAX_NATIVE, name), "rb") as f:
         want = f.read().decode()
     with open(os.path.join(PORT_NATIVE, name), "rb") as f:
         got = f.read().decode()
-    if name in FIXES:
-        old, new = FIXES[name]
+    for old, new in FIXES.get(name, []):
         assert want.count(old) == 1
         want = want.replace(old, new)
     assert got == want
@@ -129,12 +136,12 @@ def test_port_library_exports_only_the_artc_entries():
     per process, across libraries loaded RTLD_LOCAL, so two copies of the
     engine would share their function-local statics). The JAX package's
     library, built without it, has such symbols (the parse sees them), and
-    the same artc_* entries."""
+    the same artc_* entries but for the port's span entries."""
     port = _dyn_syms(_native.HOST_LIB_PATH)
     assert port and all(bind == "GLOBAL" and name.startswith("artc_") for bind, name in port)
     jax = _dyn_syms(JAX_LIB)
     assert any(bind == "UNIQUE" for bind, _ in jax)
-    assert {n for _, n in port} == {n for _, n in jax if n.startswith("artc_")}
+    assert {n for _, n in port} == {n for _, n in jax if n.startswith("artc_")} | PORT_ENTRIES
 
 
 def _mapped() -> set[str]:

@@ -6,14 +6,12 @@
 
 For each clip (default: benchdata/bench.mp4 and benchdata/multigop720.mp4):
 one warm-up compress, then one compress under torch.profiler (CPU and CUDA
-activities). Prints the host-clock phases of the compress loop and its
-upload bytes (the `info` fields of avrecode_tpu_torch.device.compress), the
-device busy time read from the trace (kernels, copies and fills, summed:
-copies on a copy stream may overlap kernels, so the sum bounds the busy
-time from above) with its share of the wall time, the device time by kernel
-name, and every memcpy kind (pinned or pageable, by direction) with its
-count, device ms and bytes. With --mesh, also compress_mesh on
-multigop720.mp4 (chunk mode 1, 16 lanes) on a 1x1 and a 2x2 grid of this
+activities) with the port's span recorder on (avrecode_tpu_torch.trace).
+Prints the call's upload bytes, the seconds of its spans summed by name
+(the Python phases and the native engine's, walk threads included), the
+device time by kernel name, and every memcpy kind (pinned or pageable, by
+direction) with its count, device ms and bytes. With --mesh, also
+compress_mesh on multigop720.mp4 (chunk mode 1, 16 lanes) on a 1x1 and a 2x2 grid of this
 one card: the best of 3 calls after a warm-up, every run, and one call's
 memcpy kinds (its download's bytes among them). --repo times the port of
 another checkout (a `git archive` of another commit). Writes each trace's
@@ -87,21 +85,28 @@ def profile_clip(path: str, out_dir: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch import trace
     with open(path, "rb") as f:
         data = f.read()
     td.compress(data, device="cuda")
     torch.cuda.synchronize()
     info = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        td.compress(data, device="cuda", info=info)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            td.compress(data, device="cuda", info=info)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        trace.disable()
+    spans_s = collections.Counter()
+    for sp in trace.drain():
+        spans_s[sp.name] += sp.seconds
     by_name = collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
-    busy_s = sum(by_name.values()) / 1e6
     stem = os.path.splitext(os.path.basename(path))[0]
     with open(os.path.join(out_dir, f"{stem}_key_averages.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
@@ -111,13 +116,8 @@ def profile_clip(path: str, out_dir: str) -> dict:
         "clip": os.path.relpath(path, REPO),
         "bytes": len(data),
         "wall_s": wall,
-        "device_busy_s": busy_s,
-        "device_busy_share": busy_s / wall,
         "wire_bytes": info["wire_bytes"],
-        "host_phases_s": {k: info[k] for k in ("open_s", "fetch_s", "fetch_wait_s",
-                                               "parse_s", "stage_s", "launch_s",
-                                               "compact_s", "dispatch_s", "emit_s",
-                                               "pack_s") if k in info},
+        "spans_s": dict(sorted(spans_s.items(), key=lambda kv: -kv[1])),
         "device_ms_by_name": {k: v / 1e3 for k, v in by_name.most_common(12)},
         "memcpy": memcpys(trace),
     }
