@@ -4,8 +4,9 @@ the blob layout buckets of the profile-2 wire.
 A copy of the JAX-free parsers of avrecode_tpu/device.py (ChunkAnalysis,
 SlimChunk, Analysis, analyze, the ANLZ/ANL5 parsers, the layout buckets and
 pick_lanes), under the same names, so the port imports nothing of the JAX
-package. The wire formats are recode.cc's write_analyze_header,
-write_slim_chunk and the dense analysis export.
+package. The wire formats are recode.cc's write_analyze_header, the slim
+export's write_slim_chunk (native/slim_export.h) and the dense analysis
+export.
 """
 from __future__ import annotations
 
@@ -41,8 +42,8 @@ class ChunkAnalysis:
 
 def _np_unpack(words: np.ndarray, pos: np.ndarray, w: int) -> np.ndarray:
     """Host-side mirror of ops.model_pass._unpack: w-bit no-straddle
-    entries out of a u32 word stream (recode.cc BitPacker::put_ns — entry j
-    lives wholly inside word j // (32//w))."""
+    entries out of a u32 word stream (native/slim_export.h — entry j lives
+    wholly inside word j // (32//w))."""
     epw = 32 // w
     q = pos.astype(np.int64) // epw
     off = ((pos.astype(np.int64) - q * epw) * w).astype(np.uint64)
@@ -54,8 +55,8 @@ def _np_unpack(words: np.ndarray, pos: np.ndarray, w: int) -> np.ndarray:
 class SlimChunk:
     """One chunk of the slim (ANL5) analysis export — the bit-packed ~2.3-
     bytes/bin wire format for the frozen-batch (profile 2) device path. See
-    recode.cc write_slim_chunk for the layout. The packed planes travel to
-    the device verbatim (wire_expand4_blob unpacks them on chip); `.packed`,
+    native/slim_export.h, which writes it, for the layout. The packed planes
+    travel to the device verbatim (wire_expand4_blob unpacks them on chip); `.packed`,
     `.coo_slot` and `.dual0` reconstruct the dense views for host-side
     consumers (tests, the mesh dual0 input)."""
     n: int
@@ -290,7 +291,7 @@ def _parse_analysis(raw: bytes) -> Analysis:
 
 
 def _parse_slim_chunk(buf: np.ndarray, an: Analysis, prev: SlimChunk | None) -> SlimChunk:
-    """Parses one ANL5 chunk (recode.cc write_slim_chunk layout). `prev` is
+    """Parses one ANL5 chunk (the write_slim_chunk layout). `prev` is
     the previously parsed chunk — warm chunks >= 2 alias its dual0/sig0
     instead of carrying their own (flags bits 1/2)."""
     pos = 0

@@ -2068,46 +2068,6 @@ void artc_session_close(void* h) { delete static_cast<ArtcSession*>(h); }
 //     (per-sub-batch per-touched-slot (ones, total) update deltas, the sparse
 //      form of the v2 dd/ds tables — reconstructed on device by one scatter)
 //   u16 probs[n] if flags bit0
-struct BitPacker {
-  // Little-endian bit order within little-endian u32 words: stream bit k
-  // lands in word k>>5 at position k&31. Always keeps one tail word so the
-  // device's straddle gather (words[wi+1]) stays in bounds.
-  std::vector<uint32_t> words;
-  uint64_t bits = 0;
-  void put(uint32_t v, uint32_t w) {
-    const uint64_t word = bits >> 5, off = bits & 31;
-    if (words.size() < word + 2) words.resize(word + 2, 0);
-    const uint64_t x = uint64_t(v) << off;
-    words[word] |= uint32_t(x);
-    words[word + 1] |= uint32_t(x >> 32);
-    bits += w;
-  }
-  // No-straddle put: entry j of a w-bit stream lives entirely inside word
-  // j / (32/w) (32 mod w tail bits per word stay zero). Costs up to
-  // 32/(32/w)/w - 1 extra wire bits per entry; buys the device a SINGLE
-  // gather per entry instead of a straddling pair (ops/model_pass
-  // unpack_routed) — the rank substream gathers were the largest term of
-  // the on-chip wire expand (RESULTS.md r4 gather economics).
-  void put_ns(uint32_t v, uint32_t w) {
-    if (32 - (bits & 31) < w) bits = (bits + 31) & ~31ull;
-    put(v, w);
-  }
-  void finish() {
-    if (words.size() < 2) words.resize(2, 0);
-  }
-  // Word count a no-straddle stream of `count` w-bit entries occupies.
-  static uint64_t ns_words(uint64_t count, uint32_t w) {
-    const uint64_t epw = 32 / w;
-    return (count + epw - 1) / epw;
-  }
-};
-
-static uint32_t ceil_log2(uint32_t x) {  // bits to hold values in [0, x)
-  uint32_t b = 1;
-  while ((1u << b) < x) ++b;
-  return b;
-}
-
 static void write_sig0_sparse(artc::Writer& w, const std::vector<artc::Estimator>& sig0) {
   // Sparse sig start state (v16 warm-started chunks): nonzero rows only.
   // Cold chunks (and chunk 0) write an empty list.
@@ -2120,284 +2080,7 @@ static void write_sig0_sparse(artc::Writer& w, const std::vector<artc::Estimator
   for (uint32_t i : idx) w.u16(sig0[i].neg);
 }
 
-static void write_slim_chunk(artc::Writer& w,
-                             const std::vector<artc::PriorModel::Coded>& trace,
-                             const std::vector<uint16_t>& probs, bool has_probs,
-                             const std::vector<artc::Dual>& dual0,
-                             const std::vector<artc::Estimator>& sig0, uint32_t batch,
-                             uint32_t sup_u, bool share_dual0, bool share_sig0) {
-  using namespace artc;
-  using Coded = PriorModel::Coded;
-  const uint64_t n = trace.size();
-  const uint64_t span = uint64_t(sup_u) * batch;
-  uint64_t ns = bucket_steps(uint32_t((n + span - 1) / span));
-  if (ns == 0) ns = 1;
-  const uint64_t m = ns * span;
-  const uint32_t n_dual_ext = uint32_t(PriorModel::kNumDualKeys) + 1;
-
-  // Prior dictionary: count u16 frequencies, keep the top 255.
-  std::vector<uint32_t> freq(65536, 0);
-  for (const Coded& c : trace) freq[c.prior]++;
-  std::vector<uint32_t> by_freq(65536);
-  for (uint32_t i = 0; i < 65536; ++i) by_freq[i] = i;
-  std::partial_sort(by_freq.begin(), by_freq.begin() + 255, by_freq.end(),
-                    [&](uint32_t a, uint32_t b) { return freq[a] > freq[b]; });
-  std::vector<uint16_t> dict;
-  std::vector<uint8_t> pidx_map(65536, 255);
-  for (int i = 0; i < 255 && freq[by_freq[i]] > 0; ++i) {
-    pidx_map[by_freq[i]] = uint8_t(dict.size());
-    dict.push_back(uint16_t(by_freq[i]));
-  }
-
-  // Phase 1: per-super-step sorted unique key lists (epoch-marked).
-  std::vector<uint32_t> ep_d(PriorModel::kNumDualKeys, ~0u);
-  std::vector<uint32_t> ep_s(PriorModel::kNumSigKeys, ~0u);
-  std::vector<std::vector<uint32_t>> keys_d(ns), keys_s(ns);
-  for (uint64_t i = 0; i < n; ++i) {
-    const Coded& c = trace[i];
-    if (c.kind == PriorModel::kKindPrior) continue;
-    uint32_t stp = uint32_t(i / span);
-    if (c.kind == PriorModel::kKindSig) {
-      if (ep_s[c.key] != stp) { ep_s[c.key] = stp; keys_s[stp].push_back(c.key); }
-    } else {
-      if (ep_d[c.key] != stp) { ep_d[c.key] = stp; keys_d[stp].push_back(c.key); }
-    }
-  }
-  uint32_t max_d = 1, max_s = 1;
-  for (uint64_t s = 0; s < ns; ++s) {
-    std::sort(keys_d[s].begin(), keys_d[s].end());
-    std::sort(keys_s[s].begin(), keys_s[s].end());
-    max_d = std::max<uint32_t>(max_d, uint32_t(keys_d[s].size()));
-    max_s = std::max<uint32_t>(max_s, uint32_t(keys_s[s].size()));
-  }
-  const uint32_t ud = bucket_pow2(max_d + 1), us = bucket_pow2(max_s + 1);
-  const uint32_t U = ud + us;
-  if (U > 8192)
-    throw std::runtime_error("slim analysis: dict width > 8192 (use fat export)");
-
-  // Phase 2: per-bin (bit, kind) nibbles + prior indices, frequency-ordered
-  // per-sub-batch COO delta runs, per-bin ranks into those runs.
-  std::vector<uint8_t> prior_idx(n);
-  std::vector<uint8_t> bin_kind(n), bin_bit(n);
-  std::vector<uint16_t> bin_rank(n, 0);  // entry index within the run (pass 1)
-  std::vector<uint32_t> esc_idx;
-  std::vector<uint16_t> esc_val;
-  std::vector<uint32_t> dk_d(ns * ud), dk_s(ns * us);
-  std::vector<uint16_t> coo_cnt(ns * sup_u, 0);
-  std::vector<uint16_t> coo_slot, coo_ones, coo_tot;
-  coo_slot.reserve(n / 4);
-  std::vector<uint32_t> slot_d(PriorModel::kNumDualKeys), slot_s(PriorModel::kNumSigKeys);
-  std::vector<uint32_t> cell_ep(U, ~0u);      // last sub-batch touching slot
-  std::vector<uint32_t> cell_at(U);           // slot -> index into this sub's COO run
-  std::vector<uint32_t> cnt;                  // counting-sort histogram by tot
-  std::vector<uint16_t> rank_of, tmp16;
-  uint32_t max_run = 1;
-  for (uint64_t s = 0; s < ns; ++s) {
-    for (uint32_t j = 0; j < ud; ++j)
-      dk_d[s * ud + j] = j < keys_d[s].size() ? keys_d[s][j]
-                                              : n_dual_ext + (j - uint32_t(keys_d[s].size()));
-    for (uint32_t j = 0; j < us; ++j)
-      dk_s[s * us + j] = j < keys_s[s].size() ? keys_s[s][j]
-                                              : uint32_t(PriorModel::kNumSigKeys) +
-                                                    (j - uint32_t(keys_s[s].size()));
-    for (uint32_t j = 0; j < keys_d[s].size(); ++j) slot_d[keys_d[s][j]] = j;
-    for (uint32_t j = 0; j < keys_s[s].size(); ++j) slot_s[keys_s[s][j]] = j;
-    const uint64_t lo = s * span, hi = std::min<uint64_t>((s + 1) * span, n);
-    for (uint64_t b0 = lo; b0 < hi; b0 += batch) {
-      const uint32_t subg = uint32_t(b0 / batch);  // global sub-batch index
-      const size_t run_base = coo_slot.size();
-      const uint64_t b1 = std::min<uint64_t>(b0 + batch, hi);
-      for (uint64_t i = b0; i < b1; ++i) {
-        const Coded& c = trace[i];
-        bin_kind[i] = c.kind;
-        bin_bit[i] = c.bit;
-        uint8_t pi = pidx_map[c.prior];
-        prior_idx[i] = pi;
-        if (pi == 255) {
-          esc_idx.push_back(uint32_t(i));
-          esc_val.push_back(c.prior);
-        }
-        if (c.kind == PriorModel::kKindPrior) continue;  // ext: no slot/update
-        const uint32_t slot = c.kind == PriorModel::kKindSig ? ud + slot_s[c.key]
-                                                             : slot_d[c.key];
-        if (cell_ep[slot] != subg) {
-          cell_ep[slot] = subg;
-          cell_at[slot] = uint32_t(coo_slot.size());
-          coo_slot.push_back(uint16_t(slot));
-          coo_ones.push_back(0);
-          coo_tot.push_back(0);
-        }
-        const uint32_t at = cell_at[slot];
-        coo_ones[at] = uint16_t(coo_ones[at] + (c.bit ? 1 : 0));
-        coo_tot[at] = uint16_t(coo_tot[at] + 1);
-        bin_rank[i] = uint16_t(at - run_base);
-      }
-      // Order the run by descending total (stable: ties keep first-touch
-      // order) so hot slots get small ranks; remap bins to ranks. Counting
-      // sort: totals are <= batch, so an O(len) histogram pass replaces the
-      // comparison sort that dominated the export (measured ~30% of the
-      // whole analyze path at batch 4096).
-      const uint32_t len = uint32_t(coo_slot.size() - run_base);
-      coo_cnt[subg] = uint16_t(len);
-      max_run = std::max(max_run, len);
-      uint32_t max_tot = 0;
-      for (uint32_t j = 0; j < len; ++j)
-        max_tot = std::max<uint32_t>(max_tot, coo_tot[run_base + j]);
-      cnt.assign(max_tot + 1, 0);
-      for (uint32_t j = 0; j < len; ++j) ++cnt[coo_tot[run_base + j]];
-      uint32_t acc = 0;  // cnt[t] -> first rank for totals == t (descending)
-      for (uint32_t t = max_tot; t > 0; --t) {
-        uint32_t c = cnt[t];
-        cnt[t] = acc;
-        acc += c;
-      }
-      rank_of.resize(len);
-      for (uint32_t j = 0; j < len; ++j)
-        rank_of[j] = uint16_t(cnt[coo_tot[run_base + j]]++);
-      for (uint64_t i = b0; i < b1; ++i)
-        if (trace[i].kind != PriorModel::kKindPrior) bin_rank[i] = rank_of[bin_rank[i]];
-      for (uint16_t* arr : {coo_slot.data(), coo_ones.data(), coo_tot.data()}) {
-        tmp16.assign(arr + run_base, arr + run_base + len);
-        for (uint32_t j = 0; j < len; ++j) arr[run_base + rank_of[j]] = tmp16[j];
-      }
-    }
-  }
-
-  // Hot-rank width: sweep wa for minimum substream bytes (ranks >= 2^wa pay
-  // the full wb bits via the cold stream).
-  const uint32_t wb = ceil_log2(std::max(max_run, 2u));
-  std::vector<uint64_t> rank_hist(max_run, 0);
-  uint64_t live_total = 0;
-  for (uint64_t i = 0; i < n; ++i)
-    if (bin_kind[i] != PriorModel::kKindPrior) { ++live_total; ++rank_hist[bin_rank[i]]; }
-  for (size_t i = 1; i < rank_hist.size(); ++i) rank_hist[i] += rank_hist[i - 1];
-  uint32_t wa = wb;
-  uint64_t best_cost = ~0ull;
-  for (uint32_t cand = 1; cand <= wb; ++cand) {
-    const uint64_t hot = (1ull << cand) >= max_run ? live_total
-                                                   : rank_hist[(1ull << cand) - 1];
-    // Cost in no-straddle WORDS (the wire's real unit under put_ns).
-    const uint64_t cost =
-        BitPacker::ns_words(hot, cand) + BitPacker::ns_words(live_total - hot, wb);
-    if (cost < best_cost) { best_cost = cost; wa = cand; }
-  }
-
-  // Rank + COO-slot streams pack no-straddle (put_ns): the device unpacks
-  // each entry with ONE word gather (ops/model_pass unpack_routed/_unpack_dev).
-  BitPacker hp, ap, bp, cp;
-  uint64_t nA = 0, nB = 0;
-  for (uint64_t i = 0; i < n; ++i) {
-    const uint32_t k = bin_kind[i];
-    const bool cold = k != PriorModel::kKindPrior && bin_rank[i] >= (1u << wa);
-    hp.put((uint32_t(bin_bit[i]) << 3) | (k << 1) | (cold ? 1 : 0), 4);
-    if (k == PriorModel::kKindPrior) continue;
-    if (cold) { bp.put_ns(bin_rank[i], wb); ++nB; } else { ap.put_ns(bin_rank[i], wa); ++nA; }
-  }
-  hp.finish(); ap.finish(); bp.finish();
-  const uint32_t wcs = ceil_log2(std::max(U, 2u));
-  for (uint16_t v : coo_slot) cp.put_ns(v, wcs);
-  cp.finish();
-
-  w.u64(n);
-  w.u32(uint32_t(ns));
-  w.u32(ud);
-  w.u32(us);
-  w.u64(m);
-  w.u8((has_probs ? 1 : 0) | (share_dual0 ? 2 : 0) | (share_sig0 ? 4 : 0));
-  w.u16(uint16_t(dict.size()));
-  w.bytes(reinterpret_cast<const uint8_t*>(dict.data()), dict.size() * 2);
-  w.u32(uint32_t(esc_idx.size()));
-  w.bytes(reinterpret_cast<const uint8_t*>(esc_idx.data()), esc_idx.size() * 4);
-  w.bytes(reinterpret_cast<const uint8_t*>(esc_val.data()), esc_val.size() * 2);
-  w.u8(uint8_t(wa));
-  w.u8(uint8_t(wb));
-  w.u8(uint8_t(wcs));
-  w.u64(hp.words.size());
-  w.bytes(reinterpret_cast<const uint8_t*>(hp.words.data()), hp.words.size() * 4);
-  w.u64(nA);
-  w.u64(ap.words.size());
-  w.bytes(reinterpret_cast<const uint8_t*>(ap.words.data()), ap.words.size() * 4);
-  w.u64(nB);
-  w.u64(bp.words.size());
-  w.bytes(reinterpret_cast<const uint8_t*>(bp.words.data()), bp.words.size() * 4);
-  w.bytes(prior_idx.data(), prior_idx.size());
-  w.bytes(reinterpret_cast<const uint8_t*>(dk_d.data()), dk_d.size() * 4);
-  w.bytes(reinterpret_cast<const uint8_t*>(dk_s.data()), dk_s.size() * 4);
-  if (!share_dual0) {
-    // ANL5: the dual table rows are massively redundant (the CABAC-init seed
-    // has ~90 distinct (fp,fn,sp,sn) patterns; even a warm snapshot's top 255
-    // rows cover ~99%) — ship a u8 row-dictionary + exact escape rows
-    // instead of 8 dense bytes per row (1.42 MB -> ~0.2 MB per table).
-    std::vector<uint64_t> rowv(dual0.size());
-    for (size_t i = 0; i < dual0.size(); ++i) {
-      const Dual& d = dual0[i];
-      rowv[i] = uint64_t(d.fp) | (uint64_t(d.fn) << 16) | (uint64_t(d.sp) << 32) |
-                (uint64_t(d.sn) << 48);
-    }
-    std::unordered_map<uint64_t, uint32_t> cnt;
-    cnt.reserve(dual0.size() / 16);
-    for (uint64_t v : rowv) ++cnt[v];
-    std::vector<std::pair<uint32_t, uint64_t>> by_freq;
-    by_freq.reserve(cnt.size());
-    for (const auto& kv : cnt) by_freq.push_back({kv.second, kv.first});
-    size_t nd = std::min<size_t>(by_freq.size(), 255);
-    std::partial_sort(by_freq.begin(), by_freq.begin() + nd, by_freq.end(),
-                      [](const auto& a, const auto& b) { return a.first > b.first; });
-    std::unordered_map<uint64_t, uint8_t> ridx;
-    w.u16(uint16_t(nd));
-    for (size_t j = 0; j < nd; ++j) {
-      ridx[by_freq[j].second] = uint8_t(j);
-      uint64_t v = by_freq[j].second;
-      w.u16(uint16_t(v));
-      w.u16(uint16_t(v >> 16));
-      w.u16(uint16_t(v >> 32));
-      w.u16(uint16_t(v >> 48));
-    }
-    std::vector<uint32_t> desc_idx;
-    for (size_t i = 0; i < rowv.size(); ++i) {
-      auto it = ridx.find(rowv[i]);
-      w.u8(it != ridx.end() ? it->second : 255);
-      if (it == ridx.end()) desc_idx.push_back(uint32_t(i));
-    }
-    w.u32(uint32_t(desc_idx.size()));
-    for (uint32_t i : desc_idx) w.u32(i);
-    for (uint32_t i : desc_idx) {
-      w.u16(dual0[i].fp);
-      w.u16(dual0[i].fn);
-      w.u16(dual0[i].sp);
-      w.u16(dual0[i].sn);
-    }
-  }
-  if (!share_sig0) write_sig0_sparse(w, sig0);
-  w.u64(coo_slot.size());
-  w.bytes(reinterpret_cast<const uint8_t*>(coo_cnt.data()), coo_cnt.size() * 2);
-  w.u64(cp.words.size());
-  w.bytes(reinterpret_cast<const uint8_t*>(cp.words.data()), cp.words.size() * 4);
-  // ANL5: (ones, tot) travel as a 4+4-bit nibble pair (97% of sub-batch cell
-  // counts are < 15) plus an exact escape list the device scatter-applies
-  // after widening; anything >= 15 in either half escapes.
-  {
-    std::vector<uint8_t> nib(coo_slot.size());
-    std::vector<uint32_t> cesc_idx;
-    std::vector<uint16_t> cesc_ones, cesc_tot;
-    for (size_t i = 0; i < coo_slot.size(); ++i) {
-      uint16_t o = coo_ones[i], t = coo_tot[i];
-      nib[i] = uint8_t((o > 15 ? 15 : o) | ((t > 15 ? 15 : t) << 4));
-      if (o > 15 || t > 15) {
-        cesc_idx.push_back(uint32_t(i));
-        cesc_ones.push_back(o);
-        cesc_tot.push_back(t);
-      }
-    }
-    w.bytes(nib.data(), nib.size());
-    w.u32(uint32_t(cesc_idx.size()));
-    w.bytes(reinterpret_cast<const uint8_t*>(cesc_idx.data()), cesc_idx.size() * 4);
-    w.bytes(reinterpret_cast<const uint8_t*>(cesc_ones.data()), cesc_ones.size() * 2);
-    w.bytes(reinterpret_cast<const uint8_t*>(cesc_tot.data()), cesc_tot.size() * 2);
-  }
-  if (has_probs)
-    w.bytes(reinterpret_cast<const uint8_t*>(probs.data()), probs.size() * 2);
-}
+#include "slim_export.h"  // write_slim_chunk
 
 static void write_analyze_header(artc::Writer& w, const ArtcSession* se, uint32_t sup_u,
                                  bool slim) {

@@ -199,7 +199,7 @@ def wire_expand4_blob(blob: torch.Tensor, sc: torch.Tensor, *, m: int, nsub: int
     3, slot ud-1, prior 1), deltas uint16[nsub, U, 2] ((ones, tot) per
     sub-batch and dictionary slot) and the key tables dk_d int32[ns, ud],
     dk_s int32[ns, us] (views into the blob). See the JAX function of the
-    same name for the wire format (recode.cc write_slim_chunk).
+    same name for the wire format (native/slim_export.h write_slim_chunk).
 
     mesh=True is the mesh step's form: the shapes are mesh-uniform (`ud` is
     the widest chunk's dual width) and sc = [..., ud_real] (int32[6])
@@ -222,7 +222,7 @@ def _key_tables(blob, offs, ns, ud, us):
 
 
 def _unpack(words: torch.Tensor, pos: torch.Tensor, w, base=0) -> torch.Tensor:
-    """w-bit no-straddle entries (recode.cc BitPacker::put_ns: entry j lives
+    """w-bit no-straddle entries (native/slim_export.h: entry j lives
     wholly inside word j // (32//w)) of the stream starting at word `base`;
     word indices clamp to the end of `words`, as a JAX gather clamps them.
     A 0-bit entry (the zero widths of the mesh's pad chunks) is 0."""

@@ -1,7 +1,8 @@
 """The port's own copy of the C++ host engine (avrecode_tpu_torch/native)
 against the JAX package's (avrecode_tpu/native): the copy differs only by
 the defined read in sig_pos_class, decode_coeffs's guard against g++
-13.3's unswitching and recode.cc's span recording; the port's library
+13.3's unswitching, recode.cc's span recording and its slim export, which
+the port's slim_export.h replaces; the port's library
 exports only the artc_* entries; both libraries, loaded in one process, write the same
 containers and read each other's; building the port's library reads,
 writes and names nothing under avrecode_tpu/."""
@@ -13,6 +14,7 @@ import sys
 
 import pytest
 from test_torch_jaxlib import JAX_LIB, JAX_NATIVE, ensure_jax_lib
+from torch_native_export import RECODE_EXPORT
 from torch_native_spans import RECODE_SPANS
 
 from avrecode_tpu_torch import _native
@@ -29,10 +31,10 @@ PORT_NATIVE = os.path.join(REPO, "avrecode_tpu_torch", "native")
 # Files of the JAX tree that are not copied (the build is the port's own;
 # the npz tables are read only by the JAX side), and the files of the copy
 # that have no original: the version script, the reproducer of the
-# miscompile that h264_slice.h's guard avoids (built by no library) and the
-# span records' header.
+# miscompile that h264_slice.h's guard avoids (built by no library), the
+# span records' header and the slim export (torch_native_export.py).
 NOT_COPIED = {"CMakeLists.txt", "gen/cabac_tables.npz"}
-PORT_ONLY = {"libartc_host.map", "repro_unswitch.cc", "trace.h"}
+PORT_ONLY = {"libartc_host.map", "repro_unswitch.cc", "trace.h", "slim_export.h"}
 # The entries of the port's library that the JAX package's has not: its span
 # records (avrecode_tpu_torch/trace.py).
 PORT_ENTRIES = {"artc_session_trace", "artc_trace_enable"}
@@ -73,8 +75,9 @@ FIXES = {"model.h": [(
         "#endif\n"
         "#endif\n"
         "  ARTC_NO_UNSWITCH void decode_coeffs(int cat, int max_coeff) {\n")],
-    # The span records (native/trace.h, torch_native_spans.py).
-    "recode.cc": RECODE_SPANS,
+    # The span records (native/trace.h, torch_native_spans.py), then the
+    # slim export (native/slim_export.h, torch_native_export.py).
+    "recode.cc": RECODE_SPANS + RECODE_EXPORT,
 }
 
 
@@ -93,8 +96,8 @@ COPIED = sorted(_tree(JAX_NATIVE) - NOT_COPIED)
 
 def test_copy_holds_exactly_the_engine_sources():
     """The copy holds every .h, recode.cc and gen/*.h of the JAX tree and,
-    beside them, only the version script, the reproducer and the span
-    header; the JAX tree holds nothing else
+    beside them, only the version script, the reproducer, the span header
+    and the slim export; the JAX tree holds nothing else
     but CMakeLists.txt and the npz tables."""
     assert _tree(PORT_NATIVE) == set(COPIED) | PORT_ONLY
     assert all(f == "recode.cc" or f.endswith(".h") for f in COPIED)
