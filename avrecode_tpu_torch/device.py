@@ -267,13 +267,14 @@ def _run_v4(an: Analysis, c: SlimChunk, device, cache: dict | None = None):
 
 
 def device_probs(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device="cuda",
-                 impl: str | None = None) -> np.ndarray:
+                 impl: str | None = None, moved: list | None = None) -> np.ndarray:
     """One chunk's model pass on `device` (the card unless the caller asks
     for "cpu"); returns uint16 probs[n]. A slim
     chunk runs the frozen-batch pass; a profile-0 chunk runs the pass that
     `impl` (default ops.model_pass.default_impl()) names: "v2" on the native
     export's tables (built on the host where the export has none), or
-    "dict", "sort" or "mm"."""
+    "dict", "sort" or "mm". `moved`, if given, receives a profile-0 pass's
+    bytes uploaded and probs' bytes downloaded."""
     if an.slim:
         probs, _ = _run_v4(an, chunk, device)
         return probs[:chunk.n].cpu().numpy().astype(np.uint16)
@@ -286,23 +287,25 @@ def device_probs(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device="cuda",
                 chunk.kind, chunk.prior, chunk.pre_ones, chunk.pre_tot, chunk.v2_m,
                 chunk.v2_bin_u, chunk.v2_dk_d, chunk.v2_dk_s, chunk.v2_dd, chunk.v2_ds,
                 chunk.dual0, an.batch, an.sup, an.fast_w, an.slow_w, an.sig_w, an.sig_alpha,
-                an.n_sig, sig0=sig0, device=device)
+                an.n_sig, sig0=sig0, device=device, moved=moved)
         # No native tables: build them on the host, as the JAX package does.
         return mp.run_chunk_v2(chunk.bit, chunk.kind, chunk.key, chunk.prior, chunk.pre_ones,
                                chunk.pre_tot, chunk.dual0, an.batch, mp.default_sup(),
                                an.fast_w, an.slow_w, an.sig_w, an.sig_alpha, an.n_sig,
-                               sig0=sig0, device=device)
+                               sig0=sig0, device=device, moved=moved)
     return mp.run_chunk(chunk.bit, chunk.kind, chunk.key, chunk.prior, chunk.dual0, an.batch,
                         an.fast_w, an.slow_w, an.sig_w, an.sig_alpha, an.n_sig, impl=impl,
-                        sig0=sig0, device=device)
+                        sig0=sig0, device=device, moved=moved)
 
 
 def device_blob(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device="cuda",
-                probs: np.ndarray | None = None, force_lanes: int | None = None) -> bytes:
+                probs: np.ndarray | None = None, force_lanes: int | None = None,
+                moved: list | None = None) -> bytes:
     """One chunk's rANS blob on `device`, byte-identical to the C++
     RansInterleaved format. A slim chunk's model pass feeds (probs, bits) to
     the lane scan without leaving the device; a profile-0 chunk encodes its
-    host bits with `probs` (computed by device_probs if not given)."""
+    host bits with `probs` (computed by device_probs if not given), and
+    `moved`, if given, receives the bytes of its lane planes."""
     if an.slim:
         probs_dev, bits_dev = _run_v4(an, chunk, device)
         return lx.encode_interleaved_dev(bits_dev, probs_dev, chunk.n,
@@ -310,7 +313,7 @@ def device_blob(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device="cuda",
     if probs is None:
         probs = device_probs(an, chunk, device)
     return lx.encode_interleaved(chunk.bit, probs, force_lanes or pick_lanes(len(chunk.bit)),
-                                 device=_device(device))
+                                 device=_device(device), moved=moved)
 
 
 def _fetch(rc: int, out, out_len) -> bytes:
@@ -388,20 +391,34 @@ def _compress_dense(lib, h, device, force_lanes, keep_probs, sc) -> tuple[list[b
     """Profile 0: one native export of the whole dense analysis, then per
     chunk the model pass (ARTC_MODEL_IMPL) and the lane encode. Returns the
     blobs and info's other keys. info phases: analyze_s (`call.open` and
-    `call.analyze`: native analysis, export and parse), model_s
-    (`call.model`: uploads, model passes, probs downloads), lanes_s
-    (`call.lanes`: lane encodes)."""
+    `call.analyze`: native analysis and export, then `call.parse`: the
+    export's copy into bytes and its parse), model_s (`call.model`: per
+    chunk `chunk.model`, its uploads, model pass and probs download),
+    lanes_s (`call.lanes`: per chunk `chunk.lanes`, its lane encode).
+    `chunk.model` counts the chunk's bins and (count2) the bytes it moves
+    both ways; `chunk.lanes` the chunk's lanes K and the bytes of its
+    uploaded lane planes."""
     out = ctypes.POINTER(ctypes.c_uint8)()
     out_len = ctypes.c_size_t()
     with sc.span("call.analyze"):
         rc = lib.artc_session_analyze2(h, mp.default_sup(), 0, ctypes.byref(out),
                                        ctypes.byref(out_len))
-        an = _parse_analysis(_fetch(rc, out, out_len))
+        with sc.span("call.parse"):
+            an = _parse_analysis(_fetch(rc, out, out_len))
+    probs, blobs = [], []
     with sc.span("call.model"):
-        probs = [device_probs(an, c, device) for c in an.chunks]
+        for i, c in enumerate(an.chunks):
+            moved: list = []
+            with sc.span("chunk.model", chunk=i, count=len(c.bit)) as sp:
+                probs.append(device_probs(an, c, device, moved=moved))
+                sp.count2 = sum(moved)
     with sc.span("call.lanes"):
-        blobs = [device_blob(an, c, device, probs=p, force_lanes=force_lanes)
-                 for c, p in zip(an.chunks, probs)]
+        for i, (c, p) in enumerate(zip(an.chunks, probs)):
+            K = force_lanes or pick_lanes(len(c.bit))
+            moved = []
+            with sc.span("chunk.lanes", chunk=i, count=K) as sp:
+                blobs.append(device_blob(an, c, device, probs=p, force_lanes=K, moved=moved))
+                sp.count2 = sum(moved)
     extra = {"n_chunks": len(an.chunks)}
     if keep_probs:
         extra["probs"] = probs

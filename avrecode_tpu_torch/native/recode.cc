@@ -2319,7 +2319,7 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
       std::vector<Estimator> sig0;
       Stats tmp;
       uint64_t modes = se->nz_modes[ci];
-      Phase walk(se->trace, "native.trace_walk", int64_t(ci));
+      Phase walk(se->trace, "native.dense_walk", int64_t(ci));
       run_chunk_model(p1.slices, b, e, opt, tmp, &trace, &probs, &dual0, modes,
                       /*encode_blob=*/false,
                       ci == 0 && warm.src_slices ? &warm : nullptr,
@@ -2331,7 +2331,7 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
                 ci, sec, trace.size());
       // The export: the streams and prefix counts, then the v2 tables (an
       // ARTC_TIMING line each, the first from a reading between them).
-      Phase xport(se->trace, "native.export", int64_t(ci));
+      Phase xport(se->trace, "native.dense_export", int64_t(ci));
       const size_t w0 = w.buf.size();
       w.u64(trace.size());
       for (const auto& c : trace) w.u8(c.bit);
@@ -2380,6 +2380,8 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
         w.u16(d.sn);
       }
       write_sig0_sparse(w, sig0);
+      Phase v2(se->trace, "native.v2_tables", int64_t(ci));
+      const size_t w1 = w.buf.size();
       // ---- model_pass_v2 tables: per-super-step sorted-unique dicts,
       // per-bin dict indices, per-sub-batch per-entry (ones, total) deltas.
       {
@@ -2457,14 +2459,17 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
         for (uint16_t v : dd) w.u16(v);
         for (uint16_t v : ds) w.u16(v);
       }
+      v2.end(w.buf.size() - w1);
       xport.end(w.buf.size() - w0);
       if (timing_enabled())
         fprintf(stderr, "[artc] analyze chunk %zu: v2 dicts+serialize %.3fs\n", ci,
                 double(now_ns() - t_mid) * 1e-9);
     }
+    Phase copy(se->trace, "native.copyout");
     *out = static_cast<uint8_t*>(malloc(w.buf.size()));
     memcpy(*out, w.buf.data(), w.buf.size());
     *out_len = w.buf.size();
+    copy.end(w.buf.size());
     return 0;
   } catch (const std::exception& e) {
     g_error = e.what();

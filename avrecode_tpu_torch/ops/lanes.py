@@ -538,17 +538,19 @@ def encode_interleaved_dev(bits_dev: torch.Tensor, probs_dev: torch.Tensor,
 
 
 def encode_interleaved(bits: np.ndarray, probs: np.ndarray, K: int, *,
-                       device="cuda") -> bytes:
+                       device="cuda", moved: list | None = None) -> bytes:
     """Full chunk encode of host arrays (bits[n], probs[n] in [1, 32767]) on
     `device`: the stream is padded to T = pow2(ceil(n / K)) steps with
     invalid steps, uploaded as [T, K] planes, scanned by `lane_scan`,
     compacted and assembled; byte-identical to the host codec
-    (native/rans.h)."""
+    (native/rans.h). `moved`, if given, receives the planes' bytes."""
     n = len(bits)
     if n == 0:
         return _empty_blob(K)
-    return encode_interleaved_finish(ScanHandle(*lane_scan(*interleaved_planes(
-        bits, probs, K, device)), n, K))
+    planes = interleaved_planes(bits, probs, K, device)
+    if moved is not None:
+        moved.append(sum(t.nbytes for t in planes))
+    return encode_interleaved_finish(ScanHandle(*lane_scan(*planes), n, K))
 
 
 def interleaved_planes(bits: np.ndarray, probs: np.ndarray, K: int, device):

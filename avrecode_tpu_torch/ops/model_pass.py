@@ -775,17 +775,21 @@ def _padded(a: np.ndarray, pad: int, value: int) -> np.ndarray:
 
 def run_chunk_v2_tables(kind, prior, pre_ones, pre_tot, v2_m, bin_u, dk_d, dk_s, dd, ds,
                         dual0, batch, sup, fast_w, slow_w, sig_w, sig_alpha, n_sig,
-                        sig0=None, *, device):
+                        sig0=None, *, device, moved: list | None = None):
     """model_pass_v2 over one chunk with the native export's tables (numpy
     in, uint16 probs[n] out): the inputs v2_tables_inputs stages, through
-    the pass."""
+    the pass. `moved`, if given, receives the bytes uploaded and the probs'
+    bytes downloaded."""
     n = len(kind)
     if n == 0:
         return np.zeros(0, np.uint16)
     args, kw = v2_tables_inputs(kind, prior, pre_ones, pre_tot, v2_m, bin_u, dk_d, dk_s, dd,
                                 ds, dual0, batch, sup, fast_w, slow_w, sig_w, sig_alpha, n_sig,
                                 sig0, device=device)
-    return model_pass_v2(*args, **kw)[:n].cpu().numpy().astype(np.uint16)
+    probs = model_pass_v2(*args, **kw)[:n].cpu()
+    if moved is not None:
+        moved.append(sum(t.nbytes for t in args) + probs.nbytes)
+    return probs.numpy().astype(np.uint16)
 
 
 def v2_tables_inputs(kind, prior, pre_ones, pre_tot, v2_m, bin_u, dk_d, dk_s, dd, ds, dual0,
@@ -869,16 +873,18 @@ def build_v2_inputs(bit_p, kind_p, key_p, n_dual_ext, n_sig, batch, sup):
 
 
 def run_chunk_v2(bit, kind, key, prior, pre_ones, pre_tot, dual0, batch, sup, fast_w,
-                 slow_w, sig_w, sig_alpha, n_sig, sig0=None, *, device):
+                 slow_w, sig_w, sig_alpha, n_sig, sig0=None, *, device,
+                 moved: list | None = None):
     """model_pass_v2 over one chunk whose export has no v2 tables (numpy in,
     uint16 probs[n] out), as avrecode_tpu.ops.model_pass.run_chunk_v2: the
-    tables v2_host_tables builds, through run_chunk_v2_tables on `device`."""
+    tables v2_host_tables builds, through run_chunk_v2_tables on `device`
+    (`moved` as there)."""
     if len(bit) == 0:
         return np.zeros(0, np.uint16)
     return run_chunk_v2_tables(kind, prior, pre_ones, pre_tot,
                                *v2_host_tables(bit, kind, key, dual0, batch, sup, n_sig),
                                dual0, batch, sup, fast_w, slow_w, sig_w, sig_alpha, n_sig,
-                               sig0=sig0, device=device)
+                               sig0=sig0, device=device, moved=moved)
 
 
 def v2_host_tables(bit, kind, key, dual0, batch, sup, n_sig):
@@ -1473,11 +1479,12 @@ def build_dicts(kind_p, key_p, n_dual_ext, batch):
 
 
 def run_chunk(bit, kind, key, prior, dual0, batch, fast_w, slow_w, sig_w, sig_alpha, n_sig,
-              impl=None, sig0=None, *, device):
+              impl=None, sig0=None, *, device, moved: list | None = None):
     """The dict / sort / mm pass over one chunk (numpy in, uint16 probs[n]
     out): the inputs run_chunk_inputs stages, through the pass `impl`
     (default default_impl()) names; any other value than "dict", "sort" or
-    "mm" raises."""
+    "mm" raises. `moved`, if given, receives the bytes uploaded and the
+    probs' bytes downloaded."""
     impl = impl or default_impl()
     if impl != "dict" and impl not in _IMPLS:
         raise ValueError(f"run_chunk impl must be 'dict', 'sort' or 'mm', got {impl!r}")
@@ -1488,7 +1495,10 @@ def run_chunk(bit, kind, key, prior, dual0, batch, fast_w, slow_w, sig_w, sig_al
                                 sig_alpha, n_sig, impl, sig0, device=device)
     probs = model_pass_dict(*args, **kw) if impl == "dict" else model_pass(*args, impl=impl,
                                                                            **kw)
-    return probs[:n].cpu().numpy().astype(np.uint16)
+    probs = probs[:n].cpu()
+    if moved is not None:
+        moved.append(sum(t.nbytes for t in args) + probs.nbytes)
+    return probs.numpy().astype(np.uint16)
 
 
 def run_chunk_inputs(bit, kind, key, prior, dual0, batch, fast_w, slow_w, sig_w, sig_alpha,

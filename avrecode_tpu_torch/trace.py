@@ -15,8 +15,12 @@ parent's, the call id that every span of one call shares, a chunk index or
 None, and two counts whose meaning its name fixes: `count` holds the input
 bytes of `call` and `corpus.file`, the files of `corpus.pool`, the wire
 bytes of `chunk.stage`, the slices of `native.pass1` (`count2`: its
-threads), the bins of `native.trace_walk`, and the bytes of
-`native.export`, `native.copyout` and `native.pack`; 0 elsewhere. Spans go
+threads), the bins of `native.trace_walk` and `native.dense_walk`, the
+bins of `chunk.model` (`count2`: the bytes its model pass moves between
+host and device, both ways), the lanes of `chunk.lanes` (`count2`: the
+bytes of its uploaded lane planes), and the bytes of `native.export`,
+`native.dense_export`, `native.v2_tables`, `native.copyout` and
+`native.pack`; 0 elsewhere. Spans go
 at phase and chunk granularity only.
 
 The spans, by where they are opened:
@@ -29,15 +33,21 @@ The spans, by where they are opened:
       `call.header`, per chunk `chunk.fetch`, `chunk.take`, `chunk.parse`,
       `chunk.stage`, `chunk.launch`, `chunk.compact`, then `call.emit` (the
       downloads) and per chunk `chunk.emit` (its blob's assembly); under
-      profile 0 `call.analyze`, `call.model`, `call.lanes`; then `call.pack`;
+      profile 0 `call.analyze` (holding `call.parse`: the export's copy
+      into bytes and its parse), `call.model` (per chunk `chunk.model`:
+      uploads, model pass, probs download) and `call.lanes` (per chunk
+      `chunk.lanes`: lane planes' upload and encode); then `call.pack`;
   the native engine (host.session_trace), drained at the call's end and
       joined to its tree: `native.pass1` (the opener), `native.nz_probe`
       (the pipe), per chunk `native.trace_walk` and `native.export` (the pipe
       for chunk 0, the analyze workers), and on the calling thread
       `native.ready_wait`, per chunk `native.rendezvous` and
-      `native.copyout`, and `native.pack`. A native span on the calling
-      thread takes the innermost Python span around it as its parent; one on
-      another thread takes the call's root.
+      `native.copyout`, and `native.pack`; under profile 0, on the calling
+      thread inside `call.analyze`, per chunk `native.dense_walk` and
+      `native.dense_export` (which holds the chunk's `native.v2_tables`),
+      then one `native.copyout` of the whole export. A native span on the
+      calling thread takes the innermost Python span around it as its
+      parent; one on another thread takes the call's root.
 
 A root opened while torch.profiler runs is mirrored by a record_function of
 its name, entered right after the root's first clock reading and left after

@@ -3,9 +3,13 @@ compress of benchdata/multigop720.mp4 (profile 2, two chunks) gives one
 `call` tree whose native spans nest inside their Python parents on the
 shared clock, `info` agrees with the spans, the container does not change
 with the recorder on, nothing is recorded with it off, and a traced
-two-worker corpus gives each file its own call."""
+two-worker corpus gives each file its own call. A traced profile-0
+compress of benchdata/multigop.mp4 (eight chunks) gives the dense path's
+tree: per chunk one walk, one export holding its v2 tables, one model pass
+and one lane encode, each with its counts."""
 import ctypes
 import os
+import struct
 
 import pytest
 
@@ -201,3 +205,98 @@ def test_a_traced_two_worker_corpus_gives_each_file_its_own_call(corpus_dir, tmp
                 p = by_id[s.parent_id]
                 assert p.call_id == f.call_id
         assert any(s.name == "native.trace_walk" for s in mine)
+
+
+@pytest.fixture(scope="module")
+def profile0():
+    """As `multigop`, for a profile-0 compress (the v2 pass) of
+    benchdata/multigop.mp4 at chunk mode 1 and batch 1024: eight chunks."""
+    data = _read(os.path.join(REPO, "benchdata", "multigop.mp4"))
+    args = (data, 16, 1, 1024, 0)
+    off_info, on_info = {}, {}
+    with pytest.MonkeyPatch.context() as m:
+        m.delenv("ARTC_MODEL_IMPL", raising=False)
+        off, _ = td.compress(*args, device="cpu", info=off_info)
+        (on, _), spans = _traced(lambda: td.compress(*args, device="cpu", info=on_info))
+    return off, off_info, on, on_info, spans
+
+
+def _one(spans, name, chunk=None):
+    got = [s for s in spans if s.name == name and s.chunk == chunk]
+    assert len(got) == 1, (name, chunk, len(got))
+    return got[0]
+
+
+def test_profile0_gives_each_chunk_its_walk_export_model_and_lanes(profile0):
+    *_, info, spans = profile0
+    by_id = {s.span_id: s for s in spans}
+    analyze = _one(spans, "call.analyze")
+    n_chunks = info["n_chunks"]
+    assert n_chunks == 8 and len(info["blobs"]) == n_chunks
+    assert not {"native.trace_walk", "native.export"} & {s.name for s in spans}
+    exported = 0
+    for i, blob in enumerate(info["blobs"]):
+        K, n = struct.unpack_from("<II", blob)
+        walk = _one(spans, "native.dense_walk", i)
+        xport = _one(spans, "native.dense_export", i)
+        v2 = _one(spans, "native.v2_tables", i)
+        assert walk.count == n > 0
+        assert walk.end_ns <= xport.start_ns
+        assert xport.start_ns <= v2.start_ns <= v2.end_ns <= xport.end_ns
+        assert 0 < v2.count < xport.count
+        for s in (walk, xport, v2):
+            assert by_id[s.parent_id] is analyze and s.thread == analyze.thread
+        exported += xport.count
+        model = _one(spans, "chunk.model", i)
+        lanes = _one(spans, "chunk.lanes", i)
+        assert model.count == n and lanes.count == K
+        # the pass's five bin planes (int32, padded) and the probs download
+        assert model.count2 >= 6 * 4 * n
+        # bits and probs as int32, the mask as bool, over T x K steps
+        T = 1 << max(0, (-(-n // K) - 1).bit_length())
+        assert lanes.count2 == 9 * T * K
+        assert by_id[model.parent_id].name == "call.model"
+        assert by_id[lanes.parent_id].name == "call.lanes"
+    copy = _one(spans, "native.copyout")
+    parse = _one(spans, "call.parse")
+    assert copy.count > exported  # the header and every chunk's export
+    assert by_id[copy.parent_id] is analyze and copy.end_ns <= parse.start_ns
+    assert by_id[parse.parent_id] is analyze
+    assert analyze.start_ns <= parse.start_ns <= parse.end_ns <= analyze.end_ns
+
+
+def test_profile0_info_agrees_with_the_spans(profile0):
+    _, off_info, _, info, spans = profile0
+    assert set(info) == set(off_info) >= {"analyze_s", "model_s", "lanes_s", "pack_s"}
+
+    def sec(name):
+        return sum(s.seconds for s in spans if s.name == name)
+
+    opened, analyze = _one(spans, "call.open"), _one(spans, "call.analyze")
+    assert info["analyze_s"] == pytest.approx((analyze.end_ns - opened.start_ns) / 1e9,
+                                              abs=1e-3)
+    assert info["model_s"] == pytest.approx(sec("chunk.model"), abs=1e-3)
+    assert info["lanes_s"] == pytest.approx(sec("chunk.lanes"), abs=1e-3)
+    assert info["model_s"] == pytest.approx(sec("call.model"), abs=1e-6)
+    assert info["lanes_s"] == pytest.approx(sec("call.lanes"), abs=1e-6)
+
+
+def test_profile0_container_is_the_same_with_the_recorder_on(profile0):
+    off, off_info, on, on_info, _ = profile0
+    assert on == off
+    assert on_info["blobs"] == off_info["blobs"]
+
+
+def test_profile0_off_records_nothing_and_reads_no_clock(corpus_dir, monkeypatch):
+    data = _read(os.path.join(corpus_dir, "i_main.264"))
+    trace.drain()
+
+    class NoClock:
+        @staticmethod
+        def monotonic_ns():
+            raise AssertionError("a span read the clock with the recorder off")
+
+    monkeypatch.setattr(trace, "time", NoClock)
+    monkeypatch.delenv("ARTC_TIMING", raising=False)
+    td.compress(data, 16, 0, 1024, 0, device="cpu")
+    assert trace.drain() == []

@@ -171,7 +171,7 @@ RECODE_SPANS = [
      '      double t0 = timing_enabled() ? now_s() : 0;\n'
      '      run_chunk_model(p1.slices, b, e, opt, tmp, &trace, &probs, &dual0, modes,\n',
      '      uint64_t modes = se->nz_modes[ci];\n'
-     '      Phase walk(se->trace, "native.trace_walk", int64_t(ci));\n'
+     '      Phase walk(se->trace, "native.dense_walk", int64_t(ci));\n'
      '      run_chunk_model(p1.slices, b, e, opt, tmp, &trace, &probs, &dual0, modes,\n'),
     ('                      se->alpha_off);\n'
      '      if (timing_enabled())\n'
@@ -186,7 +186,7 @@ RECODE_SPANS = [
      '                ci, sec, trace.size());\n'
      '      // The export: the streams and prefix counts, then the v2 tables (an\n'
      '      // ARTC_TIMING line each, the first from a reading between them).\n'
-     '      Phase xport(se->trace, "native.export", int64_t(ci));\n'
+     '      Phase xport(se->trace, "native.dense_export", int64_t(ci));\n'
      '      const size_t w0 = w.buf.size();\n'
      '      w.u64(trace.size());\n'),
     ('      }\n'
@@ -201,16 +201,33 @@ RECODE_SPANS = [
      '                double(now_ns() - xport.t0) * 1e-9);\n'
      '      const int64_t t_mid = timing_enabled() ? now_ns() : 0;\n'
      '      for (uint16_t p : probs) w.u16(p);\n'),
+    ('      write_sig0_sparse(w, sig0);\n'
+     '      // ---- model_pass_v2 tables: per-super-step sorted-unique dicts,\n',
+     '      write_sig0_sparse(w, sig0);\n'
+     '      Phase v2(se->trace, "native.v2_tables", int64_t(ci));\n'
+     '      const size_t w1 = w.buf.size();\n'
+     '      // ---- model_pass_v2 tables: per-super-step sorted-unique dicts,\n'),
     ('      }\n'
      '      if (timing_enabled())\n'
      '        fprintf(stderr, "[artc] analyze chunk %zu: v2 dicts+serialize %.3fs\\n", ci, now_s() - t0);\n'
-     '    }\n',
+     '    }\n'
+     '    *out = static_cast<uint8_t*>(malloc(w.buf.size()));\n'
+     '    memcpy(*out, w.buf.data(), w.buf.size());\n'
+     '    *out_len = w.buf.size();\n'
+     '    return 0;\n',
      '      }\n'
+     '      v2.end(w.buf.size() - w1);\n'
      '      xport.end(w.buf.size() - w0);\n'
      '      if (timing_enabled())\n'
      '        fprintf(stderr, "[artc] analyze chunk %zu: v2 dicts+serialize %.3fs\\n", ci,\n'
      '                double(now_ns() - t_mid) * 1e-9);\n'
-     '    }\n'),
+     '    }\n'
+     '    Phase copy(se->trace, "native.copyout");\n'
+     '    *out = static_cast<uint8_t*>(malloc(w.buf.size()));\n'
+     '    memcpy(*out, w.buf.data(), w.buf.size());\n'
+     '    *out_len = w.buf.size();\n'
+     '    copy.end(w.buf.size());\n'
+     '    return 0;\n'),
     ('    }\n'
      '    Stats st = se->st;  // copy: pack may run more than once per session\n',
      '    }\n'
