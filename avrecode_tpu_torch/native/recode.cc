@@ -2081,6 +2081,7 @@ static void write_sig0_sparse(artc::Writer& w, const std::vector<artc::Estimator
 }
 
 #include "slim_export.h"  // write_slim_chunk
+#include "dense_export.h"  // write_dense_chunk, gather_dense
 
 static void write_analyze_header(artc::Writer& w, const ArtcSession* se, uint32_t sup_u,
                                  bool slim) {
@@ -2309,6 +2310,9 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
     }
     Writer w;
     write_analyze_header(w, se, sup_u, /*slim=*/false);
+    // Each chunk's walk, then its export into sections of exact size
+    // (native/dense_export.h), which the copy-out gathers behind the header.
+    std::vector<DenseBuf> parts;
     WarmCtx warm;
     warm.src_slices = se->warm_slices;
     for (size_t ci = 0; ci < ranges.size(); ++ci) {
@@ -2329,147 +2333,12 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
       if (timing_enabled())
         fprintf(stderr, "[artc] analyze chunk %zu: trace walk %.3fs (%zu bins)\n",
                 ci, sec, trace.size());
-      // The export: the streams and prefix counts, then the v2 tables (an
-      // ARTC_TIMING line each, the first from a reading between them).
-      Phase xport(se->trace, "native.dense_export", int64_t(ci));
-      const size_t w0 = w.buf.size();
-      w.u64(trace.size());
-      for (const auto& c : trace) w.u8(c.bit);
-      for (const auto& c : trace) w.u8(c.kind);
-      for (const auto& c : trace) w.u32(c.key);
-      for (const auto& c : trace) w.u16(c.prior);
-      // Within-batch per-key exclusive prefix counts (ones, total). One tight
-      // pass with epoch-tagged counters; kinds 0/1 share the Dual key space.
-      {
-        uint32_t batch = opt.batch_size ? opt.batch_size : 1;
-        std::vector<uint32_t> ep_d(PriorModel::kNumDualKeys, ~0u);
-        std::vector<uint32_t> ep_s(PriorModel::kNumSigKeys, ~0u);
-        std::vector<uint16_t> d1(PriorModel::kNumDualKeys), dt(PriorModel::kNumDualKeys);
-        std::vector<uint16_t> s1(PriorModel::kNumSigKeys), st2(PriorModel::kNumSigKeys);
-        std::vector<uint16_t> pre1(trace.size()), pret(trace.size());
-        for (size_t i = 0; i < trace.size(); ++i) {
-          const auto& c = trace[i];
-          if (c.kind == PriorModel::kKindPrior) continue;  // pre stays 0
-          uint32_t bidx = uint32_t(i / batch);
-          bool is_sig = c.kind == PriorModel::kKindSig;
-          auto& ep = is_sig ? ep_s : ep_d;
-          auto& c1 = is_sig ? s1 : d1;
-          auto& ct = is_sig ? st2 : dt;
-          if (ep[c.key] != bidx) {
-            ep[c.key] = bidx;
-            c1[c.key] = 0;
-            ct[c.key] = 0;
-          }
-          pre1[i] = c1[c.key];
-          pret[i] = ct[c.key];
-          c1[c.key] = uint16_t(c1[c.key] + (c.bit ? 1 : 0));
-          ct[c.key] = uint16_t(ct[c.key] + 1);
-        }
-        for (uint16_t v : pre1) w.u16(v);
-        for (uint16_t v : pret) w.u16(v);
-      }
-      if (timing_enabled())
-        fprintf(stderr, "[artc] analyze chunk %zu: streams+prefix %.3fs\n", ci,
-                double(now_ns() - xport.t0) * 1e-9);
-      const int64_t t_mid = timing_enabled() ? now_ns() : 0;
-      for (uint16_t p : probs) w.u16(p);
-      for (const auto& d : dual0) {
-        w.u16(d.fp);
-        w.u16(d.fn);
-        w.u16(d.sp);
-        w.u16(d.sn);
-      }
-      write_sig0_sparse(w, sig0);
-      Phase v2(se->trace, "native.v2_tables", int64_t(ci));
-      const size_t w1 = w.buf.size();
-      // ---- model_pass_v2 tables: per-super-step sorted-unique dicts,
-      // per-bin dict indices, per-sub-batch per-entry (ones, total) deltas.
-      {
-        uint32_t batch = opt.batch_size ? opt.batch_size : 1;
-        uint64_t span = uint64_t(sup_u) * batch;
-        uint64_t ns = bucket_steps(uint32_t((trace.size() + span - 1) / span));
-        if (ns == 0) ns = 1;
-        uint64_t m = ns * span;
-        uint32_t n_dual_ext = uint32_t(PriorModel::kNumDualKeys) + 1;
-        // Phase 1: per-step unique key lists (epoch-tagged "seen" arrays).
-        std::vector<uint32_t> ep_d(PriorModel::kNumDualKeys, ~0u);
-        std::vector<uint32_t> ep_s(PriorModel::kNumSigKeys, ~0u);
-        std::vector<std::vector<uint32_t>> keys_d(ns), keys_s(ns);
-        for (uint64_t i = 0; i < trace.size(); ++i) {
-          const auto& c = trace[i];
-          if (c.kind == PriorModel::kKindPrior) continue;
-          uint32_t stp = uint32_t(i / span);
-          if (c.kind == PriorModel::kKindSig) {
-            if (ep_s[c.key] != stp) { ep_s[c.key] = stp; keys_s[stp].push_back(c.key); }
-          } else {
-            if (ep_d[c.key] != stp) { ep_d[c.key] = stp; keys_d[stp].push_back(c.key); }
-          }
-        }
-        uint32_t max_d = 1, max_s = 1;
-        for (uint64_t s = 0; s < ns; ++s) {
-          std::sort(keys_d[s].begin(), keys_d[s].end());
-          std::sort(keys_s[s].begin(), keys_s[s].end());
-          max_d = std::max<uint32_t>(max_d, uint32_t(keys_d[s].size()));
-          max_s = std::max<uint32_t>(max_s, uint32_t(keys_s[s].size()));
-        }
-        uint32_t ud = bucket_pow2(max_d + 1), us = bucket_pow2(max_s + 1);
-        // Phase 2: slot maps + per-bin indices + deltas.
-        std::vector<uint32_t> slot_d(PriorModel::kNumDualKeys), slot_s(PriorModel::kNumSigKeys);
-        std::vector<uint32_t> bin_u(m, ud - 1);  // ext/pad default
-        std::vector<uint32_t> dk_d(ns * ud), dk_s(ns * us);
-        std::vector<uint16_t> dd(ns * sup_u * uint64_t(ud) * 2, 0);
-        std::vector<uint16_t> ds(ns * sup_u * uint64_t(us) * 2, 0);
-        for (uint64_t s = 0; s < ns; ++s) {
-          for (uint32_t j = 0; j < ud; ++j)
-            dk_d[s * ud + j] = j < keys_d[s].size() ? keys_d[s][j]
-                                                    : n_dual_ext + (j - uint32_t(keys_d[s].size()));
-          for (uint32_t j = 0; j < us; ++j)
-            dk_s[s * us + j] = j < keys_s[s].size() ? keys_s[s][j]
-                                                    : uint32_t(PriorModel::kNumSigKeys) +
-                                                          (j - uint32_t(keys_s[s].size()));
-          for (uint32_t j = 0; j < keys_d[s].size(); ++j) slot_d[keys_d[s][j]] = j;
-          for (uint32_t j = 0; j < keys_s[s].size(); ++j) slot_s[keys_s[s][j]] = j;
-          uint64_t lo = s * span, hi = std::min<uint64_t>((s + 1) * span, trace.size());
-          for (uint64_t i = lo; i < hi; ++i) {
-            const auto& c = trace[i];
-            if (c.kind == PriorModel::kKindPrior) continue;
-            uint32_t sub = uint32_t((i - lo) / batch);
-            if (c.kind == PriorModel::kKindSig) {
-              uint32_t sl = slot_s[c.key];
-              bin_u[i] = ud + sl;
-              uint16_t* cell = &ds[(((s * sup_u) + sub) * us + sl) * 2];
-              cell[0] = uint16_t(cell[0] + (c.bit ? 1 : 0));
-              cell[1] = uint16_t(cell[1] + 1);
-            } else {
-              uint32_t sl = slot_d[c.key];
-              bin_u[i] = sl;
-              uint16_t* cell = &dd[(((s * sup_u) + sub) * ud + sl) * 2];
-              cell[0] = uint16_t(cell[0] + (c.bit ? 1 : 0));
-              cell[1] = uint16_t(cell[1] + 1);
-            }
-          }
-        }
-        w.u32(uint32_t(ns));
-        w.u32(ud);
-        w.u32(us);
-        w.u64(m);
-        for (uint32_t v : bin_u) w.u32(v);
-        for (uint32_t v : dk_d) w.u32(v);
-        for (uint32_t v : dk_s) w.u32(v);
-        for (uint16_t v : dd) w.u16(v);
-        for (uint16_t v : ds) w.u16(v);
-      }
-      v2.end(w.buf.size() - w1);
-      xport.end(w.buf.size() - w0);
-      if (timing_enabled())
-        fprintf(stderr, "[artc] analyze chunk %zu: v2 dicts+serialize %.3fs\n", ci,
-                double(now_ns() - t_mid) * 1e-9);
+      write_dense_chunk(parts, se->trace, int64_t(ci), trace, probs, dual0, sig0,
+                        opt.batch_size ? opt.batch_size : 1, sup_u);
     }
     Phase copy(se->trace, "native.copyout");
-    *out = static_cast<uint8_t*>(malloc(w.buf.size()));
-    memcpy(*out, w.buf.data(), w.buf.size());
-    *out_len = w.buf.size();
-    copy.end(w.buf.size());
+    *out_len = gather_dense(w.buf, parts, out);
+    copy.end(*out_len);
     return 0;
   } catch (const std::exception& e) {
     g_error = e.what();

@@ -1,8 +1,9 @@
 """The port's own copy of the C++ host engine (avrecode_tpu_torch/native)
 against the JAX package's (avrecode_tpu/native): the copy differs only by
 the defined read in sig_pos_class, decode_coeffs's guard against g++
-13.3's unswitching, recode.cc's span recording and its slim export, which
-the port's slim_export.h replaces; the port's library
+13.3's unswitching, recode.cc's span recording and its slim and dense
+exports, which the port's slim_export.h and dense_export.h replace; the
+port's library
 exports only the artc_* entries; both libraries, loaded in one process, write the same
 containers and read each other's; building the port's library reads,
 writes and names nothing under avrecode_tpu/."""
@@ -32,9 +33,11 @@ PORT_NATIVE = os.path.join(REPO, "avrecode_tpu_torch", "native")
 # the npz tables are read only by the JAX side), and the files of the copy
 # that have no original: the version script, the reproducer of the
 # miscompile that h264_slice.h's guard avoids (built by no library), the
-# span records' header and the slim export (torch_native_export.py).
+# span records' header and the slim and dense exports
+# (torch_native_export.py).
 NOT_COPIED = {"CMakeLists.txt", "gen/cabac_tables.npz"}
-PORT_ONLY = {"libartc_host.map", "repro_unswitch.cc", "trace.h", "slim_export.h"}
+PORT_ONLY = {"libartc_host.map", "repro_unswitch.cc", "trace.h", "slim_export.h",
+             "dense_export.h"}
 # The entries of the port's library that the JAX package's has not: its span
 # records (avrecode_tpu_torch/trace.py).
 PORT_ENTRIES = {"artc_session_trace", "artc_trace_enable"}
@@ -76,7 +79,8 @@ FIXES = {"model.h": [(
         "#endif\n"
         "  ARTC_NO_UNSWITCH void decode_coeffs(int cat, int max_coeff) {\n")],
     # The span records (native/trace.h, torch_native_spans.py), then the
-    # slim export (native/slim_export.h, torch_native_export.py).
+    # slim and dense exports (native/slim_export.h, native/dense_export.h,
+    # torch_native_export.py).
     "recode.cc": RECODE_SPANS + RECODE_EXPORT,
 }
 
@@ -97,7 +101,7 @@ COPIED = sorted(_tree(JAX_NATIVE) - NOT_COPIED)
 def test_copy_holds_exactly_the_engine_sources():
     """The copy holds every .h, recode.cc and gen/*.h of the JAX tree and,
     beside them, only the version script, the reproducer, the span header
-    and the slim export; the JAX tree holds nothing else
+    and the slim and dense exports; the JAX tree holds nothing else
     but CMakeLists.txt and the npz tables."""
     assert _tree(PORT_NATIVE) == set(COPIED) | PORT_ONLY
     assert all(f == "recode.cc" or f.endswith(".h") for f in COPIED)
