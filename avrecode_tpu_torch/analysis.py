@@ -10,7 +10,7 @@ export.
 """
 from __future__ import annotations
 
-import ctypes
+from collections.abc import Iterator
 from dataclasses import dataclass
 
 import numpy as np
@@ -186,22 +186,34 @@ def analyze(data: bytes, lanes: int = 16, chunk_mode: int = 0, batch_size: int =
         sup = mp.default_sup()
     if slim is None:
         slim = model_profile == 2
-    lib = host.lib()
-    h = lib.artc_session_open(data, len(data), lanes, chunk_mode, batch_size, model_profile)
-    if not h:
-        raise host.last_error()
-    try:
-        flags = (1 if slim else 0) | (2 if (slim and want_probs) else 0)
-        out = ctypes.POINTER(ctypes.c_uint8)()
-        out_len = ctypes.c_size_t()
-        rc = lib.artc_session_analyze2(h, sup, flags, ctypes.byref(out),
-                                       ctypes.byref(out_len))
-        if rc != 0:
-            raise host.last_error()
-        raw = host.take(out, out_len)
-    finally:
-        lib.artc_session_close(h)
+    flags = (1 if slim else 0) | (2 if (slim and want_probs) else 0)
+    with host.Session(data, lanes, chunk_mode, batch_size, model_profile) as session:
+        raw = session.analyze(sup, flags).take()
     return _parse_analysis(raw)
+
+
+def read_slim(session: host.Session, sup: int, sc) -> tuple[Analysis, Iterator]:
+    """Starts a session's slim analysis (`call.begin`), parses its header
+    (`call.header`) and returns it with a generator that yields, chunk by
+    chunk, (the `chunk.fetch` span, the SlimChunk): the native fetch, the copy
+    and free (`chunk.take`) and the parse (`chunk.parse`). `sc`: a
+    trace.Scope, or trace.NULL."""
+    with sc.span("call.begin"):
+        n_chunks = session.begin(sup, 0)
+    with sc.span("call.header"):
+        an, _ = _parse_header(session.header())
+
+    def chunks():
+        prev = None
+        for i in range(n_chunks):
+            with sc.span("chunk.fetch", chunk=i) as fetch:
+                export = session.chunk(i)
+            with sc.span("chunk.take", chunk=i):
+                raw = export.take()
+            with sc.span("chunk.parse", chunk=i):
+                prev = _parse_slim_chunk(np.frombuffer(raw, np.uint8), an, prev)
+            yield fetch, prev
+    return an, chunks()
 
 
 _HDR_BYTES = 48  # magic + 11 u32 header fields

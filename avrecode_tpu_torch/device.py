@@ -33,7 +33,6 @@ analysis.py (re-exported here); every public entry takes an explicit
 """
 from __future__ import annotations
 
-import ctypes
 import os
 from dataclasses import dataclass
 
@@ -44,8 +43,8 @@ from . import host
 from . import streams as cs
 from . import trace
 from .analysis import (Analysis, ChunkAnalysis, SlimChunk, _bucket_pow2, _chunk_layout,
-                       _parse_analysis, _parse_header, _parse_slim_chunk, _sig0_dense,
-                       _sig0_sparse_padded, analyze, pick_lanes)
+                       _parse_analysis, _sig0_dense, _sig0_sparse_padded, analyze, pick_lanes,
+                       read_slim)
 from .ops import lanes as lx
 from .ops import model_pass as mp
 
@@ -316,14 +315,6 @@ def device_blob(an: Analysis, chunk: SlimChunk | ChunkAnalysis, device="cuda",
                                  device=_device(device), moved=moved)
 
 
-def _fetch(rc: int, out, out_len) -> bytes:
-    """The native export a session call just returned (freed here); raises
-    on a nonzero rc."""
-    if rc != 0:
-        raise host.last_error()
-    return host.take(out, out_len)
-
-
 def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
              batch_size: int = 4096, model_profile: int = 2,
              force_lanes: int | None = None, info: dict | None = None, *,
@@ -339,26 +330,22 @@ def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
     (see _compress_slim / _compress_dense), each from the spans' clock
     readings; with keep_probs also each chunk's probs (uint16[n])."""
     device = _device(device)
-    lib = host.lib()
     timing = os.environ.get("ARTC_TIMING", "") not in ("", "0")
     with trace.root("call", count=len(data), keep=info is not None or timing) as sc:
         with sc.span("call.open"):
-            h = lib.artc_session_open(data, len(data), lanes, chunk_mode, batch_size,
-                                      model_profile)
-        if not h:
-            raise host.last_error()
-        try:
-            if model_profile == 2:
-                blobs, extra = _compress_slim(lib, h, device, force_lanes, keep_probs, sc,
-                                              timing)
-            else:
-                blobs, extra = _compress_dense(lib, h, device, force_lanes, keep_probs, sc)
-            with sc.span("call.pack"):
-                result = host.pack_session(h, blobs)
-        finally:
-            if sc.recording:
-                sc.join_native(host.session_trace(h))
-            lib.artc_session_close(h)
+            session = host.Session(data, lanes, chunk_mode, batch_size, model_profile)
+        with session:
+            try:
+                if model_profile == 2:
+                    blobs, extra = _compress_slim(session, device, force_lanes, keep_probs, sc,
+                                                  timing)
+                else:
+                    blobs, extra = _compress_dense(session, device, force_lanes, keep_probs, sc)
+                with sc.span("call.pack"):
+                    result = session.pack(blobs)
+            finally:
+                if sc.recording:
+                    sc.join_native(session.trace())
     if info is not None:
         info.update(extra)
         info.update(_slim_phases(sc) if model_profile == 2 else _dense_phases(sc))
@@ -387,7 +374,7 @@ def _slim_phases(sc) -> dict:
     return out
 
 
-def _compress_dense(lib, h, device, force_lanes, keep_probs, sc) -> tuple[list[bytes], dict]:
+def _compress_dense(session, device, force_lanes, keep_probs, sc) -> tuple[list[bytes], dict]:
     """Profile 0: one native export of the whole dense analysis, then per
     chunk the model pass (ARTC_MODEL_IMPL) and the lane encode. Returns the
     blobs and info's other keys. info phases: analyze_s (`call.open` and
@@ -398,13 +385,10 @@ def _compress_dense(lib, h, device, force_lanes, keep_probs, sc) -> tuple[list[b
     `chunk.model` counts the chunk's bins and (count2) the bytes it moves
     both ways; `chunk.lanes` the chunk's lanes K and the bytes of its
     uploaded lane planes."""
-    out = ctypes.POINTER(ctypes.c_uint8)()
-    out_len = ctypes.c_size_t()
     with sc.span("call.analyze"):
-        rc = lib.artc_session_analyze2(h, mp.default_sup(), 0, ctypes.byref(out),
-                                       ctypes.byref(out_len))
+        export = session.analyze(mp.default_sup(), 0)
         with sc.span("call.parse"):
-            an = _parse_analysis(_fetch(rc, out, out_len))
+            an = _parse_analysis(export.take())
     probs, blobs = [], []
     with sc.span("call.model"):
         for i, c in enumerate(an.chunks):
@@ -425,7 +409,7 @@ def _compress_dense(lib, h, device, force_lanes, keep_probs, sc) -> tuple[list[b
     return blobs, extra
 
 
-def _compress_slim(lib, h, device, force_lanes, keep_probs, sc,
+def _compress_slim(session, device, force_lanes, keep_probs, sc,
                    timing) -> tuple[list[bytes], dict]:
     """Profile 2: the native session's workers walk and export chunks while
     the loop fetches chunk i, stages it and launches its expand, model pass
@@ -440,8 +424,8 @@ def _compress_slim(lib, h, device, force_lanes, keep_probs, sc,
     info phases, each the seconds of its spans: open_s (from `call.open`'s
     start to `call.header`'s end: the session open and the start of the
     native analysis), fetch_s (the sum of fetch_wait_s, `chunk.fetch` and
-    `chunk.take`: the time in artc_session_analyze_chunk and the export's
-    copy into bytes, and parse_s, `chunk.parse`), stage_s (`chunk.stage`:
+    `chunk.take`: the time in the native fetch, host.Session.chunk, and the
+    export's copy into bytes, and parse_s, `chunk.parse`), stage_s (`chunk.stage`:
     blob packing and uploads), launch_s (`chunk.launch`: kernel launches),
     compact_s (`chunk.compact`: the counts readback, which waits for the
     lane scan, and the compaction launch), dispatch_s (the whole chunk
@@ -455,20 +439,11 @@ def _compress_slim(lib, h, device, force_lanes, keep_probs, sc,
     lines, in its order and format, from the spans' readings: per chunk
     fetch+dispatch with its MiB of wire, the previous chunk's compaction,
     each emit, and the wire total."""
-    out = ctypes.POINTER(ctypes.c_uint8)()
-    out_len = ctypes.c_size_t()
-    with sc.span("call.begin"):
-        n_chunks = lib.artc_session_analyze_begin(h, mp.default_sup(), 0)
-    if n_chunks < 0:
-        raise host.last_error()
-    with sc.span("call.header"):
-        rc = lib.artc_session_analyze_header(h, ctypes.byref(out), ctypes.byref(out_len))
-        an, _ = _parse_header(_fetch(rc, out, out_len))
+    an, chunks = read_slim(session, mp.default_sup(), sc)
     cache: dict = {}
     handles: list = []
     compacted: list = []
     kept: list = []
-    prev = None
     wire_bytes = 0
 
     with cs.for_call(device) as streams, torch.cuda.stream(streams and streams.compute):
@@ -476,15 +451,7 @@ def _compress_slim(lib, h, device, force_lanes, keep_probs, sc,
         if streams is not None:
             origin = torch.cuda.Event(enable_timing=True)
             origin.record(streams.compute)
-        for i in range(n_chunks):
-            with sc.span("chunk.fetch", chunk=i) as fetch:
-                rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out),
-                                                    ctypes.byref(out_len))
-            with sc.span("chunk.take", chunk=i):
-                raw = _fetch(rc, out, out_len)
-            with sc.span("chunk.parse", chunk=i):
-                c = _parse_slim_chunk(np.frombuffer(raw, np.uint8), an, prev)
-            prev = c
+        for i, (fetch, c) in enumerate(chunks):
             with sc.span("chunk.stage", chunk=i) as stage:
                 st = to_torch_staged(an, c, device, cache, streams)
                 stage.count = st.wire_nbytes
@@ -506,7 +473,7 @@ def _compress_slim(lib, h, device, force_lanes, keep_probs, sc,
                     print(f"[artc] device chunk {i - 1}: compact {compact.seconds:.3f}s",
                           flush=True)
         if handles:
-            with sc.span("chunk.compact", chunk=n_chunks - 1):
+            with sc.span("chunk.compact", chunk=len(handles) - 1):
                 compacted.append(lx.encode_interleaved_compact(handles[-1], streams))
         with sc.span("call.emit"):
             parts = [lx.emit_tensors(ch) for ch in compacted]
@@ -520,7 +487,7 @@ def _compress_slim(lib, h, device, force_lanes, keep_probs, sc,
             print(f"[artc] device chunk {i}: emit {emit.seconds:.3f}s", flush=True)
     if timing:
         print(f"[artc] device wire total {wire_bytes / 1e6:.1f} MB", flush=True)
-    extra = {"wire_bytes": wire_bytes, "n_chunks": n_chunks}
+    extra = {"wire_bytes": wire_bytes, "n_chunks": len(handles)}
     if keep_probs:
         extra["probs"] = [a.astype(np.uint16) for a in arrays]
     if streams is not None:
@@ -639,25 +606,9 @@ def compress_mesh(data: bytes, mesh, lanes: int = 16, chunk_mode: int = 1,
     if sup <= 0:
         sup = mp.default_sup()
     first = mesh.devices[0][0]
-    lib = host.lib()
-    h = lib.artc_session_open(data, len(data), lanes, chunk_mode, batch_size, 2)
-    if not h:
-        raise host.last_error()
-    try:
-        out = ctypes.POINTER(ctypes.c_uint8)()
-        out_len = ctypes.c_size_t()
-        n_chunks = lib.artc_session_analyze_begin(h, sup, 0)
-        if n_chunks < 0:
-            raise host.last_error()
-        rc = lib.artc_session_analyze_header(h, ctypes.byref(out), ctypes.byref(out_len))
-        an, _ = _parse_header(_fetch(rc, out, out_len))
-        chunks: list[SlimChunk] = []
-        prev = None
-        for i in range(n_chunks):
-            rc = lib.artc_session_analyze_chunk(h, i, ctypes.byref(out), ctypes.byref(out_len))
-            prev = _parse_slim_chunk(np.frombuffer(_fetch(rc, out, out_len), np.uint8), an,
-                                     prev)
-            chunks.append(prev)
+    with host.Session(data, lanes, chunk_mode, batch_size, 2) as session:
+        an, stream = read_slim(session, sup, trace.NULL)
+        chunks = [c for _, c in stream]
         inputs = mesh_inputs(an, chunks, mesh.shape["gop"], sup, force_lanes,
                              pin=first.type == "cuda")
         step = sharded_v4_compress_step(mesh, **inputs.statics)
@@ -670,6 +621,4 @@ def compress_mesh(data: bytes, mesh, lanes: int = 16, chunk_mode: int = 1,
         K = inputs.statics["K_total"]
         blobs = [lx.assemble_blob(x_final[g], words[g], emits[g], c.n, K)
                  for g, c in enumerate(chunks)]
-        return host.pack_session(h, blobs)
-    finally:
-        lib.artc_session_close(h)
+        return session.pack(blobs)

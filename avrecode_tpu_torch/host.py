@@ -5,7 +5,8 @@ rANS codec and the container) is the port's own copy, under native/:
 `_native.ensure_host_lib` compiles it into build/libartc_host.so, and this
 module binds its C ABI. It is a copy of avrecode_tpu/host.py's bindings plus
 the analysis-session entries of avrecode_tpu/device.py (`_session_lib`,
-`_pack_session`), so the port imports nothing of the JAX package.
+`_pack_session`), held by one type, `Session`, so the port imports nothing
+of the JAX package and no other module of it calls a session entry.
 Decompression runs here, on the host: every container the port writes is
 read back by the independent C++ decoder.
 """
@@ -167,22 +168,30 @@ def last_error() -> NativeError:
     return NativeError(lib().artc_last_error().decode())
 
 
-def take(out, out_len) -> bytes:
-    """The bytes of a buffer the library returned, which is freed here."""
-    try:
-        return ctypes.string_at(out, out_len.value)
-    finally:
-        lib().artc_free(out)
+class _Returned:
+    """The buffer fn(*args, &out, &out_len[, &stats]) hands back (a nonzero rc
+    raises the library's error), until take() copies it into bytes and frees
+    it: at once, or under a span of the caller's."""
+    __slots__ = ("out", "out_len")
+
+    def __init__(self, fn, *args, stats: ArtcStatsC | None = None):
+        self.out = ctypes.POINTER(ctypes.c_uint8)()
+        self.out_len = ctypes.c_size_t()
+        tail = () if stats is None else (ctypes.byref(stats),)
+        if fn(*args, ctypes.byref(self.out), ctypes.byref(self.out_len), *tail) != 0:
+            raise last_error()
+
+    def take(self) -> bytes:
+        try:
+            return ctypes.string_at(self.out, self.out_len.value)
+        finally:
+            lib().artc_free(self.out)
 
 
 def _call(fn, data: bytes, *args) -> tuple[bytes, Stats]:
-    out = ctypes.POINTER(ctypes.c_uint8)()
-    out_len = ctypes.c_size_t()
     st = ArtcStatsC()
-    rc = fn(data, len(data), *args, ctypes.byref(out), ctypes.byref(out_len), ctypes.byref(st))
-    if rc != 0:
-        raise last_error()
-    return take(out, out_len), Stats.from_c(st)
+    raw = _Returned(fn, data, len(data), *args, stats=st).take()
+    return raw, Stats.from_c(st)
 
 
 def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
@@ -203,43 +212,67 @@ def rans_encode(bits, probs, lanes: int) -> bytes:
     import numpy as np
     bits = np.ascontiguousarray(bits, np.uint8)
     probs = np.ascontiguousarray(probs, np.uint16)
-    out = ctypes.POINTER(ctypes.c_uint8)()
-    out_len = ctypes.c_size_t()
-    rc = lib().artc_rans_encode(bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                                probs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-                                len(bits), lanes, ctypes.byref(out), ctypes.byref(out_len))
-    if rc != 0:
-        raise last_error()
-    return take(out, out_len)
+    return _Returned(lib().artc_rans_encode,
+                     bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                     probs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+                     len(bits), lanes).take()
 
 
-def pack_session(h, blobs: list[bytes]) -> tuple[bytes, Stats]:
-    """Packs an open analysis session's container around the chunks' lane
-    blobs (avrecode_tpu/device.py _pack_session)."""
-    blob_cat = b"".join(blobs)
-    lens = (ctypes.c_uint64 * len(blobs))(*[len(b) for b in blobs])
-    out = ctypes.POINTER(ctypes.c_uint8)()
-    out_len = ctypes.c_size_t()
-    st = ArtcStatsC()
-    rc = lib().artc_session_pack(h, blob_cat, lens, len(blobs), ctypes.byref(out),
-                                 ctypes.byref(out_len), ctypes.byref(st))
-    if rc != 0:
-        raise last_error()
-    return take(out, out_len), Stats.from_c(st)
+class Session:
+    """One native analysis session of `data`: the syntax walk, its exports,
+    and the container packed around the device's lane blobs. Opening raises
+    NativeError with the library's message; `with` closes it once."""
 
+    def __init__(self, data: bytes, lanes: int, chunk_mode: int, batch_size: int,
+                 model_profile: int):
+        self._lib = lib()
+        self._h = self._lib.artc_session_open(data, len(data), lanes, chunk_mode, batch_size,
+                                              model_profile)
+        if not self._h:
+            raise last_error()
 
-def session_trace(h) -> list[tuple]:
-    """The spans an open session recorded since the last call, as (name,
-    start_ns, end_ns, thread, chunk or -1, count, count2); none unless the
-    recorder was on when it opened (trace.enable)."""
-    out = ctypes.POINTER(ctypes.c_uint8)()
-    out_len = ctypes.c_size_t()
-    if lib().artc_session_trace(h, ctypes.byref(out), ctypes.byref(out_len)) != 0:
-        raise last_error()
-    if not out_len.value:
-        return []
-    raw = take(out, out_len)
-    n = len(raw) // ctypes.sizeof(ArtcTraceRecordC)
-    recs = (ArtcTraceRecordC * n).from_buffer_copy(raw)
-    return [(r.name.decode(), r.start_ns, r.end_ns, r.thread, r.chunk, r.count, r.count2)
-            for r in recs]
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        h, self._h = self._h, None
+        if h:
+            self._lib.artc_session_close(h)
+
+    def begin(self, sup: int, flags: int) -> int:
+        """Starts the slim analysis's workers; returns the chunk count."""
+        n = self._lib.artc_session_analyze_begin(self._h, sup, flags)
+        if n < 0:
+            raise last_error()
+        return n
+
+    def header(self) -> bytes:
+        return _Returned(self._lib.artc_session_analyze_header, self._h).take()
+
+    def chunk(self, i: int) -> _Returned:
+        """Chunk i's slim export, handed over once, when it is written."""
+        return _Returned(self._lib.artc_session_analyze_chunk, self._h, i)
+
+    def analyze(self, sup: int, flags: int) -> _Returned:
+        """The whole export (flags: 1 slim, 2 with the host probabilities)."""
+        return _Returned(self._lib.artc_session_analyze2, self._h, sup, flags)
+
+    def pack(self, blobs: list[bytes]) -> tuple[bytes, Stats]:
+        lens = (ctypes.c_uint64 * len(blobs))(*[len(b) for b in blobs])
+        st = ArtcStatsC()
+        raw = _Returned(self._lib.artc_session_pack, self._h, b"".join(blobs), lens, len(blobs),
+                        stats=st).take()
+        return raw, Stats.from_c(st)
+
+    def trace(self) -> list[tuple]:
+        """The spans the session recorded since the last call, as (name,
+        start_ns, end_ns, thread, chunk or -1, count, count2); none unless the
+        recorder was on when it opened (trace.enable)."""
+        buf = _Returned(self._lib.artc_session_trace, self._h)
+        if not buf.out_len.value:
+            return []
+        raw = buf.take()
+        n = len(raw) // ctypes.sizeof(ArtcTraceRecordC)
+        recs = (ArtcTraceRecordC * n).from_buffer_copy(raw)
+        return [(r.name.decode(), r.start_ns, r.end_ns, r.thread, r.chunk, r.count, r.count2)
+                for r in recs]

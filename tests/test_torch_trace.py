@@ -7,7 +7,6 @@ two-worker corpus gives each file its own call. A traced profile-0
 compress of benchdata/multigop.mp4 (eight chunks) gives the dense path's
 tree: per chunk one walk, one export holding its v2 tables, one model pass
 and one lane encode, each with its counts."""
-import ctypes
 import os
 import struct
 
@@ -141,21 +140,12 @@ def test_the_container_is_the_same_with_the_recorder_on(multigop):
 def _session_spans(data) -> list:
     """Opens a profile-2 session, fetches every chunk, and returns what
     artc_session_trace hands over before the close."""
-    lib = host.lib()
-    h = lib.artc_session_open(data, len(data), 16, 0, 1024, 2)
-    assert h
-    try:
-        out = ctypes.POINTER(ctypes.c_uint8)()
-        out_len = ctypes.c_size_t()
-        n = lib.artc_session_analyze_begin(h, mp.default_sup(), 0)
+    with host.Session(data, 16, 0, 1024, 2) as session:
+        n = session.begin(mp.default_sup(), 0)
         assert n > 0
         for i in range(n):
-            assert lib.artc_session_analyze_chunk(h, i, ctypes.byref(out),
-                                                  ctypes.byref(out_len)) == 0
-            host.take(out, out_len)
-        return host.session_trace(h)
-    finally:
-        lib.artc_session_close(h)
+            session.chunk(i).take()
+        return session.trace()
 
 
 def test_off_records_nothing_and_reads_no_clock(corpus_dir, monkeypatch):
