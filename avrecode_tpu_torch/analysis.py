@@ -4,9 +4,10 @@ the blob layout buckets of the profile-2 wire.
 A copy of the JAX-free parsers of avrecode_tpu/device.py (ChunkAnalysis,
 SlimChunk, Analysis, analyze, the ANLZ/ANL5 parsers, the layout buckets and
 pick_lanes), under the same names, so the port imports nothing of the JAX
-package. The wire formats are recode.cc's write_analyze_header, the slim
+package, and the two streaming chunk loops over a session, read_slim and
+read_dense. The wire formats are recode.cc's write_analyze_header, the slim
 export's write_slim_chunk (native/slim_export.h) and the dense analysis
-export.
+export's write_dense_chunk (native/dense_export.h).
 """
 from __future__ import annotations
 
@@ -216,6 +217,32 @@ def read_slim(session: host.Session, sup: int, sc) -> tuple[Analysis, Iterator]:
     return an, chunks()
 
 
+def read_dense(session: host.Session, sup: int, sc) -> tuple[Analysis, Iterator]:
+    """Starts a session's dense analysis (`call.begin`: its walker threads
+    walk and export chunks, claimed in order, a few ahead of the ones
+    taken), parses its header (`call.header`)
+    and returns it with a generator that yields, chunk by chunk, the
+    ChunkAnalysis: the native hand-over (`chunk.fetch`, around the native
+    `native.rendezvous` and `native.copyout`) and the parse, read in place
+    and freed (`call.parse`). `sc`: a trace.Scope, or trace.NULL."""
+    with sc.span("call.begin"):
+        n_chunks = session.begin(sup, host.DENSE)
+    with sc.span("call.header"):
+        an, _ = _parse_header(session.header())
+
+    def parse(raw) -> ChunkAnalysis:
+        return _parse_dense_chunk(np.frombuffer(raw, np.uint8), an)[0]
+
+    def chunks():
+        for i in range(n_chunks):
+            with sc.span("chunk.fetch", chunk=i):
+                export = session.chunk(i)
+            with sc.span("call.parse", chunk=i):
+                c = export.read(parse)
+            yield c
+    return an, chunks()
+
+
 _HDR_BYTES = 48  # magic + 11 u32 header fields
 
 
@@ -238,28 +265,6 @@ def _parse_analysis(raw: bytes) -> Analysis:
     buf = np.frombuffer(raw, dtype=np.uint8)
     an, n_chunks = _parse_header(raw)
     pos = _HDR_BYTES
-
-    def u32():
-        nonlocal pos
-        v = int(buf[pos:pos + 4].view(np.uint32)[0])
-        pos += 4
-        return v
-
-    def u64():
-        nonlocal pos
-        v = int(buf[pos:pos + 8].view(np.uint64)[0])
-        pos += 8
-        return v
-
-    def arr(dtype, count):
-        nonlocal pos
-        nbytes = np.dtype(dtype).itemsize * count
-        v = buf[pos:pos + nbytes].view(dtype).copy()
-        pos += nbytes
-        return v
-
-    n_dual = an.n_dual
-    sup_out = an.sup
     chunks = an.chunks
     if an.slim:
         prev = None
@@ -272,34 +277,59 @@ def _parse_analysis(raw: bytes) -> Analysis:
             raise ValueError(f"analysis export holds {len(chunks)} of {n_chunks} chunks")
         return an
     for _ in range(n_chunks):
-        n = u64()
-        bit = arr(np.uint8, n)
-        kind = arr(np.uint8, n)
-        key = arr(np.uint32, n)
-        prior = arr(np.uint16, n)
-        pre_ones = arr(np.uint16, n)
-        pre_tot = arr(np.uint16, n)
-        probs = arr(np.uint16, n)
-        dual0 = arr(np.uint16, 4 * n_dual).astype(np.int32).reshape(n_dual, 4)
-        n_sig_nz = u32()
-        sig0_idx = arr(np.uint32, n_sig_nz)
-        sig0_pos = arr(np.uint16, n_sig_nz)
-        sig0_neg = arr(np.uint16, n_sig_nz)
-        ns = u32()
-        ud = u32()
-        us = u32()
-        m = u64()
-        bin_u = arr(np.uint32, m)
-        dk_d = arr(np.uint32, ns * ud).astype(np.int32).reshape(ns, ud)
-        dk_s = arr(np.uint32, ns * us).astype(np.int32).reshape(ns, us)
-        dd = arr(np.uint16, ns * sup_out * ud * 2).astype(np.int32).reshape(ns, sup_out, ud, 2)
-        ds = arr(np.uint16, ns * sup_out * us * 2).astype(np.int32).reshape(ns, sup_out, us, 2)
-        chunks.append(ChunkAnalysis(bit, kind, key, prior, pre_ones, pre_tot, probs, dual0,
-                                    int(m), bin_u, dk_d, dk_s, dd, ds,
-                                    sig0_idx=sig0_idx,
-                                    sig0_val=np.stack([sig0_pos, sig0_neg],
-                                                      axis=1).astype(np.int32)))
+        c, length = _parse_dense_chunk(buf[pos:], an)
+        pos += length
+        chunks.append(c)
     return an
+
+
+def _parse_dense_chunk(buf: np.ndarray, an: Analysis) -> tuple[ChunkAnalysis, int]:
+    """Parses the ANLZ chunk at the start of `buf` (native/dense_export.h's
+    layout) into arrays of its own, none a view of `buf`; returns it and its
+    length in bytes."""
+    pos = 0
+
+    def scalar(dtype):
+        nonlocal pos
+        size = np.dtype(dtype).itemsize
+        v = int(buf[pos:pos + size].view(dtype)[0])
+        pos += size
+        return v
+
+    def arr(dtype, count, widen=None):
+        nonlocal pos
+        nbytes = np.dtype(dtype).itemsize * count
+        v = buf[pos:pos + nbytes].view(dtype)
+        pos += nbytes
+        return v.copy() if widen is None else v.astype(widen)
+
+    n_dual, sup = an.n_dual, an.sup
+    n = scalar(np.uint64)
+    bit = arr(np.uint8, n)
+    kind = arr(np.uint8, n)
+    key = arr(np.uint32, n)
+    prior = arr(np.uint16, n)
+    pre_ones = arr(np.uint16, n)
+    pre_tot = arr(np.uint16, n)
+    probs = arr(np.uint16, n)
+    dual0 = arr(np.uint16, 4 * n_dual, np.int32).reshape(n_dual, 4)
+    n_sig_nz = scalar(np.uint32)
+    sig0_idx = arr(np.uint32, n_sig_nz)
+    sig0_pos = arr(np.uint16, n_sig_nz)
+    sig0_neg = arr(np.uint16, n_sig_nz)
+    ns = scalar(np.uint32)
+    ud = scalar(np.uint32)
+    us = scalar(np.uint32)
+    m = scalar(np.uint64)
+    bin_u = arr(np.uint32, m)
+    dk_d = arr(np.uint32, ns * ud, np.int32).reshape(ns, ud)
+    dk_s = arr(np.uint32, ns * us, np.int32).reshape(ns, us)
+    dd = arr(np.uint16, ns * sup * ud * 2, np.int32).reshape(ns, sup, ud, 2)
+    ds = arr(np.uint16, ns * sup * us * 2, np.int32).reshape(ns, sup, us, 2)
+    c = ChunkAnalysis(bit, kind, key, prior, pre_ones, pre_tot, probs, dual0, m, bin_u, dk_d,
+                      dk_s, dd, ds, sig0_idx=sig0_idx,
+                      sig0_val=np.stack([sig0_pos, sig0_neg], axis=1).astype(np.int32))
+    return c, pos
 
 
 def _parse_slim_chunk(buf: np.ndarray, an: Analysis, prev: SlimChunk | None) -> SlimChunk:

@@ -7,10 +7,11 @@ Counterpart of avrecode_tpu/device.py, for both model profiles and the mesh:
     syntax and exports one slim (ANL5) chunk at a time; each chunk is packed
     into one fused u32 blob, uploaded, expanded and modelled on the device,
     and lane-encoded there (`to_torch_staged`, `_exec_v4`);
-  - profile 0 (immediate increments): the native engine exports the whole
-    dense analysis at once; each chunk's planes and tables are uploaded, the
-    model pass chosen by ARTC_MODEL_IMPL (v2, dict, sort or mm) computes its
-    probabilities, and `encode_interleaved` lane-encodes them;
+  - profile 0 (immediate increments): native walker threads walk and
+    export the dense analysis a few chunks ahead while the caller parses
+    chunk i, uploads its planes and tables, computes its probabilities with
+    the model pass chosen by ARTC_MODEL_IMPL (v2, dict, sort or mm), and
+    lane-encodes them (`encode_interleaved`);
   - the mesh (`compress_mesh`, profile 2): every chunk is packed with one
     mesh-uniform layout and the whole set runs as one
     parallel.pipeline.sharded_v4_compress_step over a (gop, lane) grid of
@@ -43,7 +44,7 @@ from . import host
 from . import streams as cs
 from . import trace
 from .analysis import (Analysis, ChunkAnalysis, SlimChunk, _bucket_pow2, _chunk_layout,
-                       _parse_analysis, _sig0_dense, _sig0_sparse_padded, analyze, pick_lanes,
+                       _sig0_dense, _sig0_sparse_padded, analyze, pick_lanes, read_dense,
                        read_slim)
 from .ops import lanes as lx
 from .ops import model_pass as mp
@@ -356,9 +357,9 @@ def compress(data: bytes, lanes: int = 16, chunk_mode: int = 0,
 
 def _dense_phases(sc) -> dict:
     """Profile 0's info phases from the call's spans."""
-    analyze_ns = sc.first("call.analyze").end_ns - sc.first("call.open").start_ns
-    return {"analyze_s": analyze_ns / 1e9, "model_s": sc.seconds("call.model"),
-            "lanes_s": sc.seconds("call.lanes")}
+    return {"analyze_s": sc.seconds("call.open", "call.begin", "call.header", "chunk.fetch",
+                                    "call.parse"),
+            "model_s": sc.seconds("chunk.model"), "lanes_s": sc.seconds("chunk.lanes")}
 
 
 def _slim_phases(sc) -> dict:
@@ -375,35 +376,33 @@ def _slim_phases(sc) -> dict:
 
 
 def _compress_dense(session, device, force_lanes, keep_probs, sc) -> tuple[list[bytes], dict]:
-    """Profile 0: one native export of the whole dense analysis, then per
-    chunk the model pass (ARTC_MODEL_IMPL) and the lane encode. Returns the
-    blobs and info's other keys. info phases: analyze_s (`call.open` and
-    `call.analyze`: native analysis and export, then `call.parse`: the
-    export's copy into bytes and its parse), model_s (`call.model`: per
-    chunk `chunk.model`, its uploads, model pass and probs download),
-    lanes_s (`call.lanes`: per chunk `chunk.lanes`, its lane encode).
-    `chunk.model` counts the chunk's bins and (count2) the bytes it moves
-    both ways; `chunk.lanes` the chunk's lanes K and the bytes of its
-    uploaded lane planes."""
-    with sc.span("call.analyze"):
-        export = session.analyze(mp.default_sup(), 0)
-        with sc.span("call.parse"):
-            an = _parse_analysis(export.take())
+    """Profile 0: the session's walker threads walk and export the dense
+    analysis a few chunks ahead (analysis.read_dense) while this loop takes
+    chunk i, parses it, runs its model pass (ARTC_MODEL_IMPL) and its lane
+    encode. Returns the blobs and info's other keys. info phases, the
+    calling thread's seconds: analyze_s (`call.open`, `call.begin`,
+    `call.header`, and per chunk `chunk.fetch`, the wait for the chunk's
+    export and its hand-over, and `call.parse`, its parse), model_s (per
+    chunk `chunk.model`: its uploads, model pass and probs download),
+    lanes_s (per chunk `chunk.lanes`: its lane encode). `chunk.model`
+    counts the chunk's bins and (count2) the bytes it moves both ways;
+    `chunk.lanes` the chunk's lanes K and the bytes of its uploaded lane
+    planes."""
+    an, chunks = read_dense(session, mp.default_sup(), sc)
     probs, blobs = [], []
-    with sc.span("call.model"):
-        for i, c in enumerate(an.chunks):
-            moved: list = []
-            with sc.span("chunk.model", chunk=i, count=len(c.bit)) as sp:
-                probs.append(device_probs(an, c, device, moved=moved))
-                sp.count2 = sum(moved)
-    with sc.span("call.lanes"):
-        for i, (c, p) in enumerate(zip(an.chunks, probs)):
-            K = force_lanes or pick_lanes(len(c.bit))
-            moved = []
-            with sc.span("chunk.lanes", chunk=i, count=K) as sp:
-                blobs.append(device_blob(an, c, device, probs=p, force_lanes=K, moved=moved))
-                sp.count2 = sum(moved)
-    extra = {"n_chunks": len(an.chunks)}
+    for i, c in enumerate(chunks):
+        moved: list = []
+        with sc.span("chunk.model", chunk=i, count=len(c.bit)) as sp:
+            p = device_probs(an, c, device, moved=moved)
+            sp.count2 = sum(moved)
+        K = force_lanes or pick_lanes(len(c.bit))
+        moved = []
+        with sc.span("chunk.lanes", chunk=i, count=K) as sp:
+            blobs.append(device_blob(an, c, device, probs=p, force_lanes=K, moved=moved))
+            sp.count2 = sum(moved)
+        if keep_probs:
+            probs.append(p)
+    extra = {"n_chunks": len(blobs)}
     if keep_probs:
         extra["probs"] = probs
     return blobs, extra

@@ -115,6 +115,10 @@ _LIB_LOCK = threading.Lock()
 _OUT = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
 _LEN = ctypes.POINTER(ctypes.c_size_t)
 
+# Session.begin's flags: 2 adds the host probabilities to the slim export;
+# DENSE starts the dense analysis in place of the slim one.
+DENSE = 4
+
 
 def _bind(lib: ctypes.CDLL) -> None:
     """argtypes/restype of every C entry the port calls."""
@@ -187,6 +191,18 @@ class _Returned:
         finally:
             lib().artc_free(self.out)
 
+    def read(self, fn):
+        """fn(the buffer, read in place as a ctypes byte array), then the
+        buffer freed; returns fn's result, which must hold no view of the
+        buffer."""
+        try:
+            n = self.out_len.value
+            raw = (ctypes.c_uint8 * n).from_address(ctypes.addressof(self.out.contents)) \
+                if n else bytearray()
+            return fn(raw)
+        finally:
+            lib().artc_free(self.out)
+
 
 def _call(fn, data: bytes, *args) -> tuple[bytes, Stats]:
     st = ArtcStatsC()
@@ -240,7 +256,8 @@ class Session:
             self._lib.artc_session_close(h)
 
     def begin(self, sup: int, flags: int) -> int:
-        """Starts the slim analysis's workers; returns the chunk count."""
+        """Starts the slim analysis's workers or, with flags DENSE, the dense
+        analysis's walkers; returns the chunk count."""
         n = self._lib.artc_session_analyze_begin(self._h, sup, flags)
         if n < 0:
             raise last_error()
@@ -250,7 +267,8 @@ class Session:
         return _Returned(self._lib.artc_session_analyze_header, self._h).take()
 
     def chunk(self, i: int) -> _Returned:
-        """Chunk i's slim export, handed over once, when it is written."""
+        """Chunk i's export, handed over once, when it is written (dense
+        chunks in order)."""
         return _Returned(self._lib.artc_session_analyze_chunk, self._h, i)
 
     def analyze(self, sup: int, flags: int) -> _Returned:

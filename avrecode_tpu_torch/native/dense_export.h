@@ -1,7 +1,9 @@
-// The dense (ANLZ) per-chunk export of artc_session_analyze2,
-// write_dense_chunk, and the copy-out's gather of its sections behind the
-// header, gather_dense. A chunk's bytes, in order
-// (analysis._parse_analysis reads them; every field little-endian):
+// The dense (ANLZ) analysis of profile 0: write_dense_chunk, a chunk's
+// export; start_dense, the producer (walker threads that walk and export
+// chunks, claimed in order) for artc_session_analyze_begin; take_dense, the
+// caller's hand-over of one chunk; gather_dense, the one-shot export's
+// gather behind the header. A chunk's bytes, in order
+// (analysis._parse_dense_chunk reads them; every field little-endian):
 //   u64 n;
 //   u8 bit[n]; u8 kind[n]; u32 key[n]; u16 prior[n];
 //   u16 pre_ones[n]; u16 pre_tot[n]   (each bin's key's ones and total over
@@ -23,14 +25,17 @@
 //   u16 dd[ns * sup * ud * 2]; u16 ds[ns * sup * us * 2]
 //                                     ((ones, total) a sub-batch and slot)
 //
-// recode.cc includes this file inside its C ABI block, after bucket_steps
-// and the slim export, and it relies on the standard headers recode.cc
-// includes, as slim_export.h does.
+// recode.cc includes this file inside its C ABI block, after bucket_steps,
+// AnalyzeState, ArtcSession, g_error and the slim export, and it relies on
+// the standard headers recode.cc includes, as slim_export.h does.
 //
-// A chunk is two allocations of exact size, never value-initialised nor
-// regrown: the streams (everything before the tables), sized from n, the
-// dual0 rows and sig0's nonzero rows before the trace is read, and the
-// tables, sized once the widest step is known. The trace is read twice:
+// A chunk's export is one malloc'd block, never value-initialised: the
+// streams (everything before the tables) are written into a block of exact
+// size, sized from n, the dual0 rows and sig0's nonzero rows before the
+// trace is read; once the widest step is known, the block grows by the
+// tables' exact size (realloc moves a large block's pages, not its bytes)
+// and the tables are written behind the streams. The block goes to the
+// caller as it is. The trace is read twice:
 //   - one sweep, a batch at a time, stores each bin's four planes and its
 //     prefix counts at their offsets, eight bins a store in each of the six
 //     streams. A key-indexed record keeps the key's batch and super-step and
@@ -46,16 +51,25 @@
 static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
               "the dense export stores fields in the host's order; the reader takes little-endian");
 
-// One section of a chunk's export: a block of exactly n bytes, not zeroed.
-struct DenseBuf {
-  std::unique_ptr<uint8_t[]> p;
-  size_t n;
-  explicit DenseBuf(size_t len) : p(new uint8_t[len]), n(len) {}
+struct FreeBytes {
+  void operator()(uint8_t* p) const { free(p); }
 };
 
-// Appends chunk ci's two sections to `out`; records native.dense_export
-// (its bytes) and, inside it, native.v2_tables (the tables' bytes).
-static void write_dense_chunk(std::vector<DenseBuf>& out, SessionTrace& st, int64_t ci,
+// A chunk's export: n bytes of malloc'd memory (freed with free, artc_free).
+struct DenseBlock {
+  std::unique_ptr<uint8_t[], FreeBytes> p;
+  size_t n = 0;
+};
+
+static uint8_t* malloc_or_throw(size_t n) {
+  uint8_t* p = static_cast<uint8_t*>(malloc(n ? n : 1));
+  if (!p) throw std::bad_alloc();
+  return p;
+}
+
+// Chunk ci's export; records native.dense_export (its bytes) and, inside
+// it, native.v2_tables (the tables' bytes).
+static DenseBlock write_dense_chunk(SessionTrace& st, int64_t ci,
                               const std::vector<artc::PriorModel::Coded>& trace,
                               const std::vector<uint16_t>& probs,
                               const std::vector<artc::Dual>& dual0,
@@ -77,7 +91,9 @@ static void write_dense_chunk(std::vector<DenseBuf>& out, SessionTrace& st, int6
   std::vector<uint32_t> sig_nz;
   for (uint32_t i = 0; i < sig0.size(); ++i)
     if (sig0[i].pos | sig0[i].neg) sig_nz.push_back(i);
-  DenseBuf a(8 + 12 * n + 2 * probs.size() + 8 * dual0.size() + 4 + 8 * sig_nz.size());
+  DenseBlock a;
+  a.n = 8 + 12 * n + 2 * probs.size() + 8 * dual0.size() + 4 + 8 * sig_nz.size();
+  a.p.reset(malloc_or_throw(a.n));
   memcpy(a.p.get(), &n, 8);
   uint8_t* const bit_at = a.p.get() + 8;
   uint8_t* const kind_at = bit_at + n;
@@ -193,16 +209,23 @@ static void write_dense_chunk(std::vector<DenseBuf>& out, SessionTrace& st, int6
     }
   const uint32_t ud = bucket_pow2(max_keys[0] + 1), us = bucket_pow2(max_keys[1] + 1);
   const uint64_t n_dk = ns * (uint64_t(ud) + us), n_dx = ns * sup_u * (uint64_t(ud) + us) * 2;
-  DenseBuf b(20 + 4 * m + 4 * n_dk + 2 * n_dx);
+  const size_t b_n = 20 + 4 * m + 4 * n_dk + 2 * n_dx;
+  // The block grows by the tables' section, which is written in place.
+  uint8_t* const grown = static_cast<uint8_t*>(realloc(a.p.get(), a.n + b_n));
+  if (!grown) throw std::bad_alloc();
+  a.p.release();
+  a.p.reset(grown);
+  uint8_t* const b = grown + a.n;
   const uint32_t ns32 = uint32_t(ns);
-  memcpy(b.p.get(), &ns32, 4);
-  memcpy(b.p.get() + 4, &ud, 4);
-  memcpy(b.p.get() + 8, &us, 4);
-  memcpy(b.p.get() + 12, &m, 8);
-  // new[]'s alignment and the 20-byte head leave every table aligned.
-  uint32_t* const bin_u = reinterpret_cast<uint32_t*>(b.p.get() + 20);
-  uint32_t* const dk[2] = {bin_u + m, bin_u + m + ns * ud};
-  uint16_t* const dd = reinterpret_cast<uint16_t*>(bin_u + m + n_dk);
+  memcpy(b, &ns32, 4);
+  memcpy(b + 4, &ud, 4);
+  memcpy(b + 8, &us, 4);
+  memcpy(b + 12, &m, 8);
+  // The streams' length is even, so the u16 tables are aligned in malloc's
+  // block, but the u32 ones may not be: they are stored with memcpy.
+  uint8_t* const bin_u = b + 20;
+  uint8_t* const dk[2] = {bin_u + 4 * m, bin_u + 4 * (m + ns * ud)};
+  uint16_t* const dd = reinterpret_cast<uint16_t*>(bin_u + 4 * (m + n_dk));
   uint16_t* const dx[2] = {dd, dd + ns * sup_u * uint64_t(ud) * 2};
   memset(dx[0], 0, 2 * n_dx);
   const uint32_t width[2] = {ud, us}, pad[2] = {n_dual + 1, n_sig};
@@ -213,13 +236,14 @@ static void write_dense_chunk(std::vector<DenseBuf>& out, SessionTrace& st, int6
     for (uint32_t sg = 0; sg < 2; ++sg) {
       const uint32_t b0 = s ? step_end[sg][s - 1] : 0, k = step_end[sg][s] - b0;
       const uint32_t* keys = step_keys[sg].data() + b0;
-      uint32_t* row = dk[sg] + s * width[sg];
+      uint8_t* row = dk[sg] + 4 * s * width[sg];
       uint32_t* sl = sl_of + (sg ? n_dual : 0);
-      for (uint32_t j = 0; j < k; ++j) {
-        row[j] = keys[j];
-        sl[keys[j]] = j;
+      memcpy(row, keys, 4 * size_t(k));
+      for (uint32_t j = 0; j < k; ++j) sl[keys[j]] = j;
+      for (uint32_t j = k; j < width[sg]; ++j) {
+        const uint32_t key = pad[sg] + (j - k);
+        memcpy(row + 4 * j, &key, 4);
       }
-      for (uint32_t j = k; j < width[sg]; ++j) row[j] = pad[sg] + (j - k);
     }
     const uint64_t lo = s * span, hi = std::min<uint64_t>(lo + span, n);
     for (uint64_t b0 = lo, q = 0; b0 < hi; b0 += batch, ++q) {
@@ -240,34 +264,155 @@ static void write_dense_chunk(std::vector<DenseBuf>& out, SessionTrace& st, int6
       for (; i + 8 <= b1; i += 8) {  // eight bins a store, as in the sweep
         uint32_t u[8];
         for (uint32_t j = 0; j < 8; ++j) u[j] = slot_of(tr[i + j]);
-        memcpy(bin_u + i, u, 32);
+        memcpy(bin_u + 4 * i, u, 32);
       }
-      for (; i < b1; ++i) bin_u[i] = slot_of(tr[i]);
+      for (; i < b1; ++i) {
+        const uint32_t u = slot_of(tr[i]);
+        memcpy(bin_u + 4 * i, &u, 4);
+      }
     }
   }
-  for (uint64_t i = n; i < m; ++i) bin_u[i] = ud - 1;
-  v2.end(b.n);
-  xport.end(a.n + b.n);
+  const uint32_t pad_u = ud - 1;
+  for (uint64_t i = n; i < m; ++i) memcpy(bin_u + 4 * i, &pad_u, 4);
+  v2.end(b_n);
+  a.n += b_n;
+  xport.end(a.n);
   if (timing_enabled())
     fprintf(stderr, "[artc] analyze chunk %lld: v2 dicts+serialize %.3fs\n", (long long)ci,
             double(now_ns() - t_mid) * 1e-9);
-  out.push_back(std::move(a));
-  out.push_back(std::move(b));
+  return a;
 }
 
-// The copy-out: the header and every section, in order, in one malloc'd
-// buffer (*out, freed with artc_free); each section is freed once copied.
-// Returns the buffer's length.
-static size_t gather_dense(const std::vector<uint8_t>& header, std::vector<DenseBuf>& parts,
+// flags bit 2 of artc_session_analyze_begin: the dense analysis.
+static constexpr int kAnalyzeDense = 4;
+
+// How many chunks may be ahead of the caller: claimed by a walker and not
+// yet taken, whether being walked, exported or waiting. Three let three
+// walkers run while the caller parses and runs a chunk on the card, and
+// bound the exports the host holds at once: these three and the one being
+// parsed, where the one-shot export held every chunk. It is also the most
+// walkers.
+static constexpr size_t kDenseAhead = 3;
+
+// The dense producer: walkers claim chunks in order, each walks its chunk,
+// writes its export and publishes it in `as` (status 1) under its mutex, at
+// most kDenseAhead chunks ahead of the chunks taken. Chunk 0's walk makes
+// the warm snapshot that every later chunk starts from (WarmCtx), so the
+// later chunks walk in parallel, as profile 2's workers do, and the bytes
+// do not depend on the schedule. An error fails its chunk (status 2; the
+// first message in as->err); one of chunk 0 also fails the snapshot, so
+// the chunks waiting on it fail too. The state's destructor stops the
+// walkers once the chunks they are writing are done, and joins them.
+// ARTC_DENSE_FAULT_CHUNK=i fails chunk i as an error of its walk would: the
+// way a test reaches the error path.
+static void start_dense(ArtcSession* se, AnalyzeState* as, uint32_t sup_u) {
+  using namespace artc;
+  const size_t n_chunks = se->ranges.size();
+  as->dense = true;
+  as->blocks.assign(n_chunks, nullptr);
+  as->block_len.assign(n_chunks, 0);
+  size_t fault = SIZE_MAX;
+  if (const char* e = getenv("ARTC_DENSE_FAULT_CHUNK"))
+    if (*e) fault = strtoull(e, nullptr, 10);
+  auto warm = std::make_shared<WarmCtx>();
+  warm->src_slices = se->warm_slices;
+  auto work = [se, as, sup_u, fault, n_chunks, warm] {
+    const uint32_t batch = se->opt.batch_size ? se->opt.batch_size : 1;
+    for (;;) {
+      size_t ci;
+      {
+        std::unique_lock<std::mutex> lock(as->mu);
+        as->cv.wait(lock, [&] {
+          return as->stop || as->next >= n_chunks || as->next < as->taken + kDenseAhead;
+        });
+        if (as->stop || as->next >= n_chunks) return;
+        ci = as->next++;
+      }
+      try {
+        if (ci == fault)
+          throw std::runtime_error("dense analysis: fault injected at chunk " +
+                                   std::to_string(ci));
+        auto [b, e] = se->ranges[ci];
+        std::vector<PriorModel::Coded> trace;
+        std::vector<uint16_t> probs;
+        std::vector<Dual> dual0;
+        std::vector<Estimator> sig0;
+        Stats tmp;
+        Phase walk(se->trace, "native.dense_walk", int64_t(ci));
+        run_chunk_model(se->p1.slices, b, e, se->opt, tmp, &trace, &probs, &dual0,
+                        se->nz_modes[ci], /*encode_blob=*/false,
+                        ci == 0 && warm->src_slices ? warm.get() : nullptr,
+                        ci > 0 && warm->src_slices ? warm.get() : nullptr, &sig0,
+                        se->alpha_off);
+        const double sec = walk.end(trace.size());
+        if (timing_enabled())
+          fprintf(stderr, "[artc] analyze chunk %zu: trace walk %.3fs (%zu bins)\n", ci, sec,
+                  trace.size());
+        DenseBlock blk = write_dense_chunk(se->trace, int64_t(ci), trace, probs, dual0, sig0,
+                                           batch, sup_u);
+        std::lock_guard<std::mutex> lock(as->mu);
+        as->blocks[ci] = blk.p.release();
+        as->block_len[ci] = blk.n;
+        as->status[ci] = 1;
+        as->cv.notify_all();
+      } catch (const std::exception& e) {
+        {
+          std::lock_guard<std::mutex> lock(as->mu);
+          if (as->err.empty()) as->err = e.what();
+          as->status[ci] = 2;
+          as->cv.notify_all();
+        }
+        if (ci == 0) warm->fail();
+      }
+    }
+  };
+  const size_t n_walkers = std::min<size_t>(
+      {kDenseAhead, n_chunks, std::max(1u, std::thread::hardware_concurrency())});
+  for (size_t t = 0; t < n_walkers; ++t) as->workers.emplace_back(work);
+}
+
+// The caller's hand-over of chunk idx (native.rendezvous while it waits,
+// native.copyout for the hand-over): the walker's block itself, freed by
+// the caller, with no copy. Chunks are taken once each, in order, or the
+// walkers, held at kDenseAhead, could wait for a chunk the caller skips.
+// False with g_error set on an error.
+static bool take_dense(ArtcSession* se, AnalyzeState* as, uint32_t idx, uint8_t** out,
+                       size_t* out_len) {
+  std::unique_lock<std::mutex> lock(as->mu);
+  if (idx != as->taken) {
+    g_error = "dense analysis chunks are taken once each, in order";
+    return false;
+  }
+  Phase wait(se->trace, "native.rendezvous", idx);
+  as->cv.wait(lock, [&] { return as->status[idx] != 0; });
+  wait.end();
+  if (as->status[idx] == 2) {
+    g_error = as->err;
+    return false;
+  }
+  Phase copy(se->trace, "native.copyout", idx);
+  *out = as->blocks[idx];
+  as->blocks[idx] = nullptr;
+  *out_len = as->block_len[idx];
+  ++as->taken;
+  lock.unlock();
+  as->cv.notify_all();
+  copy.end(*out_len);
+  return true;
+}
+
+// The one-shot export's copy-out: the header and every chunk's block, in
+// order, in one malloc'd buffer (*out, freed with artc_free); each block is
+// freed once copied. Returns the buffer's length.
+static size_t gather_dense(const std::vector<uint8_t>& header, std::vector<DenseBlock>& parts,
                            uint8_t** out) {
   size_t total = header.size();
-  for (const DenseBuf& p : parts) total += p.n;
-  uint8_t* o = static_cast<uint8_t*>(malloc(total));
-  if (!o) throw std::bad_alloc();
+  for (const DenseBlock& p : parts) total += p.n;
+  uint8_t* o = malloc_or_throw(total);
   *out = o;
   memcpy(o, header.data(), header.size());
   o += header.size();
-  for (DenseBuf& p : parts) {
+  for (DenseBlock& p : parts) {
     memcpy(o, p.p.get(), p.n);
     o += p.n;
     p.p.reset();

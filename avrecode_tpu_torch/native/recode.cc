@@ -1774,9 +1774,24 @@ struct AnalyzeState {
   std::condition_variable cv;
   std::vector<std::thread> workers;
   std::atomic<size_t> next{0};
+  // The dense analysis (native/dense_export.h: its walker threads claim
+  // chunks through `next`): each chunk's export, one malloc'd block, until
+  // the caller takes it; the chunks taken; the close's request to stop
+  // (guarded by mu).
+  bool dense = false;
+  std::vector<uint8_t*> blocks;
+  std::vector<size_t> block_len;
+  size_t taken = 0;
+  bool stop = false;
   ~AnalyzeState() {
+    {
+      std::lock_guard<std::mutex> lock(mu);
+      stop = true;
+    }
+    cv.notify_all();
     for (auto& t : workers)
       if (t.joinable()) t.join();
+    for (uint8_t* p : blocks) free(p);
   }
 };
 
@@ -1835,6 +1850,7 @@ struct ArtcSession {
   std::thread pipe;    // probe + chunk-0 pre-analyze (outlives the opener)
   std::thread opener;  // pass1 + session field finalization
   ~ArtcSession() {
+    astate.reset();  // its threads read the fields above and record into trace
     if (opener.joinable()) opener.join();
     if (pipe.joinable()) pipe.join();
   }
@@ -2081,7 +2097,7 @@ static void write_sig0_sparse(artc::Writer& w, const std::vector<artc::Estimator
 }
 
 #include "slim_export.h"  // write_slim_chunk
-#include "dense_export.h"  // write_dense_chunk, gather_dense
+#include "dense_export.h"  // write_dense_chunk, start_dense, take_dense, gather_dense
 
 static void write_analyze_header(artc::Writer& w, const ArtcSession* se, uint32_t sup_u,
                                  bool slim) {
@@ -2104,15 +2120,20 @@ static void write_analyze_header(artc::Writer& w, const ArtcSession* se, uint32_
   w.u32(sup_u);
 }
 
-// Starts the streaming (slim/ANL5) analyze: spawns background workers that
-// walk + export chunks in parallel. Returns the chunk count, or -1.
-// flags bit1 = also export host-computed probs (differential testing).
+// Starts the streaming analyze: by default the slim (ANL5) one, whose
+// background workers walk + export chunks in parallel; with flags bit2
+// (kAnalyzeDense) the dense (ANLZ) one, whose walkers walk + export chunks
+// a few ahead of the caller (native/dense_export.h). Returns the chunk
+// count, or -1.
+// flags bit1 = also export host-computed probs (slim; differential testing;
+// the dense export always holds them).
 int artc_session_analyze_begin(void* h, int sup, int flags) {
   using namespace artc;
   auto* se = static_cast<ArtcSession*>(h);
   try {
     if (!session_ready(se)) return -1;
-    if (se->opt.model_profile != 2)
+    const bool dense = (flags & kAnalyzeDense) != 0;
+    if (!dense && se->opt.model_profile != 2)
       throw std::runtime_error("slim analysis requires model_profile=2 (frozen batches)");
     const uint32_t sup_u = sup > 0 ? uint32_t(sup) : 16;
     const bool want_probs = (flags & 2) != 0;
@@ -2120,12 +2141,16 @@ int artc_session_analyze_begin(void* h, int sup, int flags) {
     AnalyzeState* as = se->astate.get();
     {
       Writer w;
-      write_analyze_header(w, se, sup_u, /*slim=*/true);
+      write_analyze_header(w, se, sup_u, /*slim=*/!dense);
       as->header = std::move(w.buf);
     }
     const size_t n_chunks = se->ranges.size();
-    as->bufs.resize(n_chunks);
     as->status.assign(n_chunks, 0);
+    if (dense) {
+      start_dense(se, as, sup_u);
+      return int(n_chunks);
+    }
+    as->bufs.resize(n_chunks);
     auto work = [se, as, sup_u, want_probs] {
       using namespace artc;
       for (size_t ci; (ci = as->next.fetch_add(1)) < se->ranges.size();) {
@@ -2246,14 +2271,15 @@ int artc_session_analyze_header(void* h, uint8_t** out, size_t* out_len) {
 }
 
 // Blocks until chunk idx's export is ready, then hands it over (the internal
-// copy is released — each chunk can be fetched once).
+// copy is released — each chunk can be fetched once; dense chunks in order).
 int artc_session_analyze_chunk(void* h, uint32_t idx, uint8_t** out, size_t* out_len) {
   auto* se = static_cast<ArtcSession*>(h);
   AnalyzeState* as = se->astate.get();
-  if (!as || idx >= as->bufs.size()) {
+  if (!as || idx >= as->status.size()) {
     g_error = "bad analyze chunk index";
     return -1;
   }
+  if (as->dense) return take_dense(se, as, idx, out, out_len) ? 0 : -1;
   std::vector<uint8_t> buf;
   {
     Phase wait(se->trace, "native.rendezvous", idx);
@@ -2279,12 +2305,8 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
   auto* se = static_cast<ArtcSession*>(h);
   try {
     if (!session_ready(se)) return -1;
-    const Options& opt = se->opt;
-    const Pass1& p1 = se->p1;
-    const auto& ranges = se->ranges;
     const bool slim = (flags & 1) != 0;
     const bool want_probs = (flags & 2) != 0 || !slim;
-    uint32_t sup_u = sup > 0 ? uint32_t(sup) : 16;
     if (slim) {
       // One-shot collection over the streaming machinery (same bytes as the
       // per-chunk fetch path: header ++ chunk0 ++ chunk1 ++ ...).
@@ -2308,36 +2330,19 @@ int artc_session_analyze2(void* h, int sup, int flags, uint8_t** out, size_t* ou
       *out_len = w.buf.size();
       return 0;
     }
-    Writer w;
-    write_analyze_header(w, se, sup_u, /*slim=*/false);
-    // Each chunk's walk, then its export into sections of exact size
-    // (native/dense_export.h), which the copy-out gathers behind the header.
-    std::vector<DenseBuf> parts;
-    WarmCtx warm;
-    warm.src_slices = se->warm_slices;
-    for (size_t ci = 0; ci < ranges.size(); ++ci) {
-      auto [b, e] = ranges[ci];
-      std::vector<PriorModel::Coded> trace;
-      std::vector<uint16_t> probs;
-      std::vector<Dual> dual0;
-      std::vector<Estimator> sig0;
-      Stats tmp;
-      uint64_t modes = se->nz_modes[ci];
-      Phase walk(se->trace, "native.dense_walk", int64_t(ci));
-      run_chunk_model(p1.slices, b, e, opt, tmp, &trace, &probs, &dual0, modes,
-                      /*encode_blob=*/false,
-                      ci == 0 && warm.src_slices ? &warm : nullptr,
-                      ci > 0 && warm.src_slices ? &warm : nullptr, &sig0,
-                      se->alpha_off);
-      const double sec = walk.end(trace.size());
-      if (timing_enabled())
-        fprintf(stderr, "[artc] analyze chunk %zu: trace walk %.3fs (%zu bins)\n",
-                ci, sec, trace.size());
-      write_dense_chunk(parts, se->trace, int64_t(ci), trace, probs, dual0, sig0,
-                        opt.batch_size ? opt.batch_size : 1, sup_u);
+    // One-shot collection over the dense walkers (same bytes as the
+    // per-chunk fetch path: header ++ chunk0 ++ chunk1 ++ ...).
+    const int n_chunks = artc_session_analyze_begin(h, sup, kAnalyzeDense);
+    if (n_chunks < 0) return -1;
+    AnalyzeState* as = se->astate.get();
+    std::vector<DenseBlock> parts(n_chunks);
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      uint8_t* p = nullptr;
+      if (!take_dense(se, as, uint32_t(ci), &p, &parts[ci].n)) return -1;
+      parts[ci].p.reset(p);
     }
     Phase copy(se->trace, "native.copyout");
-    *out_len = gather_dense(w.buf, parts, out);
+    *out_len = gather_dense(as->header, parts, out);
     copy.end(*out_len);
     return 0;
   } catch (const std::exception& e) {

@@ -33,19 +33,21 @@ The spans, by where they are opened:
       `call.header`, per chunk `chunk.fetch`, `chunk.take`, `chunk.parse`,
       `chunk.stage`, `chunk.launch`, `chunk.compact`, then `call.emit` (the
       downloads) and per chunk `chunk.emit` (its blob's assembly); under
-      profile 0 `call.analyze` (holding `call.parse`: the export's copy
-      into bytes and its parse), `call.model` (per chunk `chunk.model`:
-      uploads, model pass, probs download) and `call.lanes` (per chunk
-      `chunk.lanes`: lane planes' upload and encode); then `call.pack`;
+      profile 0 `call.begin`, `call.header`, then per chunk `chunk.fetch`
+      (the wait for the chunk's export and its hand-over), `call.parse`
+      (its parse), `chunk.model` (uploads, model pass, probs download) and
+      `chunk.lanes` (lane planes' upload and encode); then `call.pack`;
   the native engine (host.session_trace), drained at the call's end and
       joined to its tree: `native.pass1` (the opener), `native.nz_probe`
       (the pipe), per chunk `native.trace_walk` and `native.export` (the pipe
       for chunk 0, the analyze workers), and on the calling thread
       `native.ready_wait`, per chunk `native.rendezvous` and
-      `native.copyout`, and `native.pack`; under profile 0, on the calling
-      thread inside `call.analyze`, per chunk `native.dense_walk` and
+      `native.copyout`, and `native.pack`; under profile 0, on the dense
+      analysis's walker threads, per chunk `native.dense_walk` and
       `native.dense_export` (which holds the chunk's `native.v2_tables`),
-      then one `native.copyout` of the whole export. A native span on the
+      and on the calling thread per chunk `native.rendezvous` and
+      `native.copyout` (the hand-over of the chunk's export, no copy: the
+      walker writes the block it hands over). A native span on the
       calling thread takes the innermost Python span around it as its
       parent; one on another thread takes the call's root.
 

@@ -1,8 +1,9 @@
 """The port's own copy of the C++ host engine (avrecode_tpu_torch/native)
 against the JAX package's (avrecode_tpu/native): the copy differs only by
 the defined read in sig_pos_class, decode_coeffs's guard against g++
-13.3's unswitching, recode.cc's span recording and its slim and dense
-exports, which the port's slim_export.h and dense_export.h replace; the
+13.3's unswitching, recode.cc's span recording, its slim and dense
+exports, which the port's slim_export.h and dense_export.h replace, and the
+dense analysis's walker threads (dense_export.h); the
 port's library
 exports only the artc_* entries; both libraries, loaded in one process, write the same
 containers and read each other's; building the port's library reads,
@@ -15,7 +16,7 @@ import sys
 
 import pytest
 from test_torch_jaxlib import JAX_LIB, JAX_NATIVE, ensure_jax_lib
-from torch_native_export import RECODE_EXPORT
+from torch_native_export import RECODE_EXPORT, RECODE_STREAM
 from torch_native_spans import RECODE_SPANS
 
 from avrecode_tpu_torch import _native
@@ -80,8 +81,8 @@ FIXES = {"model.h": [(
         "  ARTC_NO_UNSWITCH void decode_coeffs(int cat, int max_coeff) {\n")],
     # The span records (native/trace.h, torch_native_spans.py), then the
     # slim and dense exports (native/slim_export.h, native/dense_export.h,
-    # torch_native_export.py).
-    "recode.cc": RECODE_SPANS + RECODE_EXPORT,
+    # torch_native_export.py) and the dense analysis's walker threads.
+    "recode.cc": RECODE_SPANS + RECODE_EXPORT + RECODE_STREAM,
 }
 
 
