@@ -585,7 +585,8 @@ def mesh_inputs(an: Analysis, chunks: list[SlimChunk], n_gop: int, sup: int,
 
 def compress_mesh(data: bytes, mesh, lanes: int = 16, chunk_mode: int = 1,
                   batch_size: int = 4096, sup: int = 0,
-                  force_lanes: int | None = None) -> tuple[bytes, host.Stats]:
+                  force_lanes: int | None = None,
+                  info: dict | None = None) -> tuple[bytes, host.Stats]:
     """Mesh-sharded device compression of a clip into a container (the port
     of avrecode_tpu.device.compress_mesh): the native session exports every
     slim chunk (GOP chunks under chunk_mode=1), mesh_inputs packs them with
@@ -593,31 +594,66 @@ def compress_mesh(data: bytes, mesh, lanes: int = 16, chunk_mode: int = 1,
     over `mesh` (parallel.mesh.make_mesh) expands and models each device
     row's chunks and lane-scans each cell's lane slice. The lane outputs
     reassemble into RansInterleaved blobs, and the session packs the same
-    container the single-device path writes (with force_lanes, or when
-    pick_lanes agrees), which the host decoder reads back.
+    container the single-device path writes where every chunk picks the
+    same lanes (the mesh gives every chunk of the file one K, pick_lanes of
+    the largest chunk, or force_lanes), which the host decoder reads back.
 
     Where the mesh's first device is a card, the call has its own streams
     (streams.CallStreams): the inputs are packed in pinned memory, which the
     cells upload from without blocking, the step runs on the compute stream,
     and its outputs (3 bytes a (step, lane) slot) come back into pinned
-    memory on the copy stream with one wait."""
+    memory on the copy stream with one wait.
+
+    The call is one `call` span tree (trace.py), as `compress`'s: `call.open`,
+    the walk of every chunk (analysis.read_slim), then `mesh.pack`
+    (mesh_inputs; counts the step's host-input bytes and, count2, the
+    chunks), `mesh.step` (building the step and issuing every cell's
+    launches; counts K), `mesh.fetch` (the one download and its wait;
+    counts the bytes downloaded), `mesh.assemble` (every chunk's blob) and
+    `call.pack`. `info`, if given, receives from those spans walk_s
+    (`call.open`, `call.begin`, `call.header` and every chunk's
+    `chunk.fetch`, `chunk.take`, `chunk.parse`), pack_s (`mesh.pack`),
+    step_s (`mesh.step` and `mesh.fetch`), emit_s (`mesh.assemble` and
+    `call.pack`), upload_bytes (`mesh.pack`'s count) and n_chunks."""
     from .parallel.pipeline import sharded_v4_compress_step
     if sup <= 0:
         sup = mp.default_sup()
     first = mesh.devices[0][0]
-    with host.Session(data, lanes, chunk_mode, batch_size, 2) as session:
-        an, stream = read_slim(session, sup, trace.NULL)
-        chunks = [c for _, c in stream]
-        inputs = mesh_inputs(an, chunks, mesh.shape["gop"], sup, force_lanes,
-                             pin=first.type == "cuda")
-        step = sharded_v4_compress_step(mesh, **inputs.statics)
-        with cs.for_call(first) as streams, torch.cuda.stream(streams and streams.compute):
-            x_final, words, emits, _, total_words = step(*inputs.tensors())
-            x_final, words, emits, total_words = cs.to_host(
-                [x_final, words, emits, total_words], streams)
-        if int(total_words) <= 0:
-            raise RuntimeError("mesh step emitted no payload words")
-        K = inputs.statics["K_total"]
-        blobs = [lx.assemble_blob(x_final[g], words[g], emits[g], c.n, K)
-                 for g, c in enumerate(chunks)]
-        return session.pack(blobs)
+    with trace.root("call", count=len(data), keep=info is not None) as sc:
+        with sc.span("call.open"):
+            session = host.Session(data, lanes, chunk_mode, batch_size, 2)
+        with session:
+            try:
+                an, stream = read_slim(session, sup, sc)
+                chunks = [c for _, c in stream]
+                with sc.span("mesh.pack", count2=len(chunks)) as pack:
+                    inputs = mesh_inputs(an, chunks, mesh.shape["gop"], sup, force_lanes,
+                                         pin=first.type == "cuda")
+                    pack.count = sum(t.nbytes for t in inputs.tensors())
+                K = inputs.statics["K_total"]
+                with cs.for_call(first) as streams, torch.cuda.stream(streams and streams.compute):
+                    with sc.span("mesh.step", count=K):
+                        step = sharded_v4_compress_step(mesh, **inputs.statics)
+                        x_final, words, emits, _, total_words = step(*inputs.tensors())
+                    with sc.span("mesh.fetch") as fetch:
+                        outs = cs.to_host([x_final, words, emits, total_words], streams)
+                        fetch.count = sum(a.nbytes for a in outs)
+                x_final, words, emits, total_words = outs
+                if int(total_words) <= 0:
+                    raise RuntimeError("mesh step emitted no payload words")
+                with sc.span("mesh.assemble"):
+                    blobs = [lx.assemble_blob(x_final[g], words[g], emits[g], c.n, K)
+                             for g, c in enumerate(chunks)]
+                with sc.span("call.pack"):
+                    result = session.pack(blobs)
+            finally:
+                if sc.recording:
+                    sc.join_native(session.trace())
+    if info is not None:
+        info.update(walk_s=sc.seconds("call.open", "call.begin", "call.header", "chunk.fetch",
+                                      "chunk.take", "chunk.parse"),
+                    pack_s=sc.seconds("mesh.pack"),
+                    step_s=sc.seconds("mesh.step", "mesh.fetch"),
+                    emit_s=sc.seconds("mesh.assemble", "call.pack"),
+                    upload_bytes=sc.first("mesh.pack").count, n_chunks=len(chunks))
+    return result

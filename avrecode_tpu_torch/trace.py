@@ -18,7 +18,9 @@ bytes of `chunk.stage`, the slices of `native.pass1` (`count2`: its
 threads), the bins of `native.trace_walk` and `native.dense_walk`, the
 bins of `chunk.model` (`count2`: the bytes its model pass moves between
 host and device, both ways), the lanes of `chunk.lanes` (`count2`: the
-bytes of its uploaded lane planes), and the bytes of `native.export`,
+bytes of its uploaded lane planes), the host-input bytes of `mesh.pack`
+(`count2`: its chunks), the lanes K of `mesh.step`, the bytes downloaded
+by `mesh.fetch`, and the bytes of `native.export`,
 `native.dense_export`, `native.v2_tables`, `native.copyout` and
 `native.pack`; 0 elsewhere. Spans go
 at phase and chunk granularity only.
@@ -37,6 +39,12 @@ The spans, by where they are opened:
       (the wait for the chunk's export and its hand-over), `call.parse`
       (its parse), `chunk.model` (uploads, model pass, probs download) and
       `chunk.lanes` (lane planes' upload and encode); then `call.pack`;
+  device.compress_mesh: a root `call` with `call.open`, `call.begin`,
+      `call.header`, per chunk `chunk.fetch`, `chunk.take`, `chunk.parse`
+      (the walk of every chunk), then `mesh.pack` (every chunk packed for
+      the step), `mesh.step` (the step built and every cell's launches
+      issued), `mesh.fetch` (the one download and its wait),
+      `mesh.assemble` (every chunk's blob) and `call.pack`;
   the native engine (host.session_trace), drained at the call's end and
       joined to its tree: `native.pass1` (the opener), `native.nz_probe`
       (the pipe), per chunk `native.trace_walk` and `native.export` (the pipe
