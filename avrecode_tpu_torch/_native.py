@@ -55,7 +55,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 launches = {"wire_expand": 0, "dual0_expand": 0, "model_pass_v4": 0,
             "lane_scan_dev": 0, "lane_compact": 0, "model_pass_v2": 0,
             "lane_scan": 0, "model_pass_dict": 0, "model_pass": 0,
-            "sharded_v4_compress_step": 0, "sharded_recompress_step": 0}
+            "sharded_v4_compress_step": 0, "sharded_recompress_step": 0,
+            "dense_expand": 0, "dense_lanes": 0}
 
 # C entry -> argument kinds ('p' pointer, 'i' 64-bit int); the stream follows.
 _SIGNATURES = {
@@ -69,6 +70,8 @@ _SIGNATURES = {
     "artc_lane_scan": "p" * 8 + "i" * 5,
     "artc_model_pass_dict": "p" * 15 + "i" * 12,
     "artc_model_pass": "p" * 15 + "i" * 12,
+    "artc_dense_expand": "p" * 7 + "i" * 8,
+    "artc_dense_lanes": "p" * 5 + "i" * 3,
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_longlong}
 

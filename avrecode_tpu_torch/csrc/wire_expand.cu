@@ -512,3 +512,133 @@ ARTC_API int artc_wire_expand(const int* blob, const int* sc, int* planes, int* 
   }
   return 0;
 }
+
+// ------------------------------------------------ profile 0's narrow blob
+//
+// ops/dense.py's two kernels. A profile-0 chunk crosses the bus once, as one
+// byte blob at the dense export's widths (u8 bits and kinds, u16 priors,
+// prefix counts, dd/ds and start tables, u32 dictionary indices and keys;
+// each segment on a 256-byte boundary), and is widened and padded here:
+//   - dense_expand_kernel writes model_pass_v2's int32 inputs: the four bin
+//     planes padded to m (kind 3, prior 1, prefix counts 0), dd and ds, and
+//     the extended start tables (dual0 then rows of ones, sig0 then rows of
+//     ones); bin_u and the key tables are read in place as int32 views;
+//   - dense_lanes_kernel, after the pass, writes the masked lane scan's
+//     [T, K] planes: the blob's bits, the pass's probs (their low 16 bits)
+//     and the valid mask, bit 0 and probability 1 past n.
+// Both are elementwise and bound by memory traffic: the expand reads 7 bytes
+// a bin and 2 an entry of the tables and writes 16 and 4; the lane planes
+// read 5 bytes a bin and write 9 a step. One launch each, every region of
+// the expand in one grid (a region's blocks after the one before).
+
+namespace {
+
+constexpr int kDenseThreads = 256;
+constexpr int kDenseItems = 8;  // elements a thread, a block's width apart
+constexpr long long kDenseSpan = kDenseThreads * kDenseItems;
+
+// One u16 table widened to int32: entries past nsrc are the extension's 1.
+struct Widen {
+  const uint16_t* src;
+  int* dst;
+  long long nsrc, count;
+};
+
+struct Dense {
+  const uint8_t* kind;
+  const uint16_t* prior;
+  const uint16_t* pre1;
+  const uint16_t* pret;
+  int* planes;            // [4, m]: kinds, priors, pre1, pret
+  long long n, m;
+  Widen w[4];             // dd, ds, dual, sig
+  long long first[6];     // the first block of each region (bins, then w); first[5] = grid
+};
+
+__global__ void __launch_bounds__(kDenseThreads) dense_expand_kernel(const Dense D) {
+  const long long b = blockIdx.x;
+  int r = 0;
+  while (r < 4 && b >= D.first[r + 1]) ++r;
+  const long long i0 = (b - D.first[r]) * kDenseSpan + threadIdx.x;
+  if (r == 0) {
+#pragma unroll
+    for (int k = 0; k < kDenseItems; ++k) {
+      const long long i = i0 + (long long)k * kDenseThreads;
+      if (i >= D.m) break;
+      const bool live = i < D.n;
+      D.planes[i] = live ? int(D.kind[i]) : 3;
+      D.planes[D.m + i] = live ? int(D.prior[i]) : 1;
+      D.planes[2 * D.m + i] = live ? int(D.pre1[i]) : 0;
+      D.planes[3 * D.m + i] = live ? int(D.pret[i]) : 0;
+    }
+    return;
+  }
+  const Widen& W = D.w[r - 1];
+#pragma unroll
+  for (int k = 0; k < kDenseItems; ++k) {
+    const long long i = i0 + (long long)k * kDenseThreads;
+    if (i >= W.count) break;
+    W.dst[i] = i < W.nsrc ? int(W.src[i]) : 1;
+  }
+}
+
+__global__ void __launch_bounds__(kDenseThreads) dense_lanes_kernel(
+    const uint8_t* __restrict__ bit, const int* __restrict__ probs, int* __restrict__ bits,
+    int* __restrict__ p, bool* __restrict__ valid, long long n, long long size) {
+  const long long i0 = (long long)blockIdx.x * kDenseSpan + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kDenseItems; ++k) {
+    const long long i = i0 + (long long)k * kDenseThreads;
+    if (i >= size) break;
+    const bool live = i < n;
+    bits[i] = live ? int(bit[i]) : 0;
+    p[i] = live ? (probs[i] & 0xffff) : 1;
+    valid[i] = live;
+  }
+}
+
+long long dense_blocks(long long count) { return (count + kDenseSpan - 1) / kDenseSpan; }
+
+}  // namespace
+
+// blob: the chunk's bytes, offs[12] its segments' byte offsets (ops/dense.py
+// SEGMENTS); planes int32 [4, m]; dd [ndd], ds [nds]; dual [ndual] from nd0
+// u16 entries, sig [nsig] from ns0.
+ARTC_API int artc_dense_expand(const uint8_t* blob, const long long* offs, int* planes, int* dd,
+                               int* ds, int* dual, int* sig, long long n, long long m,
+                               long long ndd, long long nds, long long nd0, long long ndual,
+                               long long ns0, long long nsig, void* stream) {
+  if (n <= 0 || n > m || m >= (1ll << 31)) return int(cudaErrorInvalidValue);
+  auto u16 = [&](int k) { return reinterpret_cast<const uint16_t*>(blob + offs[k]); };
+  Dense D;
+  D.kind = blob + offs[1];
+  D.prior = u16(2);
+  D.pre1 = u16(3);
+  D.pret = u16(4);
+  D.planes = planes;
+  D.n = n;
+  D.m = m;
+  D.w[0] = Widen{u16(8), dd, ndd, ndd};
+  D.w[1] = Widen{u16(9), ds, nds, nds};
+  D.w[2] = Widen{u16(10), dual, nd0, ndual};
+  D.w[3] = Widen{u16(11), sig, ns0, nsig};
+  D.first[0] = 0;
+  D.first[1] = dense_blocks(m);
+  for (int r = 0; r < 4; ++r) D.first[r + 2] = D.first[r + 1] + dense_blocks(D.w[r].count);
+  if (D.first[5] >= (1ll << 31)) return int(cudaErrorInvalidValue);
+  dense_expand_kernel<<<unsigned(D.first[5]), kDenseThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(D);
+  return int(cudaGetLastError());
+}
+
+// bits/probs int32 and valid bool, [size] = [T * K]; the blob's bits at
+// byte off_bit, the pass's probs [>= n].
+ARTC_API int artc_dense_lanes(const uint8_t* blob, const int* probs, int* bits, int* p,
+                              bool* valid, long long off_bit, long long n, long long size,
+                              void* stream) {
+  if (n <= 0 || n > size || dense_blocks(size) >= (1ll << 31)) return int(cudaErrorInvalidValue);
+  dense_lanes_kernel<<<unsigned(dense_blocks(size)), kDenseThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(blob + off_bit, probs, bits, p, valid,
+                                                           n, size);
+  return int(cudaGetLastError());
+}

@@ -9,9 +9,11 @@ Counterpart of avrecode_tpu/device.py, for both model profiles and the mesh:
     and lane-encoded there (`to_torch_staged`, `_exec_v4`);
   - profile 0 (immediate increments): native walker threads walk and
     export the dense analysis a few chunks ahead while the caller parses
-    chunk i, uploads its planes and tables, computes its probabilities with
-    the model pass chosen by ARTC_MODEL_IMPL (v2, dict, sort or mm), and
-    lane-encodes them (`encode_interleaved`);
+    chunk i, uploads it, computes its probabilities with the model pass
+    chosen by ARTC_MODEL_IMPL (v2, dict, sort or mm), and lane-encodes
+    them. Under v2 on the card the chunk goes up once, narrow, and is
+    widened there (`_dense_on_card`, ops/dense.py); elsewhere its int32
+    planes are built on the host (`device_probs`, `encode_interleaved`);
   - the mesh (`compress_mesh`, profile 2): every chunk is packed with one
     mesh-uniform layout and the whole set runs as one
     parallel.pipeline.sharded_v4_compress_step over a (gop, lane) grid of
@@ -23,9 +25,10 @@ kernels run on a compute stream of its own, its uploads and downloads on a
 copy stream of its own, from and into pinned memory, and each readback
 waits only for the buffer it reads. Concurrent calls (the corpus's threads)
 then wait on none of each other's work. On "cpu" the same code runs the
-plain versions with no streams and no pinning. The profile-0 path keeps the
-caller's stream: the JAX package runs it chunk by chunk, each probs
-readback a synchronise.
+plain versions with no streams and no pinning. A profile-0 call on the card
+has the same streams for its v2 chunks, which it runs one after the other;
+its other chunks keep the caller's stream, as the JAX package runs them
+chunk by chunk, each probs readback a synchronise.
 
 The host packs the container. Decompression stays host-only (host.py), so
 every container is checked by an independent reader. The parsers live in
@@ -46,6 +49,7 @@ from . import trace
 from .analysis import (Analysis, ChunkAnalysis, SlimChunk, _bucket_pow2, _chunk_layout,
                        _sig0_dense, _sig0_sparse_padded, analyze, pick_lanes, read_dense,
                        read_slim)
+from .ops import dense
 from .ops import lanes as lx
 from .ops import model_pass as mp
 
@@ -383,29 +387,78 @@ def _compress_dense(session, device, force_lanes, keep_probs, sc) -> tuple[list[
     calling thread's seconds: analyze_s (`call.open`, `call.begin`,
     `call.header`, and per chunk `chunk.fetch`, the wait for the chunk's
     export and its hand-over, and `call.parse`, its parse), model_s (per
-    chunk `chunk.model`: its uploads, model pass and probs download),
-    lanes_s (per chunk `chunk.lanes`: its lane encode). `chunk.model`
-    counts the chunk's bins and (count2) the bytes it moves both ways;
-    `chunk.lanes` the chunk's lanes K and the bytes of its uploaded lane
-    planes."""
+    chunk `chunk.model`: its uploads, model pass and, on the host route,
+    probs download), lanes_s (per chunk `chunk.lanes`: its lane encode).
+    `chunk.model` counts the chunk's bins and (count2) the bytes it moves
+    both ways; `chunk.lanes` the chunk's lanes K and (count2) the bytes it
+    moves.
+
+    A chunk takes the card route (_dense_on_card) on a CUDA device under
+    impl "v2" where its export carries the native tables; every other
+    chunk, and every chunk on "cpu", takes the host route:
+    device_probs and device_blob, which upload int32 planes built on the
+    host and bring the probs back between them."""
     an, chunks = read_dense(session, mp.default_sup(), sc)
     probs, blobs = [], []
-    for i, c in enumerate(chunks):
-        moved: list = []
-        with sc.span("chunk.model", chunk=i, count=len(c.bit)) as sp:
-            p = device_probs(an, c, device, moved=moved)
-            sp.count2 = sum(moved)
-        K = force_lanes or pick_lanes(len(c.bit))
-        moved = []
-        with sc.span("chunk.lanes", chunk=i, count=K) as sp:
-            blobs.append(device_blob(an, c, device, probs=p, force_lanes=K, moved=moved))
-            sp.count2 = sum(moved)
-        if keep_probs:
-            probs.append(p)
+    v2 = mp.default_impl() == "v2"
+    with cs.for_call(device) as streams:
+        for i, c in enumerate(chunks):
+            K = force_lanes or pick_lanes(len(c.bit))
+            if streams and v2 and c.v2_bin_u is not None and len(c.bit):
+                blob, p = _dense_on_card(an, c, i, K, keep_probs, streams, sc)
+                blobs.append(blob)
+                if keep_probs:
+                    probs.append(p)
+                continue
+            moved: list = []
+            with sc.span("chunk.model", chunk=i, count=len(c.bit)) as sp:
+                p = device_probs(an, c, device, moved=moved)
+                sp.count2 = sum(moved)
+            moved = []
+            with sc.span("chunk.lanes", chunk=i, count=K) as sp:
+                blobs.append(device_blob(an, c, device, probs=p, force_lanes=K, moved=moved))
+                sp.count2 = sum(moved)
+            if keep_probs:
+                probs.append(p)
     extra = {"n_chunks": len(blobs)}
     if keep_probs:
         extra["probs"] = probs
     return blobs, extra
+
+
+def _dense_on_card(an, c: ChunkAnalysis, i: int, K: int, keep_probs: bool,
+                   streams: cs.CallStreams, sc) -> tuple[bytes, np.ndarray | None]:
+    """One profile-0 chunk with native tables on the card (ops.dense): in
+    `chunk.model` its narrow blob is packed into the call's pinned staging
+    bytes and uploaded on the copy stream, widened and padded there
+    (dense.expand) and run through model_pass_v2 on the compute stream; in
+    `chunk.lanes` the lane planes are written from the blob and the probs
+    on the card (dense.lane_planes), lane-scanned, the counts read back
+    through pinned memory, compacted and downloaded with the final states
+    (and the probs, under keep_probs). count2: the blob's bytes, then the
+    counts' and the download's. Returns the blob and the uint16 probs (or
+    None)."""
+    n = len(c.bit)
+    lay = dense.chunk_layout(an, c)
+    with torch.cuda.stream(streams.compute):
+        with sc.span("chunk.model", chunk=i, count=n) as sp:
+            blob = streams.upload_staged(lay.nbytes, lambda buf: dense.pack(c, lay, buf))
+            streams.uploaded()
+            probs = mp.model_pass_v2(*dense.expand(blob, lay), batch=int(an.batch),
+                                     sup=int(an.sup), fast_w=int(an.fast_w),
+                                     slow_w=int(an.slow_w), sig_w=int(an.sig_w),
+                                     sig_alpha=int(an.sig_alpha))
+            sp.count2 = lay.nbytes
+        with sc.span("chunk.lanes", chunk=i, count=K) as sp:
+            T = lx._bucket(-(-n // K))
+            scan = lx.lane_scan(*dense.lane_planes(blob, probs, lay, T, K))
+            ch = lx.encode_interleaved_compact(
+                lx.ScanHandle(*scan, n, K, streams.compute.record_event()), streams)
+            arrays = cs.to_host(lx.emit_tensors(ch) + ([probs[:n]] if keep_probs else []),
+                                streams)
+            out = lx.encode_interleaved_emit(ch, arrays[:2])
+            sp.count2 = ch.counts.nbytes + sum(a.nbytes for a in arrays)
+    return out, (arrays[2].astype(np.uint16) if keep_probs else None)
 
 
 def _compress_slim(session, device, force_lanes, keep_probs, sc,

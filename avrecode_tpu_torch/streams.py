@@ -19,7 +19,9 @@ send every allocation of every call to cudaMalloc).
     on it have ended, so a buffer is never refilled under a copy;
   - `upload`: a pinned tensor's copy on the copy stream; `uploaded` makes
     the compute stream wait (on the card, not the host) for every upload
-    issued so far;
+    issued so far; `upload_staged` fills and uploads the pair's own
+    pinned staging buffer, which it keeps across calls (profile 0's
+    chunk blobs);
   - `download`: copies device tensors into fresh pinned tensors on the copy
     stream once the compute stream reaches the point it is given (an event)
     or the present, and returns them with the event that ends the copies.
@@ -52,6 +54,8 @@ class CallStreams:
         self.device = device
         self.compute = torch.cuda.Stream(device)
         self.copy = torch.cuda.Stream(device)
+        self._staging = None  # upload_staged's pinned bytes, kept across calls
+        self._staged = None   # the copy stream's event after their last upload
 
     def upload(self, host: torch.Tensor) -> torch.Tensor:
         """`host` (pinned) on the card, copied on the copy stream without
@@ -59,6 +63,24 @@ class CallStreams:
         with torch.cuda.stream(self.copy):
             t = host.to(self.device, non_blocking=True)
         t.record_stream(self.compute)
+        return t
+
+    def upload_staged(self, nbytes: int, fill) -> torch.Tensor:
+        """`fill(buf)` writes `nbytes` into buf (a numpy uint8 view of this
+        pair's pinned staging bytes), which are then uploaded as upload()
+        does. The staging bytes are one buffer, grown to a power of two at
+        least the largest `nbytes` asked for and kept with the pair across
+        calls, so a call fills pages that are already pinned and touched;
+        the fill first waits for the buffer's previous upload to end."""
+        if self._staged is not None:
+            self._staged.synchronize()
+        if self._staging is None or self._staging.numel() < nbytes:
+            self._staging = None  # the old block goes back before the larger one is taken
+            self._staging = pinned(1 << max(nbytes - 1, 0).bit_length(), torch.uint8)
+        host = self._staging[:nbytes]
+        fill(host.numpy())
+        t = self.upload(host)
+        self._staged = self.copy.record_event()
         return t
 
     def uploaded(self) -> None:

@@ -17,8 +17,10 @@ bytes of `call` and `corpus.file`, the files of `corpus.pool`, the wire
 bytes of `chunk.stage`, the slices of `native.pass1` (`count2`: its
 threads), the bins of `native.trace_walk` and `native.dense_walk`, the
 bins of `chunk.model` (`count2`: the bytes its model pass moves between
-host and device, both ways), the lanes of `chunk.lanes` (`count2`: the
-bytes of its uploaded lane planes), the host-input bytes of `mesh.pack`
+host and device, both ways; on profile 0's card route the chunk's narrow
+blob), the lanes of `chunk.lanes` (`count2`: the bytes of its uploaded
+lane planes; on the card route the lane counts and the download), the
+host-input bytes of `mesh.pack`
 (`count2`: its chunks), the lanes K of `mesh.step`, the bytes downloaded
 by `mesh.fetch`, and the bytes of `native.export`,
 `native.dense_export`, `native.v2_tables`, `native.copyout` and
@@ -37,8 +39,10 @@ The spans, by where they are opened:
       downloads) and per chunk `chunk.emit` (its blob's assembly); under
       profile 0 `call.begin`, `call.header`, then per chunk `chunk.fetch`
       (the wait for the chunk's export and its hand-over), `call.parse`
-      (its parse), `chunk.model` (uploads, model pass, probs download) and
-      `chunk.lanes` (lane planes' upload and encode); then `call.pack`;
+      (its parse), `chunk.model` (uploads, model pass, probs download; on
+      the card route the pack, the one upload, the expand and the pass) and
+      `chunk.lanes` (lane planes' upload and encode; on the card route the
+      planes written there and the encode); then `call.pack`;
   device.compress_mesh: a root `call` with `call.open`, `call.begin`,
       `call.header`, per chunk `chunk.fetch`, `chunk.take`, `chunk.parse`
       (the walk of every chunk), then `mesh.pack` (every chunk packed for

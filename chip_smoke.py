@@ -54,6 +54,13 @@ Phases; any failure ends the script with a nonzero exit code:
    The v2 fallback: bench.mp4's profile-0 chunk 0 without the native v2
    tables, which device_probs builds on the host, equals the host model
    and run_chunk_v2_tables.
+   Profile 0's card route (ops/dense.py): dense_expand and dense_lanes
+   against their plain versions and the host route's staging
+   (v2_tables_inputs, interleaved_planes) on every profile-0 chunk of
+   both clips, timed with the staging both ways (the host route's
+   pageable uploads and probs download against the pack into pinned
+   memory and its one upload) on perfbench/clips/camera1080.mp4's largest
+   chunk, the cell p0_v2.archive's.
    All values are integers, so the tolerance is 0;
 3. main paths, each with the launch counters set to 0 just before it and
    read just after:
@@ -134,7 +141,10 @@ JAX_PKG = os.path.join(REPO, "avrecode_tpu")
 PROFILE2_KERNELS = ("wire_expand", "dual0_expand", "model_pass_v4", "lane_scan_dev",
                     "lane_compact")
 PROFILE0_KERNELS = ("model_pass_v2", "model_pass_dict", "model_pass", "lane_scan",
-                    "lane_compact")
+                    "lane_compact", "dense_expand", "dense_lanes")
+# The cell p0_v2.archive's file: the dense kernels are timed on its largest
+# profile-0 chunk.
+DENSE_CLIP = "perfbench/clips/camera1080.mp4"
 MESH_KERNELS = ("wire_expand", "model_pass_v4", "lane_scan", "sharded_v4_compress_step")
 RECOMPRESS_KERNELS = ("model_pass", "lane_scan", "sharded_recompress_step")
 # The corpus_clips phase's plain versions run in this many processes on the
@@ -278,6 +288,11 @@ class Kernels:
                             "avrecode_tpu/ops/model_pass.py:530"),
         "model_pass": ("avrecode_tpu_torch/csrc/model_pass.cu",
                        "avrecode_tpu/ops/model_pass.py:636"),
+        # profile 0's staging, which the JAX package does on the host
+        "dense_expand": ("avrecode_tpu_torch/csrc/wire_expand.cu",
+                         "avrecode_tpu/ops/model_pass.py:901"),
+        "dense_lanes": ("avrecode_tpu_torch/csrc/wire_expand.cu",
+                        "avrecode_tpu/ops/lanes.py:196"),
     }
     # The mesh steps: the kernels each one launches (their counters).
     STEPS = {
@@ -981,6 +996,150 @@ def profile0_kernel_phase(K: Kernels, an, dev) -> None:
     K.steps["lane_scan"] = chain_steps(valid)
     print(f"lane_scan == plain on {what} (T={T}, K={lanes}); plain version: one run of "
           f"its Python step loop, timed once on the host clock: {plain_s:.3f} s", flush=True)
+
+
+def dense_kernel_phase(K: Kernels, refs0: dict, dev) -> None:
+    """Profile 0's card route (ops/dense.py) against the host route it
+    replaces: on every chunk of both clips (batch 4096, sup 128) each
+    chunk's packed blob through dense_expand == its plain version ==
+    v2_tables_inputs, the pass on it == the host model, and dense_lanes ==
+    its plain version == interleaved_planes at K = pick_lanes(n) and 7.
+    Timed on camera1080.mp4's largest chunk, the cell p0_v2.archive's: the
+    kernels (mean of 10), their plain versions (once, host clock), and the
+    staging both ways: the host route's v2_tables_inputs to the card, probs
+    download and interleaved_planes to the card (host clock, the card
+    synchronised, median of 5) against the pack into the call's pinned
+    staging buffer (host clock, median of 5 warm) and its one upload (CUDA
+    events on the copy stream, mean of 10)."""
+    import statistics
+    import numpy as np
+    import torch
+    from avrecode_tpu_torch import device as td
+    from avrecode_tpu_torch import streams as cs
+    from avrecode_tpu_torch.ops import dense
+    from avrecode_tpu_torch.ops import lanes as lx
+    from avrecode_tpu_torch.ops import model_pass as mp
+
+    def kw(an):
+        return dict(batch=an.batch, sup=an.sup, fast_w=an.fast_w, slow_w=an.slow_w,
+                    sig_w=an.sig_w, sig_alpha=an.sig_alpha)
+
+    def host_inputs(an, c):
+        return mp.v2_tables_inputs(
+            c.kind, c.prior, c.pre_ones, c.pre_tot, c.v2_m, c.v2_bin_u, c.v2_dk_d, c.v2_dk_s,
+            c.v2_dd, c.v2_ds, c.dual0, an.batch, an.sup, an.fast_w, an.slow_w, an.sig_w,
+            an.sig_alpha, an.n_sig, td._sig0_dense(c, an.n_sig), device=dev)[0]
+
+    def case(an, c, what):
+        """Checks one chunk; returns (lay, blob on the card, its host copy,
+        the pass's probs on the card, the host route's inputs)."""
+        n = len(c.bit)
+        lay = dense.chunk_layout(an, c)
+        buf = np.empty(lay.nbytes, np.uint8)
+        dense.pack(c, lay, buf)
+        host_blob = torch.from_numpy(buf)
+        blob = host_blob.to(dev)
+        got, want = dense.expand(blob, lay), host_inputs(an, c)
+        for g, p, w in zip(got, dense.expand(host_blob, lay), want, strict=True):
+            K.check("dense_expand", g, p, what)
+            K.check("dense_expand", g, w, f"{what} (v2_tables_inputs)")
+        probs = mp.model_pass_v2(*got, **kw(an))
+        if not np.array_equal(probs[:n].cpu().numpy(), c.host_probs.astype(np.int32)):
+            raise AssertionError(f"model_pass_v2 on dense_expand's inputs != host probs on "
+                                 f"{what}")
+        for lanes in (td.pick_lanes(n), 7):
+            T = lx._bucket(-(-n // lanes))
+            planes = dense.lane_planes(blob, probs, lay, T, lanes)
+            plain = dense.lane_planes(host_blob, probs.cpu(), lay, T, lanes)
+            host_planes = lx.interleaved_planes(c.bit, c.host_probs, lanes, dev)
+            for g, p, w in zip(planes, plain, host_planes, strict=True):
+                K.check("dense_lanes", g, p, f"{what}, K={lanes}")
+                K.check("dense_lanes", g, w, f"{what}, K={lanes} (interleaved_planes)")
+        return lay, blob, host_blob, probs, want
+
+    chunks = 0
+    for clip, an in refs0.items():
+        for i, c in enumerate(an.chunks):
+            case(an, c, f"{clip} profile-0 chunk {i} (n={len(c.bit)}, m={c.v2_m})")
+            chunks += 1
+    print(f"dense_expand == plain == v2_tables_inputs and dense_lanes == plain == "
+          f"interleaved_planes (K = pick_lanes, 7) on all {chunks} profile-0 chunks of "
+          f"{list(refs0)}; the pass on the expanded inputs == host probs", flush=True)
+
+    with open(os.path.join(REPO, DENSE_CLIP), "rb") as f:
+        an = td.analyze(f.read(), batch_size=BATCH, model_profile=0, sup=SUP)
+    c = max(an.chunks, key=lambda ch: len(ch.bit))
+    n = len(c.bit)
+    lanes = td.pick_lanes(n)
+    T = lx._bucket(-(-n // lanes))
+    what = f"{DENSE_CLIP}'s largest profile-0 chunk (n={n}, m={c.v2_m}, T={T}, K={lanes})"
+    lay, blob, host_blob, probs, want = case(an, c, what)
+    got = dense.expand(blob, lay)
+    K.ms["dense_expand"] = cuda_ms(lambda: dense.expand(blob, lay), 10)
+    K.plain_ms["dense_expand"] = host_timed(lambda: dense.expand(host_blob, lay))[1] * 1e3
+    K.ms["dense_lanes"] = cuda_ms(lambda: dense.lane_planes(blob, probs, lay, T, lanes), 10)
+    host_probs = probs.cpu()
+    K.plain_ms["dense_lanes"] = host_timed(
+        lambda: dense.lane_planes(host_blob, host_probs, lay, T, lanes))[1] * 1e3
+    tables_in = sum(lay.counts[8:12])
+    K.work["dense_expand"] = (7 * n + 16 * lay.m + 6 * (lay.counts[8] + lay.counts[9])
+                              + 2 * (lay.counts[10] + lay.counts[11])
+                              + 4 * (got[9].numel() + got[10].numel()),
+                              4 * lay.m + tables_in)
+    K.work["dense_lanes"] = (5 * n + 9 * T * lanes, 3 * T * lanes)
+
+    # The staging both ways: the host route as device_probs and device_blob
+    # run it, the card route as _dense_on_card does.
+    def median_s(fn, reps=5):
+        return statistics.median(host_timed(fn)[1] for _ in range(reps))
+
+    pass_probs = mp.model_pass_v2(*want, **kw(an))
+    probs_u16 = pass_probs[:n].cpu().numpy().astype(np.uint16)
+    host_route = {"inputs_s": median_s(lambda: host_inputs(an, c)),
+                  "probs_down_s": median_s(
+                      lambda: pass_probs[:n].cpu().numpy().astype(np.uint16)),
+                  "planes_s": median_s(lambda: lx.interleaved_planes(c.bit, probs_u16, lanes,
+                                                                     dev)),
+                  "bytes": nbytes(*want) + 4 * n + nbytes(*lx.interleaved_planes(
+                      c.bit, probs_u16, lanes, dev))}
+    streams = cs.CallStreams(dev)
+    pack_s = []
+
+    def fill(buf):
+        t0 = time.perf_counter()
+        dense.pack(c, lay, buf)
+        pack_s.append(time.perf_counter() - t0)
+
+    for _ in range(6):
+        staged = streams.upload_staged(lay.nbytes, fill)
+        torch.cuda.synchronize()
+    staged = staged.cpu()  # the gaps between segments are never written: compare segments
+    if not all(torch.equal(dense._seg(staged, lay, k), dense._seg(host_blob, lay, k))
+               for k in range(len(dense.SEGMENTS))):
+        raise AssertionError(f"upload_staged's blob != the packed blob on {what}")
+    pinned = streams._staging[:lay.nbytes]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    streams.upload(pinned)
+    torch.cuda.synchronize()
+    start.record(streams.copy)
+    for _ in range(10):
+        streams.upload(pinned)
+    end.record(streams.copy)
+    torch.cuda.synchronize()
+    upload_ms = start.elapsed_time(end) / 10
+    host_ms = 1e3 * (host_route["inputs_s"] + host_route["probs_down_s"]
+                     + host_route["planes_s"])
+    pack_ms = 1e3 * statistics.median(pack_s[1:])
+    K.extra["dense_expand"] = {"shape": what, "blob_bytes": lay.nbytes,
+                               "pack_ms": pack_ms, "upload_ms": upload_ms,
+                               "host_route_ms": host_ms, "host_route_bytes": host_route["bytes"]}
+    print(f"profile-0 staging of {what}: host route {host_ms:.1f} ms (v2_tables_inputs to the "
+          f"card {host_route['inputs_s'] * 1e3:.1f}, probs down "
+          f"{host_route['probs_down_s'] * 1e3:.1f}, interleaved_planes to the card "
+          f"{host_route['planes_s'] * 1e3:.1f}; {host_route['bytes']} B over the bus); card "
+          f"route: pack {pack_ms:.1f} ms into warm pinned memory, upload {upload_ms:.3f} ms "
+          f"({lay.nbytes / upload_ms / 1e6:.1f} GB/s) of {lay.nbytes} B, dense_expand "
+          f"{K.ms['dense_expand']:.3f} ms, dense_lanes {K.ms['dense_lanes']:.3f} ms", flush=True)
 
 
 def mesh_grids(dev, wide: bool = False):
@@ -1897,8 +2056,8 @@ def main() -> int:
         from avrecode_tpu_torch import device as td
     except ImportError as e:
         fail(f"the port is not importable here ({e}); run from the repository root")
-    if not all(os.path.exists(os.path.join(REPO, c)) for c in CLIPS):
-        fail(f"missing {CLIPS}")
+    if not all(os.path.exists(os.path.join(REPO, c)) for c in (*CLIPS, DENSE_CLIP)):
+        fail(f"missing {CLIPS} or {DENSE_CLIP}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the GPU only")
 
@@ -1931,6 +2090,7 @@ def main() -> int:
     expand_compact_cases(K, dev)
     scan_cases(K, dev)
     profile0_kernel_phase(K, refs0[CLIPS[0]], dev)
+    dense_kernel_phase(K, refs0, dev)
     mesh_kernel_phase(K, mesh_an, dev)
     recompress_step, recompress_in = recompress_kernel_phase(K, dev)
     for name, ms in K.ms.items():
